@@ -1,0 +1,586 @@
+"""Hopper kernels of the keyed graph-plane step, with their plain versions.
+
+These replace the TPU kernel ``graph_plane_step_pallas``
+(fantoch_tpu/ops/pallas_resolve.py:334, body ``_graph_step_kernel`` :297,
+tracing ``graph_plane_step_core`` in fantoch_tpu/ops/graph_resolve.py:883)
+for the ``keyed`` mode.  On the TPU that kernel is one program resident in
+VMEM; on an H100 the step is a short chain of launches from
+``csrc/graph_plane_step.cu``, composed by ``ops/graph_resolve.py``.
+
+Every stage below is one wrapper with three things beside it:
+
+* a plain PyTorch version (``<stage>_plain``) of the same function, which
+  the wrapper runs for CPU tensors and ``chip_smoke.py`` holds the kernel
+  against on the card;
+* a launch counter (``LAUNCHES[<stage>]``), raised by one where the wrapper
+  launches its kernels and nowhere else;
+* a note naming what bounds the kernel on this card and what its design
+  does about that.
+
+A wrapper given CUDA tensors launches its kernels or raises; it never falls
+back to the plain version.  All work is int32/bool, so kernel and plain
+version agree bit for bit.
+
+Preconditions the plane guarantees (and the plain prologue asserts): the
+non-pad install rows of one dispatch are distinct, and so are the non-pad
+patch cells — scatter order with duplicate indices is undefined in the
+reference too.  Pad index ``C`` (or any index outside ``[0, C)``) is
+masked, never written: the reference's ``mode="drop"``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+TERMINAL = -1
+MISSING = -2
+INT32_MAX = (1 << 31) - 1
+# packed emit key of the final sort: (unresolved << 30) | target position
+EMIT_UNRESOLVED_BIT = 1 << 30
+
+LAUNCHES: Dict[str, int] = {
+    "graph_prologue": 0,
+    "lex_sort": 0,
+    "link_scan": 0,
+    "residual_view": 0,
+    "group_scan": 0,
+    "pointer_doubling": 0,
+    "emit_scatter": 0,
+    "plane_epilogue": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def num_doubling_steps(batch: int) -> int:
+    """Steps so that 2^L >= 2*batch: a walk of 2^L hops from any vertex of a
+    non-terminating component has fully wrapped its cycle at least once."""
+    steps = 1
+    while (1 << steps) < 2 * max(batch, 2):
+        steps += 1
+    return steps
+
+
+# ---------------------------------------------------------------------------
+# ctypes plumbing
+# ---------------------------------------------------------------------------
+
+
+# the C launchers of csrc/graph_plane_step.cu: "p" a device pointer, "i"
+# an int; every launcher takes the stream last and returns cudaError_t
+_SIGNATURES = {
+    "gp_prologue": "p" * 17 + "i" * 5,
+    "gp_sort_pass": "pipppp" + "ii",
+    "gp_link_scan": "p" * 8 + "i",
+    "gp_residual_view": "p" * 13 + "iii",
+    "gp_group_scan": "pppp" + "i",
+    "gp_pointer_doubling": "p" * 7 + "ii",
+    "gp_emit_scatter": "p" * 8 + "iii",
+    "gp_epilogue": "p" * 5 + "i",
+}
+_lib_handle = None
+
+
+def _lib():
+    global _lib_handle
+    if _lib_handle is None:
+        from fantoch_tpu_torch.ops import _build
+
+        lib = _build.load("graph_plane_step")
+        for name, sig in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [
+                ctypes.c_void_p if c == "p" else ctypes.c_int for c in sig
+            ] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _launch(fn: str, device: torch.device, *args) -> None:
+    """Call one C launcher on the current stream; it returns
+    ``cudaGetLastError()`` after its launches, and a refused launch raises
+    here (``torch.cuda.synchronize`` would never report it)."""
+    sig = _SIGNATURES[fn]
+    assert len(args) == len(sig), (fn, len(args), len(sig))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    values = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = getattr(_lib(), fn)(*values, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {fn} failed with error {err}")
+
+
+def _check(tensor: torch.Tensor, dtype: torch.dtype, name: str, numel=None) -> None:
+    if not tensor.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor (got {tensor.device})")
+    if tensor.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} (got {tensor.dtype})")
+    if not tensor.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if numel is not None and tensor.numel() != numel:
+        raise ValueError(f"{name} must hold {numel} elements (got {tensor.numel()})")
+
+
+def _i32(n: int, device, fill: Optional[int] = None) -> torch.Tensor:
+    if fill is None:
+        return torch.empty(n, dtype=torch.int32, device=device)
+    return torch.full((n,), fill, dtype=torch.int32, device=device)
+
+
+def _b(n: int, device) -> torch.Tensor:
+    return torch.empty(n, dtype=torch.bool, device=device)
+
+
+# ---------------------------------------------------------------------------
+# 1. prologue: install + patch + executed marks, then fold + keyed compress
+# ---------------------------------------------------------------------------
+# Bound: bytes.  One pass over the int32[C, W] dep matrix (read for the
+# fold) plus the key/occ/executed columns and the col/pk outputs; installs
+# and patches are scattered writes of U and P cells.  Design: three
+# launches — install, then patches and marks (which touch different
+# arrays), then the per-row fold/compress that reads ``executed`` of the
+# dep targets once every mark has landed.  Splitting install from patch
+# keeps the reference's order (install, then patch, then marks) when a
+# dispatch patches or marks a row it also installs.
+
+
+def graph_prologue_plain(
+    deps, key, src, seq, occ, executed,
+    u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Updates the resident state in place; returns the keyed dependency
+    column ``col[C]`` and the run keys ``pk[C]`` (pending rows keep their
+    key, non-pending rows get the private pad key ``INT32_MAX - idx``)."""
+    cap, width = deps.shape
+    m = (u_row >= 0) & (u_row < cap)
+    rows = u_row[m].long()
+    assert torch.unique(rows).numel() == rows.numel(), "duplicate install row"
+    deps[rows] = u_deps[m]
+    key[rows] = u_key[m]
+    src[rows] = u_src[m]
+    seq[rows] = u_seq[m]
+    occ[rows] = True
+    executed[rows] = False
+    m = (p_row >= 0) & (p_row < cap) & (p_col >= 0) & (p_col < width)
+    cells = p_row[m].long() * width + p_col[m].long()
+    assert torch.unique(cells).numel() == cells.numel(), "duplicate patch cell"
+    deps.view(-1)[cells] = p_val[m]
+    m = (e_row >= 0) & (e_row < cap)
+    executed[e_row[m].long()] = True
+
+    pending = occ & ~executed
+    safe = deps.clamp(0, cap - 1).long()
+    dmat = torch.where((deps >= 0) & executed[safe], TERMINAL, deps)
+    dmat = torch.where(pending[:, None], dmat, TERMINAL)
+    live = dmat >= 0
+    first = live.to(torch.int32).argmax(dim=1, keepdim=True)
+    col = dmat.gather(1, first)[:, 0]
+    col = torch.where(
+        live.any(dim=1),
+        col,
+        torch.where((dmat == MISSING).any(dim=1), MISSING, TERMINAL),
+    ).to(torch.int32)
+    idx = torch.arange(cap, dtype=torch.int32, device=deps.device)
+    pk = torch.where(pending, key, INT32_MAX - idx).to(torch.int32)
+    return col, pk
+
+
+def graph_prologue(
+    deps, key, src, seq, occ, executed,
+    u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
+):
+    if not deps.is_cuda:
+        return graph_prologue_plain(
+            deps, key, src, seq, occ, executed,
+            u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
+        )
+    cap, width = deps.shape
+    U, P, E = u_row.numel(), p_row.numel(), e_row.numel()
+    _check(deps, torch.int32, "deps")
+    for name, t in (("key", key), ("src", src), ("seq", seq)):
+        _check(t, torch.int32, name, cap)
+    _check(occ, torch.bool, "occ", cap)
+    _check(executed, torch.bool, "executed", cap)
+    _check(u_deps, torch.int32, "u_deps", U * width)
+    for name, t in (("u_row", u_row), ("u_key", u_key), ("u_src", u_src),
+                    ("u_seq", u_seq)):
+        _check(t, torch.int32, name, U)
+    for name, t in (("p_row", p_row), ("p_col", p_col), ("p_val", p_val)):
+        _check(t, torch.int32, name, P)
+    _check(e_row, torch.int32, "e_row", E)
+    col = _i32(cap, deps.device)
+    pk = _i32(cap, deps.device)
+    _launch(
+        "gp_prologue", deps.device,
+        deps, key, src, seq, occ, executed,
+        u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
+        col, pk, cap, width, U, P, E,
+    )
+    LAUNCHES["graph_prologue"] += 1
+    return col, pk
+
+
+# ---------------------------------------------------------------------------
+# 2. stable lexicographic sort over up to 8 int32/bool columns
+# ---------------------------------------------------------------------------
+# Bound: bytes — each key column read once and the permutation written
+# once.  Design: LSD passes from the last key to the first; each pass sorts
+# 64-bit words ``(biased key << 32) | position`` with a bitonic network over
+# a power-of-two padding, so the position makes every pass stable and the
+# original index is the last key.  Strides below 2048 run in shared memory
+# (one launch per merge level), larger strides one global launch each.  A
+# bitonic network does O(n log^2 n) compare-exchanges against a radix
+# sort's O(n) passes; it is the simple, right first version.
+
+
+def lex_sort_plain(
+    keys: Sequence[torch.Tensor],
+    invert: Sequence[bool] = (),
+    through: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The stable lexicographic argsort (``keys[0]`` most significant, the
+    index last) as int32; bool keys may be ``invert``-ed (sort ``~k``);
+    with ``through`` the result is ``through[perm]``."""
+    n = keys[0].shape[0]
+    perm = torch.arange(n, device=keys[0].device)
+    flips = list(invert) + [False] * (len(keys) - len(invert))
+    for k, flip in zip(reversed(list(keys)), reversed(flips)):
+        kk = k[perm]
+        if kk.dtype == torch.bool:
+            kk = (~kk if flip else kk).to(torch.int32)
+        perm = perm[torch.sort(kk, stable=True).indices]
+    if through is not None:
+        return through[perm].to(torch.int32)
+    return perm.to(torch.int32)
+
+
+def lex_sort(
+    keys: Sequence[torch.Tensor],
+    invert: Sequence[bool] = (),
+    through: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    if not keys[0].is_cuda:
+        return lex_sort_plain(keys, invert, through)
+    assert 1 <= len(keys) <= 8, "lex_sort takes 1..8 key columns"
+    n = keys[0].numel()
+    device = keys[0].device
+    flips = list(invert) + [False] * (len(keys) - len(invert))
+    for k in keys:
+        if k.dtype not in (torch.int32, torch.bool):
+            raise ValueError(f"lex_sort keys must be int32 or bool, got {k.dtype}")
+        _check(k, k.dtype, "sort key", n)
+    if through is not None:
+        _check(through, torch.int32, "through", n)
+    npad = 2
+    while npad < n:
+        npad *= 2
+    vals = torch.empty(npad, dtype=torch.int64, device=device)
+    out = _i32(n, device)
+    bufs = (_i32(n, device), _i32(n, device)) if len(keys) > 1 else ()
+    perm = None
+    for i, (k, flip) in enumerate(zip(reversed(list(keys)), reversed(flips))):
+        last = i == len(keys) - 1
+        kind = 0 if k.dtype == torch.int32 else (2 if flip else 1)
+        dest = out if last else bufs[i % 2]
+        _launch(
+            "gp_sort_pass", device, k, kind, perm, vals,
+            through if last else None, dest, n, npad,
+        )
+        perm = dest
+    LAUNCHES["lex_sort"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 3. link scan: run heads, link check, run_start/lastbad cummax, chain_ok
+# ---------------------------------------------------------------------------
+# Bound: bytes (gathers of pk/col through the sort permutation, then two
+# streaming scans).  Design: block-wide Hillis-Steele max scans in shared
+# memory with carried block totals (reduce, one-block carry scan, apply);
+# the residual count is a warp-reduced atomicAdd, exact for integers.
+
+
+def link_scan_plain(pk, col, pos_s):
+    """Returns (dep_s, run_start, chain_ok, n_residual int32[1])."""
+    n = pk.shape[0]
+    pl = pos_s.long()
+    k_s = pk[pl]
+    dep_s = col[pl]
+    p = torch.arange(n, dtype=torch.int32, device=pk.device)
+    head = torch.ones(n, dtype=torch.bool, device=pk.device)
+    head[1:] = k_s[1:] != k_s[:-1]
+    prev_pos = torch.roll(pos_s, 1)
+    ok = torch.where(head, dep_s == TERMINAL, dep_s == prev_pos)
+    run_start = torch.cummax(torch.where(head, p, 0), 0).values.to(torch.int32)
+    lastbad = torch.cummax(torch.where(~ok, p, -1), 0).values
+    chain_ok = lastbad < run_start
+    n_residual = (n - chain_ok.sum()).to(torch.int32).reshape(1)
+    return dep_s.to(torch.int32), run_start, chain_ok, n_residual
+
+
+def link_scan(pk, col, pos_s):
+    if not pk.is_cuda:
+        return link_scan_plain(pk, col, pos_s)
+    n = pk.numel()
+    for name, t in (("pk", pk), ("col", col), ("pos_s", pos_s)):
+        _check(t, torch.int32, name, n)
+    device = pk.device
+    dep_s = _i32(n, device)
+    run_start = _i32(n, device)
+    chain_ok = _b(n, device)
+    n_residual = _i32(1, device, 0)
+    scratch = _i32(2 * n + 4 * _blocks(n), device)
+    _launch(
+        "gp_link_scan", device, pk, col, pos_s, dep_s, run_start, chain_ok,
+        n_residual, scratch, n,
+    )
+    LAUNCHES["link_scan"] += 1
+    return dep_s, run_start, chain_ok, n_residual
+
+
+def _blocks(n: int) -> int:
+    return max(1, (n + 1023) // 1024)
+
+
+# ---------------------------------------------------------------------------
+# 4. residual view: gathers of the compacted residual + local dep remap
+# ---------------------------------------------------------------------------
+# Bound: bytes (res_n-row gathers, a C-row remap fill).  Design: one
+# gather launch that also scatters ``remap[rpos] = r`` (residual positions
+# are distinct), then one launch for the local deps once the remap landed.
+
+
+def residual_view_plain(p_r, pos_s, dep_s, run_start, src, seq, n_residual: int):
+    """Returns (rpos, rrs, rsrc, rseq, rdep_local) over the res_n rows."""
+    batch = pos_s.shape[0]
+    res_n = p_r.shape[0]
+    device = p_r.device
+    r_iota = torch.arange(res_n, dtype=torch.int32, device=device)
+    valid = r_iota < n_residual
+    prl = p_r.long()
+    rpos = pos_s[prl]
+    rdep = dep_s[prl]
+    rrs = torch.where(valid, run_start[prl], INT32_MAX).to(torch.int32)
+    rsrc = src[rpos.long()]
+    rseq = seq[rpos.long()]
+    remap = torch.full((batch,), TERMINAL, dtype=torch.int32, device=device)
+    remap[rpos[valid].long()] = r_iota[valid]
+    local = torch.where(rdep >= 0, remap[rdep.clamp(0, batch - 1).long()], rdep)
+    rdep_local = torch.where(valid, local, TERMINAL).to(torch.int32)
+    return rpos, rrs, rsrc, rseq, rdep_local
+
+
+def residual_view(p_r, pos_s, dep_s, run_start, src, seq, n_residual: int):
+    if not p_r.is_cuda:
+        return residual_view_plain(p_r, pos_s, dep_s, run_start, src, seq, n_residual)
+    batch, res_n = pos_s.numel(), p_r.numel()
+    device = p_r.device
+    _check(p_r, torch.int32, "p_r", res_n)
+    for name, t in (("pos_s", pos_s), ("dep_s", dep_s), ("run_start", run_start),
+                    ("src", src), ("seq", seq)):
+        _check(t, torch.int32, name, batch)
+    rpos, rrs, rsrc, rseq, rdep_local = (_i32(res_n, device) for _ in range(5))
+    scratch = _i32(res_n, device)
+    remap = _i32(batch, device, TERMINAL)
+    _launch(
+        "gp_residual_view", device, p_r, pos_s, dep_s, run_start, src, seq,
+        rpos, rrs, rsrc, rseq, rdep_local, scratch, remap, res_n, batch,
+        min(n_residual, INT32_MAX),
+    )
+    LAUNCHES["residual_view"] += 1
+    return rpos, rrs, rsrc, rseq, rdep_local
+
+
+# ---------------------------------------------------------------------------
+# 5. group scan: residual groups, firstbad cummax, emit targets
+# ---------------------------------------------------------------------------
+# Bound: bytes (three res_n-row int32 streams in, one out).  Design: the
+# link scan's block max-scan machinery at residual scale.
+
+
+def group_scan_plain(rrs, p_r):
+    """target_r = firstbad + emit_local over the residual rows."""
+    m = rrs.shape[0]
+    r = torch.arange(m, dtype=torch.int32, device=rrs.device)
+    g_head = torch.ones(m, dtype=torch.bool, device=rrs.device)
+    g_head[1:] = rrs[1:] != rrs[:-1]
+    firstbad = torch.cummax(torch.where(g_head, p_r, 0), 0).values
+    emit_local = r - torch.cummax(torch.where(g_head, r, 0), 0).values
+    return (firstbad + emit_local).to(torch.int32)
+
+
+def group_scan(rrs, p_r):
+    if not rrs.is_cuda:
+        return group_scan_plain(rrs, p_r)
+    m = rrs.numel()
+    _check(rrs, torch.int32, "rrs", m)
+    _check(p_r, torch.int32, "p_r", m)
+    target = _i32(m, rrs.device)
+    scratch = _i32(2 * m + 4 * _blocks(m), rrs.device)
+    _launch("gp_group_scan", rrs.device, rrs, p_r, target, scratch, m)
+    LAUNCHES["group_scan"] += 1
+    return target
+
+
+# ---------------------------------------------------------------------------
+# 6. pointer doubling: _doubling_core (fantoch_tpu/ops/graph_resolve.py:96)
+# ---------------------------------------------------------------------------
+# Bound: bytes — but the gathers are random, so it runs at the card's
+# gather rate, not its streaming rate.  Design: one ping-pong launch per
+# doubling step (pointer jumping in place within one launch races), the
+# jump of every step kept for the cycle closure, whose scatter
+# ``.at[hop].max`` is an atomicOr into a zeroed flag column merged by a
+# second launch.  About 4 * log2(2n) launches.
+
+
+def pointer_doubling_plain(dep):
+    """(resolved, rank, leader, on_cycle): exact for any out-degree-<=1
+    graph over ``dep[n]`` (TERMINAL/MISSING sentinels)."""
+    n = dep.shape[0]
+    device = dep.device
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    steps = num_doubling_steps(n)
+    is_term = dep == TERMINAL
+    is_miss = dep == MISSING
+    absorbing = is_term | is_miss
+    jump = torch.where(absorbing, idx, dep)
+    acc = torch.where(absorbing, n, jump).to(torch.int32)
+    jumps_log = []
+    for _ in range(steps):
+        jumps_log.append(jump)
+        jl = jump.long()
+        acc = torch.minimum(acc, acc[jl])
+        jump = jump[jl]
+    end = jump.long()
+    nonterminating = ~(is_term[end] | is_miss[end])
+    cyc_leader = acc[end]
+    on_cycle = nonterminating & (idx == cyc_leader)
+    for hop in jumps_log:
+        contrib = torch.zeros(n, dtype=torch.int32, device=device)
+        contrib.index_add_(0, hop.long(), on_cycle.to(torch.int32))
+        on_cycle = on_cycle | ((contrib > 0) & nonterminating)
+    absorbing2 = absorbing | on_cycle
+    jump2 = torch.where(absorbing2, idx, dep)
+    dist2 = torch.where(absorbing2, 0, 1).to(torch.int32)
+    for _ in range(steps):
+        jl = jump2.long()
+        dist2 = dist2 + dist2[jl]
+        jump2 = jump2[jl]
+    j2 = jump2.long()
+    resolved = on_cycle | is_term[j2] | on_cycle[j2]
+    rank = torch.where(resolved, dist2, INT32_MAX).to(torch.int32)
+    leader = torch.where(on_cycle, cyc_leader, idx).to(torch.int32)
+    return resolved, rank, leader, on_cycle
+
+
+def pointer_doubling(dep):
+    if not dep.is_cuda:
+        return pointer_doubling_plain(dep)
+    n = dep.numel()
+    _check(dep, torch.int32, "dep", n)
+    device = dep.device
+    steps = num_doubling_steps(n)
+    resolved, on_cycle = _b(n, device), _b(n, device)
+    rank, leader = _i32(n, device), _i32(n, device)
+    # jumps of every step (the closure's hops) + 8 work columns
+    scratch = _i32((steps + 1) * n + 8 * n, device)
+    flags = torch.zeros(2 * n, dtype=torch.int32, device=device)
+    _launch(
+        "gp_pointer_doubling", device, dep, resolved, rank, leader, on_cycle,
+        scratch, flags, n, steps,
+    )
+    LAUNCHES["pointer_doubling"] += 1
+    return resolved, rank, leader, on_cycle
+
+
+# ---------------------------------------------------------------------------
+# 7. emit scatter: residual emit data back over the batch, packed sort key
+# ---------------------------------------------------------------------------
+# Bound: bytes (one C-row stream for the packed key, res_n-row scatter).
+# Design: an init launch over C, then the residual scatter (the emit
+# targets of one group are a permutation of its positions, so no two
+# threads write one cell).
+
+
+def emit_scatter_plain(e, p_r, l_resolved, target_r, chain_ok, n_residual: int):
+    """Returns (packed int32[C], resolved_b bool[C], n_unresolved int32[1])
+    in sorted space."""
+    batch = chain_ok.shape[0]
+    res_n = e.shape[0]
+    device = e.device
+    el = e.long()
+    e_p_r = p_r[el]
+    e_res = l_resolved[el]
+    valid = torch.arange(res_n, device=device) < n_residual
+    tgt_b = torch.arange(batch, dtype=torch.int32, device=device)
+    tgt_b[e_p_r[valid].long()] = target_r[valid]
+    res_b = chain_ok.clone()
+    res_b[e_p_r[valid].long()] = e_res[valid]
+    packed = torch.where(res_b, 0, EMIT_UNRESOLVED_BIT).to(torch.int32) | tgt_b
+    n_unres = (batch - res_b.sum()).to(torch.int32).reshape(1)
+    return packed, res_b, n_unres
+
+
+def emit_scatter(e, p_r, l_resolved, target_r, chain_ok, n_residual: int):
+    if not e.is_cuda:
+        return emit_scatter_plain(e, p_r, l_resolved, target_r, chain_ok, n_residual)
+    batch, res_n = chain_ok.numel(), e.numel()
+    device = e.device
+    for name, t in (("e", e), ("p_r", p_r), ("target_r", target_r)):
+        _check(t, torch.int32, name, res_n)
+    _check(l_resolved, torch.bool, "l_resolved", res_n)
+    _check(chain_ok, torch.bool, "chain_ok", batch)
+    packed = _i32(batch, device)
+    res_b = _b(batch, device)
+    n_unres = _i32(1, device, 0)
+    _launch(
+        "gp_emit_scatter", device, e, p_r, l_resolved, target_r, chain_ok,
+        packed, res_b, n_unres, res_n, batch, min(n_residual, INT32_MAX),
+    )
+    LAUNCHES["emit_scatter"] += 1
+    return packed, res_b, n_unres
+
+
+# ---------------------------------------------------------------------------
+# 8. epilogue: per-vertex resolved flag, newly, executed |= newly
+# ---------------------------------------------------------------------------
+# Bound: bytes (one C-row pass).  Design: ``flag_perm`` is a permutation,
+# so each vertex is written by exactly one thread and one launch suffices.
+
+
+def plane_epilogue_plain(occ, executed, flags=None, flag_perm=None):
+    """``resolved_v[flag_perm[p]] = flags[p]`` (identity perm when None,
+    all resolved when ``flags`` is None); returns ``newly`` and sets
+    ``executed |= newly`` in place."""
+    if flags is None:
+        resolved_v = torch.ones_like(occ)
+    elif flag_perm is None:
+        resolved_v = flags
+    else:
+        resolved_v = torch.empty_like(occ)
+        resolved_v[flag_perm.long()] = flags
+    newly = resolved_v & occ & ~executed
+    executed |= newly
+    return newly
+
+
+def plane_epilogue(occ, executed, flags=None, flag_perm=None):
+    if not occ.is_cuda:
+        return plane_epilogue_plain(occ, executed, flags, flag_perm)
+    n = occ.numel()
+    _check(occ, torch.bool, "occ", n)
+    _check(executed, torch.bool, "executed", n)
+    if flags is not None:
+        _check(flags, torch.bool, "flags", n)
+    if flag_perm is not None:
+        _check(flag_perm, torch.int32, "flag_perm", n)
+    newly = _b(n, occ.device)
+    _launch("gp_epilogue", occ.device, occ, executed, flags, flag_perm, newly, n)
+    LAUNCHES["plane_epilogue"] += 1
+    return newly
