@@ -17,13 +17,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    residual overflows into full-window pointer doubling.  Each whole
    dispatch is also held against the plain composition on CPU tensors;
    each kernel is timed (CUDA events) beside its plain version, its
-   byte bound and, for the sort, ``torch.sort`` as a yardstick;
+   byte bound and, for the sort, ``torch.sort`` as a yardstick — the sort
+   at each of its uses (key grouping, cflag compaction, the 4-key
+   overflow order, the 6-key emit order, the packed final sort);
 2. the main path end to end: ``GraphExecutor(Config(batched_graph_executor
    =True, device_graph_plane=True))`` on ``cuda`` takes the same 1M
-   commands (shuffled around feed boundaries) as ``GraphAddBatch`` feeds
-   of 250k; every command executes exactly once, each key in its
-   dependency-chain order, every dispatch went through the kernels
-   (prologue launches == plane dispatches) and the plane stayed healthy.
+   commands as ``GraphAddBatch`` feeds of 250k, first in arrival order
+   (with nothing resident and every dependency behind it, each feed takes
+   the batched graph's host fast path: no dispatch, reported, not
+   required), then shuffled around the feed boundaries — the run that
+   reaches the plane and its kernels; every command executes exactly
+   once, each key in its dependency-chain order, every dispatch went
+   through the kernels (prologue launches == plane dispatches) and the
+   plane stayed healthy.
 
 The last lines are the ``{"kernels": [...]}`` record, the card line and
 ``{"ok": true, "device": {...}}``.
@@ -166,6 +172,20 @@ class Checker:
         for name, fn in self.real.items():
             setattr(self.K, name, fn)
 
+    @staticmethod
+    def variant(name, args, kwargs):
+        """The call's use: the sort serves five, told apart by its keys."""
+        if name != "lex_sort":
+            return name
+        keys = args[0]
+        if len(keys) > 1:
+            return f"lex_sort, {len(keys)} keys"
+        if kwargs.get("through") is not None:
+            return "lex_sort, packed final sort"
+        import torch
+
+        return "lex_sort, 1 bool key" if keys[0].dtype == torch.bool else "lex_sort, 1 key"
+
     def _wrap(self, name):
         kernel = self.real[name]
         plain = getattr(self.K, f"{name}_plain")
@@ -179,11 +199,11 @@ class Checker:
             self.err[name] = max(self.err[name], err)
             self.count[name] += 1
             assert err == 0.0, f"{name}: kernel differs from its plain version"
-            # the first call at the largest row count (for the sort: the
-            # key grouping of the whole window)
+            # the first call at the largest row count, for each use
             size = tensors_of(args)[0].shape[0]
-            if name not in self.calls or size > self.calls[name][0]:
-                self.calls[name] = (size, saved, kwargs, got)
+            use = self.variant(name, args, kwargs)
+            if use not in self.calls or size > self.calls[use][0]:
+                self.calls[use] = (size, saved, kwargs, got)
             return got
 
         return run
@@ -283,19 +303,34 @@ def phase1(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
         checker.uninstall()
         gp_module.resolve_graph_plane_step = real_step
 
-    missing = [name for name in K.LAUNCHES if name not in checker.calls]
+    ran = {use.split(",")[0] for use in checker.calls}
+    missing = [name for name in K.LAUNCHES if name not in ran]
     assert not missing, f"phase 1 never ran {missing}"
-    records = {}
-    for name, (_size, args, kwargs, out) in checker.calls.items():
+    records, sort_uses = {}, []
+    for use, (_size, args, kwargs, out) in checker.calls.items():
+        name = use.split(",")[0]
         kernel, plain = checker.real[name], getattr(K, f"{name}_plain")
         ms = time_ms(kernel, args, kwargs)
         plain_ms = time_ms(plain, args, kwargs)
         library_ms = None
-        if name == "lex_sort" and len(args[0]) == 1 and not kwargs.get("invert"):
+        if name == "lex_sort" and len(args[0]) == 1 and args[0][0].dtype == torch.int32:
             library_ms = time_ms(
                 lambda k: torch.sort(k, stable=True), (args[0][0],), {}
             )
         nbytes = moved_bytes(name, args, out)
+        log(json.dumps({
+            "phase1_kernel": use, "launches": checker.count[name],
+            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "library_ms": library_ms,
+            "shape": describe(args),
+        }))
+        if name == "lex_sort":
+            sort_uses.append({
+                "use": use, "shape": describe(args), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "library_ms": library_ms,
+            })
+            if use != "lex_sort, 1 key":
+                continue  # the record's own numbers are the key grouping's
         records[name] = {
             "name": name,
             "route": "cuda",
@@ -310,18 +345,36 @@ def phase1(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
             "library_ms": library_ms,
             "shape": describe(args),
         }
-        log(json.dumps({
-            "phase1_kernel": name, "launches": checker.count[name],
-            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
-            "bound_ms": records[name]["bound_ms"], "library_ms": library_ms,
-            "shape": records[name]["shape"],
-        }))
+    records["lex_sort"]["uses"] = sort_uses
     return records
+
+
+def drive(executor, cols, cmds, RunTime, GraphAddBatch):
+    """Feed ``GraphExecutor`` the columns as ``GraphAddBatch`` feeds of
+    ``EXECUTOR_BATCH``; returns the executed sequences and the wall s."""
+    import torch
+
+    src, seq, key, packed = cols
+    clock = RunTime()
+    executed = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, len(src), EXECUTOR_BATCH):
+        cut = slice(s, s + EXECUTOR_BATCH)
+        executor.handle(
+            GraphAddBatch(src[cut], seq[cut], key[cut], packed[cut], cmds[cut]), clock
+        )
+        while (r := executor.to_clients()) is not None:
+            executed.append(r.rifl.sequence)
+    torch.cuda.synchronize()
+    return executed, time.perf_counter() - t0
 
 
 def phase2(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
            GraphExecutor, GraphAddBatch):
     n = BIG
+    # shuffled in windows of 64 within 4096 arrivals around each feed edge
+    # (an assumed model of cross-replica commit order, not a sourced one)
     order = arrival(n, EXECUTOR_BATCH, 4096, 64, SEED + 1)
     src, seq, key, packed, key_of = columns(n, order)
     t0 = time.perf_counter()
@@ -330,9 +383,28 @@ def phase2(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
         for s, q, k in zip(src.tolist(), seq.tolist(), key.tolist())
     ]
     setup_s = time.perf_counter() - t0
-    executor = GraphExecutor(
-        1, 0, Config(5, 2, batched_graph_executor=True, device_graph_plane=True)
+    config = Config(5, 2, batched_graph_executor=True, device_graph_plane=True)
+
+    # the north-star feed in arrival order: the host fast path, no dispatch
+    in_order = columns(n, np.arange(n))[:4]
+    position = np.empty(n, dtype=np.int64)
+    position[order] = np.arange(n)
+    executor = GraphExecutor(1, 0, config)
+    executed, wall_s = drive(
+        executor, in_order, [cmds[i] for i in position.tolist()], RunTime, GraphAddBatch
     )
+    check_chain_order(executed, key_of, n)
+    in_order_dispatches = executor.graph._plane.dispatches
+    log(f"phase 2: in arrival order, {n} commands executed exactly once in per-key "
+        f"chain order: {in_order_dispatches} dispatches, {n / wall_s:.1f} "
+        f"commands/s ({wall_s:.3f} s)")
+    log(json.dumps({"in_order_path": {
+        "commands": n, "dispatches": in_order_dispatches,
+        "wall_s": wall_s, "commands_per_s": n / wall_s,
+    }}))
+    del executor, executed
+
+    executor = GraphExecutor(1, 0, config)
     plane = executor.graph._plane
     assert plane._device.type == "cuda"
     real_step = gp_module.resolve_graph_plane_step
@@ -345,23 +417,12 @@ def phase2(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
         dispatch_ms.append((time.perf_counter() - t) * 1e3)
         return out
 
-    clock = RunTime()
-    executed = []
     gp_module.resolve_graph_plane_step = timed_step
     K.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     try:
-        for s in range(0, n, EXECUTOR_BATCH):
-            cut = slice(s, s + EXECUTOR_BATCH)
-            executor.handle(
-                GraphAddBatch(src[cut], seq[cut], key[cut], packed[cut], cmds[cut]),
-                clock,
-            )
-            while (r := executor.to_clients()) is not None:
-                executed.append(r.rifl.sequence)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        executed, wall_s = drive(
+            executor, (src, seq, key, packed), cmds, RunTime, GraphAddBatch
+        )
     finally:
         gp_module.resolve_graph_plane_step = real_step
     launches = dict(K.LAUNCHES)
@@ -422,8 +483,9 @@ def main():
     for name, text in _build.build_logs.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", text))
-        log(f"phase 0: ptxas {name}: {len(regs)} kernels, at most {max(regs)} "
-            f"registers a thread, {spills} bytes of spills")
+        if regs:
+            log(f"phase 0: ptxas {name}: {len(regs)} kernels, at most {max(regs)} "
+                f"registers a thread, {spills} bytes of spills")
 
     records = phase1(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime)
     launches = phase2(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,

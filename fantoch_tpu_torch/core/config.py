@@ -1,26 +1,21 @@
-"""System configuration and per-protocol quorum-size formulas.
+"""System configuration: the knobs the graph-executor slice reads.
 
-Reference: fantoch/src/config.rs:7-317.  One flat config struct shared by all
-protocols, drivers, and executors.  Quorum-size formulas are protocol facts
-(from the EPaxos/Atlas/Tempo/Caesar papers) and must match the reference
-exactly — the reference's own formula tests (fantoch/src/config.rs:320-538)
-are mirrored in tests/test_config.py.
+The port of fantoch_tpu/core/config.py, cut to the fields this slice of
+the port reads; each keeps its name, default and check so a reader finds
+its counterpart.  The other knobs (protocols, serving, WAL, ingest,
+overload, audit and telemetry) come with the slices that read them.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
-from typing import Optional, Tuple
-
-from fantoch_tpu_torch.core.ids import ProcessId
+from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass
 class Config:
-    """Flat system config (fantoch/src/config.rs:7-43).
-
-    Attributes mirror the reference's knobs; durations are in milliseconds.
-    """
+    """Flat system config (fantoch/src/config.rs:7-43); durations are in
+    milliseconds."""
 
     # number of processes (per shard) and max tolerated faults
     n: int
@@ -30,311 +25,54 @@ class Config:
     # if True, commands are executed at commit time by the protocol itself
     # (skipping the executor's ordering) — only safe for benchmarks
     execute_at_commit: bool = False
-    # interval at which executors inform workers of executed commands
-    # (drives dot-based GC); None disables the notification (default 5ms,
-    # fantoch/src/config.rs:58-61)
-    executor_executed_notification_interval_ms: Optional[int] = 5
-    # interval at which executors clean up / retry cross-shard requests
-    executor_cleanup_interval_ms: Optional[int] = 5
-    # interval at which executors check for stuck commands (liveness watchdog)
-    executor_monitor_pending_interval_ms: Optional[int] = None
     # bounded wait: a command pending on *missing* (never-committed)
     # dependencies past this threshold raises a typed StalledExecutionError
-    # from the watchdog instead of hanging — the crash-tolerance contract
-    # for deps owned by dead replicas (None keeps the log-only behavior)
+    # from the watchdog instead of hanging (None keeps the log-only
+    # behavior)
     executor_pending_fail_ms: Optional[int] = None
-    # bounded wait before a process starts per-dot recovery consensus for a
-    # committed-overdue dot (MPrepare/MPromise over the embedded synod):
-    # the dot's owner retries first, ring successors stagger in afterwards.
-    # Pick it SMALLER than executor_pending_fail_ms so recovery races ahead
-    # of the executor watchdog (None disables recovery — the reference's
-    # todo!() behavior)
+    # bounded wait before per-dot recovery starts; only named in the
+    # stall error here (None = recovery disabled)
     recovery_delay_ms: Optional[int] = None
-    # FPaxos leader failover: followers suspect a silent leader after this
-    # bound (ring successors stagger by distance) and run MultiSynod
-    # prepare/promise with accepted-slot carry-forward; the leader
-    # heartbeats at a quarter of it (None disables failover)
-    fpaxos_leader_timeout_ms: Optional[int] = None
     # record per-key execution order for agreement checks in tests
     executor_monitor_execution_order: bool = False
-    # order committed commands with the batched device resolver
-    # (fantoch_tpu/executor/graph/batched.py) instead of the host Tarjan
-    # walk — the TPU-native replacement for tarjan.rs:99-319 (new knob; no
-    # reference counterpart)
+    # order committed commands with the batched resolver
+    # (executor/graph/batched.py) instead of the host Tarjan walk
     batched_graph_executor: bool = False
-    # batch the Newt/Tempo table path: array-backed key clocks with
-    # kernel-batched proposals (protocol/common/table_batched.py) and one
-    # vectorized stability pass per executor batch
-    # (fantoch_tpu/ops/table_ops.py at the executor/table.py seam)
-    batched_table_executor: bool = False
-    # device-resident votes-table plane: the TableExecutor keeps the
-    # (key_bucket x process) vote-frontier matrix on device across
-    # batches (donated buffers) and runs vote coalescing + frontier
-    # update + stability as ONE fused dispatch per batch
-    # (executor/table_plane.py over ops/table_ops.fused_votes_commit).
-    # Requires clocks below 2^31 (no real-time-micros clock bumps)
-    device_table_plane: bool = False
-    # frontier-matrix element count (keys x n) at which the TableExecutor
-    # host path routes stability to the device kernel instead of the
-    # numpy partition.  None = the built-in default (1 << 20), overridable
-    # via the FANTOCH_TABLE_KERNEL_THRESHOLD env var; an explicit value
-    # here beats both
-    table_kernel_threshold: Optional[int] = None
-    # batch Caesar's predecessor executor: two-phase countdown resolution
-    # as one device kernel per batch (fantoch_tpu/ops/pred_resolve.py at
-    # the executor/pred.py seam)
-    batched_pred_executor: bool = False
-    # device-resident predecessors plane for Caesar: the
-    # PredecessorsExecutor keeps the whole pending window (sparse
-    # predecessor sets as an int32[C, W] slot matrix + clock columns) on
-    # device across batches with donated in-place state, one fused
-    # dispatch per feed; missing-blocked rows stay resident and wake
-    # when their deps commit (executor/pred_plane.py over
-    # ops/pred_resolve.resolve_pred_plane_step).  Caesar additionally
-    # routes commits through a column builder (one PredExecutionArrays
-    # drain per to_executors sweep).  Requires timestamp sequences below
-    # 2^31 (guarded with a typed ClockOverflowError)
-    device_pred_plane: bool = False
     # device-resident graph plane for EPaxos/Atlas: the batched graph
     # executor keeps its dependency backlog (src/seq/key columns plus the
-    # dep-slot matrix) ON DEVICE across feeds (executor/graph/
-    # graph_plane.py over ops/graph_resolve.resolve_graph_plane_step):
-    # feeds install new rows and patch MISSING cells in place, resolves
-    # run as donated in-place dispatches with only the emitted order
-    # fetched back, and missing-blocked rows stay resident instead of
-    # round-tripping through host columns.  None = the
-    # FANTOCH_GRAPH_PLANE env var, else off (the host-column path stays
-    # the default oracle twin).  Single-shard only (shard sets must
-    # survive on host for cross-shard requests); requires
+    # dep-slot matrix) on the card across feeds
+    # (executor/graph/graph_plane.py over
+    # ops/graph_resolve.resolve_graph_plane_step).  None = the
+    # FANTOCH_GRAPH_PLANE env var, else off.  Single-shard only; requires
     # batched_graph_executor
     device_graph_plane: Optional[bool] = None
     # backlog size at which the batched graph executor stops collecting
-    # exact per-SCC structure metrics (CHAIN_SIZE) and switches the
-    # multi-key path to the resident peeler / the host path to the
-    # arrival-order shortcut.  None = the FANTOCH_GRAPH_KERNEL_THRESHOLD
-    # env var, else the built-in 4096; an explicit value here beats both
-    # (the Config.table_kernel_threshold precedence, resolved through
-    # executor/device_plane.resolve_threshold)
+    # exact per-SCC structure metrics and takes the arrival-order
+    # shortcut.  None = the FANTOCH_GRAPH_KERNEL_THRESHOLD env var, else
+    # the built-in 4096; an explicit value here beats both
     graph_kernel_threshold: Optional[int] = None
-    # resolver choice for the batched graph executor on *CPU* backends:
-    # None = auto (the native C++ SCC resolver, fantoch_tpu/native, when
-    # its toolchain is available — a single-threaded host loop beats CPU
-    # XLA sorts; accelerator backends always use the device kernels),
-    # True/False force it on/off (tests pin the XLA path with False)
-    host_native_resolver: Optional[bool] = None
-    # accelerator fault tolerance (executor/device_plane.py): per-dispatch
-    # deadline in wall ms — a fused dispatch (including its blocking
-    # drain) overrunning it raises a typed DeviceFailedError inside the
-    # plane, which fails over to the host twin and rebuilds.  Setting it
-    # ARMS the fault plane: the plane starts keeping the host-twin
-    # dispatch log failover replays from.  None (default) = unarmed, the
-    # plane trusts the device unconditionally (zero overhead)
+    # accelerator fault detection (executor/device_plane.py): per-dispatch
+    # deadline in wall ms — a dispatch (including its blocking fetch)
+    # overrunning it fails the plane with a typed DeviceFailedError,
+    # raised to the caller.  Setting it ARMS the detector (the plane logs
+    # each dispatch's inputs for the host twin).  None (default) = off
     device_dispatch_timeout_ms: Optional[float] = None
-    # Pallas-fused resolve kernels (ops/pallas_resolve.py): route the
-    # hot plane dispatches (graph/pred plane step, fused table round,
-    # votes commit) through hand-fused Pallas kernels instead of the
-    # XLA-composed programs.  None = the FANTOCH_PALLAS env var, else
-    # the backend default (on for TPU, off elsewhere — on CPU the
-    # kernels run in interpret mode, a parity instrument not a perf
-    # win).  Bit-for-bit either way; unsupported backends fall back to
-    # the composed programs automatically.  Process-global (the routers
-    # are module-level): co-hosted executors share one route
-    pallas_kernels: Optional[bool] = None
-    # persistent XLA compilation-cache directory
-    # (core/compile_cache.py): an explicit path here beats the
-    # FANTOCH_COMPILE_CACHE_DIR env var, which beats the obs-dir /
-    # repo-adjacent defaults.  None = resolve through env/defaults
-    compile_cache_dir: Optional[str] = None
     # sampled shadow-check rate in [0, 1]: with probability p per
     # dispatch (seeded, deterministic) the plane replays the dispatch's
-    # inputs through the same kernel on host-owned twin state and
-    # compares the resident post-state bit-for-bit — silent corruption
-    # of a resident buffer surfaces as a typed DeviceCorruptionError
-    # naming the first diverging row, instead of as a cross-replica
-    # digest mismatch minutes later.  1.0 catches corruption on the very
-    # dispatch it happens (the fuzz/test setting); production rates
-    # trade detection latency for dispatch cost, with the
-    # execution-digest auditor as the backstop.  > 0 arms the fault
-    # plane like the deadline does
+    # inputs through the plain version of the step on host-owned twin
+    # state and compares the resident post-state and the outputs bit for
+    # bit; a mismatch fails the plane with a typed DeviceCorruptionError
+    # naming the first diverging row.  > 0 arms the detector
     plane_shadow_rate: float = 0.0
-    # garbage-collection interval; None disables GC
-    gc_interval_ms: Optional[int] = None
-    # leader process (leader-based protocols, i.e. FPaxos)
-    leader: Optional[ProcessId] = None
-    # Newt (Tempo) knobs
-    newt_tiny_quorums: bool = False
-    newt_clock_bump_interval_ms: Optional[int] = None
-    newt_detached_send_interval_ms: Optional[int] = None
-    # Caesar knob: wait-condition on (True = the full protocol)
-    caesar_wait_condition: bool = True
-    # skip sending MCollectAck to the coordinator when the process is in the
-    # fast quorum and the coordinator will ack anyway
-    skip_fast_ack: bool = False
-    # device serving pipeline depth (run/pipeline.py): how many
-    # dispatched-but-undrained device rounds the serving loop keeps in
-    # flight, overlapping host<->device transfer and result emit with
-    # device compute (depth K = K rounds of delivery lag).  None = the
-    # FANTOCH_SERVING_PIPELINE_DEPTH env var, else 1 (the classic
-    # double-buffered overlap); an explicit value also opts the
-    # DeviceRuntime into pipelining on CPU backends (new knob; no
-    # reference counterpart — the reference's runner is message-at-a-time)
-    serving_pipeline_depth: Optional[int] = None
-    # adaptive ingest batching at the serving edge (run/ingest.py): the
-    # deadline budget (ms) a queued submission may wait for its round to
-    # fill before it is released anyway.  One knob like
-    # serving_pipeline_depth: None = the FANTOCH_INGEST_DEADLINE_MS env
-    # var, else 2.0; an explicit 0 disables batching (legacy
-    # dispatch-on-anything).  The size target adapts from the EWMA
-    # arrival rate unless ingest_target pins it; a lone command in an
-    # otherwise idle system always dispatches immediately (the sync-
-    # latency fast path), whatever these knobs say
-    ingest_deadline_ms: Optional[float] = None
-    # fixed ingest size target (rows that release a round) overriding
-    # the EWMA-adaptive target.  None = the FANTOCH_INGEST_TARGET env
-    # var, else adaptive
-    ingest_target: Optional[int] = None
-    # ceiling on the auto-tuned serving chain length S (rounds fused per
-    # device dispatch, NewtDeviceDriver.step_chained_pipelined): the
-    # tuner grows S while per-round dispatch overhead dominates device
-    # time and never past this.  None = the FANTOCH_SERVING_CHAIN_MAX
-    # env var, else 8; 1 disables chaining
-    serving_chain_max: Optional[int] = None
-    # durable command-log fsync policy (run/wal.py): "always" fsyncs
-    # every append (commit-durable before anything acks it), "interval"
-    # fsyncs on the runtime's periodic WAL tick (bounded loss window),
-    # "never" leaves durability to the OS.  One knob like
-    # serving_pipeline_depth: None = the FANTOCH_WAL_SYNC env var, else
-    # "interval"; an explicit value here beats both.  Only consulted when
-    # a runtime is given a wal_dir (new knob; no reference counterpart —
-    # the reference's runner has no durability story)
-    wal_sync: Optional[str] = None
-    # overload-control plane (run/backpressure.py).  queue_capacity is
-    # the high watermark of every run-layer bounded queue (worker /
-    # executor pools, peer-writer queues, client reply queues): past it
-    # the queue closes its credit gate and upstream socket readers pause
-    # (pressure propagates peer-to-peer via TCP instead of as unbounded
-    # heap); the gate re-opens once drained below half.  None = the
-    # built-in default (backpressure.DEFAULT_QUEUE_CAPACITY, 8192);
-    # 0 = unbounded legacy warn-only queues.  The reference's channels
-    # warn-then-BLOCK on full (fantoch/src/run/task/chan.rs:36-58);
-    # producers here share one cooperative loop, so the plane is
-    # credit-based pause/resume plus shedding, never blocking puts
-    queue_capacity: Optional[int] = None
-    # admission control at the client-facing edge: when the serving
-    # queue depth reaches this bound, new submissions are rejected with
-    # a typed Overloaded reply (errors.OverloadedError client-side)
-    # carrying a retry-after hint, instead of queueing without bound.
-    # None disables shedding (the legacy accept-everything behavior)
-    admission_limit: Optional[int] = None
-    # base retry-after hint stamped on Overloaded replies; the server
-    # scales it by how far past the admission limit the queue sits
-    overload_retry_after_ms: int = 100
-    # cap on a live-but-slow peer link's unacked resend window
-    # (run/links.py): past it the link is declared lost through the
-    # existing typed PeerLostError -> quorum-check path instead of
-    # buffering unboundedly.  None = the built-in default
-    # (backpressure.DEFAULT_UNACKED_CAP); 0 = uncapped legacy
-    link_unacked_cap: Optional[int] = None
-    # consistency-audit plane (core/audit.py).  execution_digests keeps a
     # per-key hash chain over executed writes inside every executor's
-    # KVStore; the run layer piggybacks chain summaries on the heartbeat
-    # path and surfaces a typed DivergenceError naming the first
-    # diverging key + entry when replicas fork (run/process_runner.py).
-    # Audit/chaos instrumentation, off by default (new knob; the
-    # reference has no online safety checking)
+    # KVStore (the audit plane's input; off by default)
     execution_digests: bool = False
-    # record every commit decision (dot/slot -> (rifl, value)) in a log
-    # that survives GC, so the ConsistencyAuditor can check commit-value
-    # agreement (Newt timestamps, graph deps, FPaxos slots) and classify
-    # committed-then-lost commands.  Audit/test only: the log grows with
-    # the run (like executor_monitor_execution_order)
-    audit_log_commits: bool = False
-    # live telemetry plane (observability/timeseries.py): the ONE window
-    # cadence every telemetry writer in a process runs at — the windowed
-    # series emit, the legacy metrics snapshot, and the sim runner's
-    # virtual-time telemetry tick all share it.  None = the runtime's
-    # metrics_interval_ms argument (run layer) or the built-in 1s window
-    # (sim).  Milliseconds, >= 1 (new knob; no reference counterpart —
-    # fantoch_prof only ships post-hoc aggregates)
-    telemetry_interval_ms: Optional[int] = None
-    # per-dot lifecycle tracing (fantoch_tpu/observability): fraction of
-    # commands traced, selected by a deterministic hash of the command id
-    # (same seed => same sampled dot set).  0.0 disables tracing entirely
-    # (runners install the zero-cost no-op tracer); runners also need a
-    # trace destination (sim `trace_path` / run `trace_file`) to emit
-    trace_sample_rate: float = 0.0
-    # failure flight recorder (observability/recorder.py): keep a bounded
-    # in-memory ring of recent UNSAMPLED trace events per process, dumped
-    # as flight_p<pid>.json on typed failures (DivergenceError,
-    # StalledExecutionError, quorum loss), WAL-restart boots, and
-    # SIGUSR1 — the black box every failure ships with.  Ring capacity
-    # is FANTOCH_FLIGHT_EVENTS (default 65536 events).  Off by default:
-    # recording costs one dict append per hook-site event (new knob; no
-    # reference counterpart)
-    flight_recorder: bool = False
 
     def __post_init__(self) -> None:
-        # reference panics if f > n/2 only in specific protocols; the config
-        # itself only validates basic sanity (fantoch/src/config.rs:45-60)
         if self.n == 0:
             raise ValueError("n must be positive")
         if self.f > self.n:
             raise ValueError(f"f = {self.f} must not exceed n = {self.n}")
-        if (
-            self.serving_pipeline_depth is not None
-            and self.serving_pipeline_depth < 1
-        ):
-            raise ValueError(
-                f"serving_pipeline_depth = {self.serving_pipeline_depth} "
-                "must be >= 1"
-            )
-        if self.ingest_deadline_ms is not None and self.ingest_deadline_ms < 0:
-            raise ValueError(
-                f"ingest_deadline_ms = {self.ingest_deadline_ms} must be "
-                ">= 0 (0 = batching off)"
-            )
-        if self.ingest_target is not None and self.ingest_target < 1:
-            raise ValueError(
-                f"ingest_target = {self.ingest_target} must be >= 1"
-            )
-        if self.serving_chain_max is not None and self.serving_chain_max < 1:
-            raise ValueError(
-                f"serving_chain_max = {self.serving_chain_max} must be >= 1 "
-                "(1 = chaining off)"
-            )
-        if self.wal_sync is not None and self.wal_sync not in (
-            "always", "interval", "never",
-        ):
-            raise ValueError(
-                f"wal_sync = {self.wal_sync!r} must be one of "
-                "'always' | 'interval' | 'never'"
-            )
-        if self.queue_capacity is not None and self.queue_capacity < 0:
-            raise ValueError(
-                f"queue_capacity = {self.queue_capacity} must be >= 0 "
-                "(0 = unbounded)"
-            )
-        if self.queue_capacity is not None and self.queue_capacity == 1:
-            raise ValueError("queue_capacity = 1 cannot hold a burst; use >= 2")
-        if self.admission_limit is not None and self.admission_limit < 1:
-            raise ValueError(
-                f"admission_limit = {self.admission_limit} must be >= 1"
-            )
-        if self.overload_retry_after_ms < 1:
-            raise ValueError(
-                f"overload_retry_after_ms = {self.overload_retry_after_ms} "
-                "must be >= 1"
-            )
-        if self.link_unacked_cap is not None and self.link_unacked_cap < 0:
-            raise ValueError(
-                f"link_unacked_cap = {self.link_unacked_cap} must be >= 0 "
-                "(0 = uncapped)"
-            )
-        if self.telemetry_interval_ms is not None and self.telemetry_interval_ms < 1:
-            raise ValueError(
-                f"telemetry_interval_ms = {self.telemetry_interval_ms} "
-                "must be >= 1"
-            )
         if self.device_graph_plane and not self.batched_graph_executor:
             # the plane lives inside BatchedDependencyGraph: without the
             # batched executor the knob would silently do nothing
@@ -360,55 +98,3 @@ class Config:
                 f"plane_shadow_rate = {self.plane_shadow_rate} must be "
                 "in [0, 1]"
             )
-        if self.device_table_plane and self.newt_clock_bump_interval_ms is not None:
-            # real-time clock bumps vote wall-clock micros, which overflow
-            # the plane's 31-bit device-clock window (ops/table_ops.py)
-            raise ValueError(
-                "device_table_plane is incompatible with "
-                "newt_clock_bump_interval_ms (real-time micros clocks "
-                "exceed the 31-bit device window)"
-            )
-
-    # --- quorum sizes (protocol facts; fantoch/src/config.rs:252-317) ---
-
-    def basic_quorum_size(self) -> int:
-        return self.f + 1
-
-    def fpaxos_quorum_size(self) -> int:
-        return self.f + 1
-
-    def atlas_quorum_sizes(self) -> Tuple[int, int]:
-        """(fast_quorum_size, write_quorum_size) = (n//2 + f, f + 1)."""
-        return (self.n // 2 + self.f, self.f + 1)
-
-    def epaxos_quorum_sizes(self) -> Tuple[int, int]:
-        """EPaxos always tolerates a minority: f = n//2.
-
-        fast quorum = f + floor((f+1)/2)  (i.e. f + ceil(f/2) for the paper's
-        3n/4-ish quorum), write quorum = f + 1.
-        """
-        f = self.n // 2
-        return (f + (f + 1) // 2, f + 1)
-
-    def caesar_quorum_sizes(self) -> Tuple[int, int]:
-        """(fast, write) = (3n//4 + 1, n//2 + 1)."""
-        return (3 * self.n // 4 + 1, self.n // 2 + 1)
-
-    def newt_quorum_sizes(self) -> Tuple[int, int, int]:
-        """(fast_quorum_size, write_quorum_size, stability_threshold).
-
-        Stability threshold is ``n - fast_quorum_size + f``: it plus the
-        minimum number of processes where clocks are computed
-        (fast_quorum_size - f + 1) must exceed n.  With tiny quorums the fast
-        quorum is 2f (clocks from f+1 processes), giving threshold n - f.
-        """
-        minority = self.n // 2
-        if self.newt_tiny_quorums:
-            fast, threshold = 2 * self.f, self.n - self.f
-        else:
-            fast, threshold = minority + self.f, minority + 1
-        return (fast, self.f + 1, threshold)
-
-    def with_(self, **kwargs) -> "Config":
-        """Functional update helper."""
-        return replace(self, **kwargs)

@@ -1,51 +1,17 @@
-"""Typed fault-tolerance errors shared by the sim, run, and executor layers.
-
-The reference's failure handling is all-or-nothing (a lost connection or a
-stuck command panics the process); growing toward the paper's actual claim
-— liveness with up to ``f`` crashed replicas — needs failures that are
-*classified*: a peer loss above quorum degrades, below quorum fails with a
-typed error, and a command stuck past its bounded wait surfaces what it is
-waiting on instead of hanging the caller.
+"""Typed errors of the port's executor layer: a command stalled on
+dependencies that never commit, a device plane that failed or whose
+resident state diverged, and a clock past the device window.  (The JAX
+package's ``errors.py`` also carries the run and sim layers' errors; the
+port copies them with the slice that raises them.)
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+from typing import Dict, Optional
 
 
 class FaultToleranceError(Exception):
     """Base class for every typed fault-tolerance failure."""
-
-
-class PeerLostError(FaultToleranceError):
-    """A peer stayed unreachable past the reconnect budget."""
-
-    def __init__(self, peer_id: int, attempts: int, last: Optional[BaseException]):
-        self.peer_id = peer_id
-        self.attempts = attempts
-        self.last = last
-        super().__init__(
-            f"peer p{peer_id} unreachable after {attempts} reconnect "
-            f"attempts (last error: {last!r})"
-        )
-
-
-class QuorumLostError(FaultToleranceError):
-    """Too many same-shard peers are gone for the protocol to stay live.
-
-    Raised (surfaced through ``ProcessRuntime.failed``) when the number of
-    live same-shard processes drops below ``n - f`` — the point past which
-    no quorum can form and continuing would only hang clients.
-    """
-
-    def __init__(self, alive: int, needed: int, dead_peers: Iterable[int]):
-        self.alive = alive
-        self.needed = needed
-        self.dead_peers = sorted(dead_peers)
-        super().__init__(
-            f"quorum lost: {alive} live processes < {needed} required "
-            f"(dead peers: {self.dead_peers})"
-        )
 
 
 class StalledExecutionError(FaultToleranceError):
@@ -85,97 +51,16 @@ class StalledExecutionError(FaultToleranceError):
         )
 
 
-class OverloadedError(FaultToleranceError):
-    """A submission was shed by admission control at a client-facing edge
-    (run/process_runner.py sessions, run/device_runner.py submit ring):
-    the edge's queue depth crossed ``Config.admission_limit``, and
-    executing the command late would only collapse latency for everyone.
-
-    ``retry_after_ms`` is the server's hint (scaled by how far past the
-    limit the queue sits); clients retry with capped exponential backoff
-    floored by it (run/backpressure.Backoff), shedding the command
-    themselves once its deadline budget expires.
-    """
-
-    def __init__(self, depth: int, limit: int, retry_after_ms: int):
-        self.depth = depth
-        self.limit = limit
-        self.retry_after_ms = retry_after_ms
-        super().__init__(
-            f"overloaded: queue depth {depth} >= admission limit {limit}; "
-            f"retry after {retry_after_ms}ms"
-        )
-
-
-class DeadlineExceededError(FaultToleranceError):
-    """A command's per-command deadline budget expired before it completed
-    — the client plane shed it (stopped retrying / stopped waiting)
-    rather than let stale work consume capacity.  Carried as a client
-    statistic in normal operation; raised only when a runner is asked to
-    fail on sheds."""
-
-    def __init__(self, rifl, waited_ms: float, deadline_ms: float):
-        self.rifl = rifl
-        self.waited_ms = waited_ms
-        self.deadline_ms = deadline_ms
-        super().__init__(
-            f"deadline exceeded for {rifl}: waited {waited_ms:.0f}ms of a "
-            f"{deadline_ms:.0f}ms budget"
-        )
-
-
-class DivergenceError(FaultToleranceError):
-    """Two replicas executed different writes for the same key position —
-    a safety violation, not a fault to tolerate.  Raised by the run
-    layer's digest-exchange plane (``Config.execution_digests``:
-    per-key chained digests piggybacked on the heartbeat path) naming the
-    first diverging key + entry, and by audit tooling replaying histories.
-
-    ``mine``/``theirs`` are the (source, sequence) command ids (rifls) the
-    two replicas executed at ``position``; ``dot`` is the diverging
-    command's proposal id when the protocol's audit commit log can resolve
-    it (``Config.audit_log_commits``)."""
-
-    def __init__(
-        self,
-        key: str,
-        position: int,
-        mine,
-        theirs,
-        process_id: int,
-        peer_id: int,
-        dot=None,
-    ):
-        self.key = key
-        self.position = position
-        self.mine = mine
-        self.theirs = theirs
-        self.process_id = process_id
-        self.peer_id = peer_id
-        self.dot = dot
-        dot_note = f" (dot {dot})" if dot is not None else ""
-        super().__init__(
-            f"execution divergence on key {key!r} at write #{position}: "
-            f"p{process_id} executed {mine}{dot_note} where p{peer_id} "
-            f"executed {theirs}"
-        )
-
-
 class DeviceFailedError(FaultToleranceError):
-    """A device plane's fused dispatch hung past the per-dispatch
-    deadline (``Config.device_dispatch_timeout_ms``), or the XLA runtime
-    raised out of it — the accelerator itself failed, not the protocol.
+    """A device plane's dispatch overran the per-dispatch deadline
+    (``Config.device_dispatch_timeout_ms``) — the accelerator failed, not
+    the protocol.
 
-    The owning plane catches this internally: it transitions its health
-    state machine (healthy -> suspect -> failed), serves the batch from
-    the host twin, and rebuilds the resident state when the device
-    recovers — so the executor API above it never observes the error,
-    only the ``plane_failovers``/``degraded_ms`` counters do.
-
-    ``kind`` names the detection channel: ``"hang"`` (an injected
-    never-completing dispatch), ``"timeout"`` (a real dispatch that
-    overran the deadline, measured at the blocking drain), or
-    ``"raise"`` (the XLA runtime raised)."""
+    The plane marks itself failed and raises this to the caller; nothing
+    serves the round in the card's place.  ``kind`` names the channel:
+    ``"timeout"`` (a dispatch that overran the deadline, measured at its
+    blocking fetch) or ``"failed"`` (a dispatch asked of a plane that
+    has already failed; ``cause`` is the first failure)."""
 
     def __init__(
         self,
@@ -203,16 +88,14 @@ class DeviceFailedError(FaultToleranceError):
 
 
 class DeviceCorruptionError(FaultToleranceError):
-    """A device plane's resident state silently diverged from the host
-    twin — caught by the sampled shadow-check (``Config.plane_shadow_rate``
-    replays a dispatch's inputs through the same kernel on host-owned
-    state and compares bit-for-bit), named with the first diverging
-    device row so the corruption is attributable like the digest
-    auditor's first-diverging key.
+    """A device plane's resident state or outputs silently diverged from
+    the host twin — caught by the sampled shadow-check
+    (``Config.plane_shadow_rate`` replays a dispatch's inputs through the
+    plain version of the step on host-owned state and compares bit for
+    bit), named with the first diverging row.
 
-    Like :class:`DeviceFailedError` this is caught inside the plane:
-    the poisoned resident buffers are dropped, the batch is served from
-    the (provably clean) twin, and a rebuild re-uploads the twin state.
+    Like :class:`DeviceFailedError` this fails the plane and goes to the
+    caller before the dispatch's outputs reach any host bookkeeping.
     """
 
     def __init__(
@@ -233,24 +116,8 @@ class DeviceCorruptionError(FaultToleranceError):
         key_note = f" (key {key!r})" if key is not None else ""
         super().__init__(
             f"p{process_id}: {plane} plane resident state diverged from the "
-            f"host twin at dispatch #{dispatch}: state array "
+            f"host twin at dispatch #{dispatch}: array "
             f"{array_index}, first diverging row {row}{key_note}"
-        )
-
-
-class SimStalledError(FaultToleranceError):
-    """The simulation passed its virtual-time bound with clients still
-    waiting — the whole-system analog of :class:`StalledExecutionError`
-    (e.g. every quorum of an in-flight command crashed)."""
-
-    def __init__(self, time_ms: int, bound_ms: int, waiting_clients: Iterable[int]):
-        self.time_ms = time_ms
-        self.bound_ms = bound_ms
-        self.waiting_clients = sorted(waiting_clients)
-        super().__init__(
-            f"simulation stalled: virtual time {time_ms}ms exceeded the "
-            f"{bound_ms}ms bound with clients {self.waiting_clients} still "
-            "waiting for results"
         )
 
 

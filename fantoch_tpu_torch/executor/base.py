@@ -81,12 +81,6 @@ class Executor(ABC, Generic[Info]):
         device plane."""
         return None
 
-    def device_planes(self) -> tuple:
-        """The device-resident planes this executor drives (empty when
-        none) — the seam the runners use to arm the device-fault nemesis
-        (sim/device_faults.py) and attach failure listeners."""
-        return ()
-
     def snapshot(self) -> bytes:
         """Durable image of the executor state (ordering structures,
         KVStore, emit frontier).  Device-resident planes pickle their

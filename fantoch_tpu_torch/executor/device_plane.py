@@ -25,28 +25,27 @@ every plane shares:
 Capacity follows a pow2 schedule (``_grow`` doubles); growth of a live
 resident state is one fetch + pad + counted re-upload.
 
-**Accelerator fault tolerance**: a health state machine (healthy ->
-suspect -> failed -> rebuilding) and a *host twin*.  Arming the plane
-(``Config.device_dispatch_timeout_ms``, ``Config.plane_shadow_rate`` or an
-attached fault injector) makes every dispatch log its exact padded kernel
-inputs; the twin folds that log on demand by replaying it through the
-plain PyTorch version of the same step on CPU tensors made from
-host-owned state.  The kernels and their plain versions agree bit for
-bit, so the twin's outputs are what a healthy card would have produced:
+**Accelerator fault detection**: a health gauge (healthy -> failed) and a
+*host twin* used only as a detector.  Arming the plane
+(``Config.device_dispatch_timeout_ms`` or ``Config.plane_shadow_rate``)
+makes every dispatch log its exact padded kernel inputs; the twin folds
+that log on demand by replaying it through the plain PyTorch version of
+the same step on CPU tensors.  The kernels and their plain versions
+agree bit for bit, so the twin's outputs are what a healthy card would
+have produced:
 
-* a **hang/timeout** raises a typed ``DeviceFailedError`` inside the
-  plane: the first marks the plane suspect and probes once; a second
-  fails over — the resident tensors are dropped and the batch (and every
-  batch after it) is served from the twin;
-* a **silent bit-flip** of a resident column is caught by the sampled
-  shadow check: the fetched resident post-state is compared with the
-  twin's, and ``DeviceCorruptionError`` names the first diverging row
-  before any host bookkeeping consumes the poisoned outputs;
-* **rebuild** re-uploads the folded twin state (exactly ONE counted
-  ``resident_uploads``) once the fault window has closed, and the plane
-  cuts back to device serving.
+* a dispatch that overruns the deadline raises ``DeviceFailedError``;
+* the sampled **shadow check** compares the fetched resident post-state
+  and the dispatch's outputs with the twin's, and a mismatch raises
+  ``DeviceCorruptionError`` naming the first diverging row — before any
+  host bookkeeping consumes the outputs.
 
-Unarmed (the default), none of this costs anything.
+Either error marks the plane failed and goes to the caller: the round is
+never served from the twin, and a failed plane refuses every later
+dispatch (and a snapshot), so a slow or wrong kernel cannot hide behind
+its plain version.  Recovery is the caller's: restore an executor from a
+snapshot taken while healthy.  Unarmed (the default), none of this costs
+anything.
 
 **Device.**  A plane runs on ``device`` (default ``cuda``); without CUDA
 and without an explicit device it raises rather than run on the CPU.
@@ -65,22 +64,15 @@ import torch
 from fantoch_tpu_torch.core.kvs import Key
 from fantoch_tpu_torch.errors import DeviceCorruptionError, DeviceFailedError
 
-# plane health gauge (numeric so merge_counters can max-fold it: worst
-# state wins across an executor pool, like the depth gauges)
+# plane health gauge (numeric so a pool can max-fold it: worst state
+# wins; the values are the reference package's gauge values)
 HEALTH_HEALTHY = 0
-HEALTH_REBUILDING = 1
-HEALTH_SUSPECT = 2
 HEALTH_FAILED = 3
-HEALTH_NAMES = {
-    HEALTH_HEALTHY: "healthy",
-    HEALTH_REBUILDING: "rebuilding",
-    HEALTH_SUSPECT: "suspect",
-    HEALTH_FAILED: "failed",
-}
+HEALTH_NAMES = {HEALTH_HEALTHY: "healthy", HEALTH_FAILED: "failed"}
 
 # armed planes fold the twin log once it holds this many dispatches, so
 # an armed-but-never-checked run pays bounded host memory (folding is
-# the same kernels replayed on host-uploaded state)
+# the plain version replayed on host-owned state)
 TWIN_FOLD_LIMIT = 64
 
 
@@ -153,14 +145,10 @@ class DevicePlane:
         "grows",
         "resident_uploads",
         "stats",
-        # --- accelerator fault tolerance ---
+        # --- accelerator fault detection ---
         "health",
-        "plane_failovers",
-        "plane_rebuilds",
-        "degraded_ms",
+        "plane_failures",
         "last_failure",
-        "_injector",
-        "_failure_listener",
         "_fault_pid",
         "_fault_seed",
         "_shadow_rate",
@@ -168,10 +156,9 @@ class DevicePlane:
         "_fault_armed",
         "_twin_state",
         "_twin_log",
-        "_last_failure_dispatch",
     )
 
-    # subclasses name themselves for errors/injector matching
+    # subclasses name themselves in errors
     plane_name = "device"
 
     def __init__(self, capacity: int, stats: Dict[str, float], device=None):
@@ -195,23 +182,7 @@ class DevicePlane:
         self.resident_uploads = 0
         # per-dispatch observability tallies (observability/device.py)
         self.stats: Dict[str, float] = dict(stats)
-        # --- accelerator fault tolerance (unarmed by default) ---
-        self.health = HEALTH_HEALTHY
-        self.plane_failovers = 0
-        self.plane_rebuilds = 0
-        self.degraded_ms = 0.0
-        self.last_failure: Optional[BaseException] = None
-        self._injector = None
-        self._failure_listener = None
-        self._fault_pid: Optional[int] = None
-        self._fault_seed = 0
-        self._shadow_rate = 0.0
-        self._timeout_ms: Optional[float] = None
-        self._fault_armed = False
-        # host-twin shadow: folded host state + the unfolded dispatch log
-        self._twin_state: Optional[Tuple[np.ndarray, ...]] = None
-        self._twin_log: List = []
-        self._last_failure_dispatch = -(1 << 30)
+        self._reset_faults()
 
     # --- state hooks (subclass responsibility) ---
 
@@ -275,19 +246,15 @@ class DevicePlane:
 
     def _grow(self) -> None:
         """Double the capacity; pads the resident state when live (one
-        host round-trip — rare, amortized by the pow2 schedule).  Armed
-        planes pad and re-upload from the folded TWIN state instead of a
-        device fetch: the twin is provably clean, so growth never bakes
-        an undetected resident bit-flip into the new buffers."""
+        host round-trip — rare, amortized by the pow2 schedule).  An
+        armed plane's twin grows alongside."""
         new_cap = self._cap * 2
-        if self._fault_armed and self._twin_state is not None:
-            self._twin_fold()
-            self._twin_state = self._pad_state(self._twin_state, new_cap)
-            if self._resident is not None:
-                self._upload(self._twin_state)
-        elif self._resident is not None:
+        if self._resident is not None:
             state = self._fetch_state()
             self._upload(self._pad_state(state, new_cap))
+        if self._twin_state is not None:
+            self._twin_fold()
+            self._twin_state = self._pad_state(self._twin_state, new_cap)
         self._cap = new_cap
         self.grows += 1
 
@@ -325,62 +292,67 @@ class DevicePlane:
         for name, value in adds.items():
             self.stats[name] += value
 
-    # --- accelerator fault tolerance ---
+    # --- accelerator fault detection ---
+
+    def _reset_faults(self) -> None:
+        self.health = HEALTH_HEALTHY
+        self.plane_failures = 0
+        self.last_failure: Optional[BaseException] = None
+        self._fault_pid: Optional[int] = None
+        self._fault_seed = 0
+        self._shadow_rate = 0.0
+        self._timeout_ms: Optional[float] = None
+        self._fault_armed = False
+        # host-twin detector: folded host state + the unfolded dispatch log
+        self._twin_state: Optional[Tuple[np.ndarray, ...]] = None
+        self._twin_log: List = []
 
     def configure_faults(
         self, config, seed: int = 0, process_id: Optional[int] = None
     ) -> None:
-        """Arm (or leave unarmed) the fault plane from the config: the
+        """Arm (or leave unarmed) the fault detector from the config: the
         per-dispatch deadline and the shadow-check rate.  Executors call
         this right after constructing the plane, before any dispatch."""
-        self._timeout_ms = getattr(config, "device_dispatch_timeout_ms", None)
-        self._shadow_rate = getattr(config, "plane_shadow_rate", 0.0) or 0.0
+        self._timeout_ms = config.device_dispatch_timeout_ms
+        self._shadow_rate = config.plane_shadow_rate
         self._fault_seed = seed
         if process_id is not None:
             self._fault_pid = process_id
-        self._refresh_armed()
-
-    def attach_injector(self, injector) -> None:
-        """Attach a DeviceFaultInjector (sim/device_faults.py); arming
-        the plane as a side effect so failover has a twin to serve from."""
-        self._injector = injector
-        self._refresh_armed()
-
-    def attach_failure_listener(self, listener) -> None:
-        """``listener(plane, exc)`` fires on every failover — the sim
-        runner wires it to the nemesis trace + flight-recorder dump."""
-        self._failure_listener = listener
-
-    def _refresh_armed(self) -> None:
         self._fault_armed = (
-            self._injector is not None
-            or self._shadow_rate > 0.0
-            or self._timeout_ms is not None
+            self._shadow_rate > 0.0 or self._timeout_ms is not None
         )
-
-    @property
-    def degraded(self) -> bool:
-        """True while serving from the host twin (failed, not yet
-        cut back)."""
-        return self.health in (HEALTH_FAILED, HEALTH_REBUILDING)
 
     def health_name(self) -> str:
         return HEALTH_NAMES[self.health]
 
-    # --- host twin (armed only) ---
+    def _check_usable(self) -> None:
+        """A failed plane refuses to dispatch: its resident state is not
+        trusted and no other route serves the round."""
+        if self.health == HEALTH_FAILED:
+            raise DeviceFailedError(
+                self.plane_name, self._fault_pid, "failed", self.dispatches,
+                cause=self.last_failure,
+            )
+
+    def _fail(self, exc: BaseException):
+        """Mark the plane failed and raise ``exc`` to the caller."""
+        self.health = HEALTH_FAILED
+        self.plane_failures += 1
+        self.last_failure = exc
+        raise exc
+
+    # --- host twin (armed only; a detector, never a server) ---
 
     def _twin_replay(self, state, entry):
         """Replay ONE logged dispatch on host-owned ``state``: run the
         plain version of the plane's step on CPU tensors made from the
         state plus the entry's logged columns, and return ``(new_state,
-        outputs)`` as host numpy.  Bit-for-bit with the resident dispatch
-        (kernels and plain versions agree exactly on the same inputs)."""
+        outputs)`` as host numpy."""
         raise NotImplementedError
 
     def _twin_note(self, entry) -> None:
         """Log one dispatch's exact padded kernel inputs for the twin
-        (no-op unarmed).  Must be called BEFORE the resident dispatch so
-        a failure mid-dispatch can still replay it."""
+        (no-op unarmed), before the resident dispatch runs."""
         if not self._fault_armed:
             return
         if self._twin_state is None:
@@ -401,12 +373,8 @@ class DevicePlane:
             self._twin_state = self._fresh_state()
 
     def _twin_fold(self):
-        """Replay every logged dispatch through the kernel, advancing
-        the twin state; returns the LAST dispatch's outputs (None when
-        the log was empty).  Truncates the log — later entries already
-        contain any residual rows the plane re-fed, so discarding the
-        replayed residual outputs reproduces the state sequence
-        exactly."""
+        """Replay every logged dispatch, advancing the twin state; returns
+        the LAST dispatch's outputs (None when the log was empty)."""
         outputs = None
         state = self._twin_state
         for entry in self._twin_log:
@@ -424,61 +392,20 @@ class DevicePlane:
         self._twin_state = tuple(np.array(a) for a in state)
         self._twin_log = []
 
-    # --- detection: injected faults, deadline, shadow-check ---
-
-    def _fault_check_pre(self):
-        """Consult the injector before a fused dispatch.  hang/raise
-        faults raise the typed error here (a hung dispatch never
-        completes — short-circuiting it *is* its deadline, kept
-        deterministic instead of sleeping the wall budget); a corrupt
-        fault is returned for the caller to apply via
-        :meth:`_poison_resident`."""
-        inj = self._injector
-        if inj is None:
-            return None
-        fault = inj.on_dispatch(self.plane_name, self.dispatches)
-        if fault is None:
-            return None
-        if fault.kind == "hang":
-            raise DeviceFailedError(
-                self.plane_name, self._fault_pid, "hang",
-                self.dispatches, self._timeout_ms,
-            )
-        if fault.kind == "raise":
-            raise DeviceFailedError(
-                self.plane_name, self._fault_pid, "raise", self.dispatches,
-                cause=RuntimeError("injected device runtime error"),
-            )
-        return fault
-
-    def _poison_resident(self, fault) -> None:
-        """Apply an injected corrupt fault: flip ``fault.bit`` of flat
-        element 0 of resident state array 0 on device.  Callers apply it
-        AFTER the dispatch's resident update (a post-compute HBM flip),
-        so the kernel cannot overwrite the flipped cell in the same
-        round and a rate-1.0 shadow check catches it deterministically
-        on the faulted dispatch; the host twin never sees the flip,
-        which is exactly why the compare names it."""
-        self._materialize()
-        flat = self._resident[0].view(-1)  # an integer state array
-        bits = torch.iinfo(flat.dtype).bits
-        mask = 1 << fault.bit
-        if mask >= 1 << (bits - 1):
-            mask -= 1 << bits  # the sign bit, as a signed value
-        flat[0] ^= mask
+    # --- detection: deadline, shadow-check ---
 
     def _check_deadline(self, t0: float) -> None:
-        """The per-dispatch deadline, measured across dispatch + its
-        blocking drain (a kernel launch cannot be interrupted portably;
-        detection at the drain is when the hang becomes observable)."""
+        """The per-dispatch deadline, measured across the dispatch and
+        its blocking fetch (a kernel launch cannot be interrupted
+        portably; the fetch is when a hang becomes observable)."""
         if self._timeout_ms is None:
             return
         elapsed_ms = (time.perf_counter() - t0) * 1000.0
         if elapsed_ms > self._timeout_ms:
-            raise DeviceFailedError(
+            self._fail(DeviceFailedError(
                 self.plane_name, self._fault_pid, "timeout",
                 self.dispatches, self._timeout_ms,
-            )
+            ))
 
     def _shadow_sampled(self) -> bool:
         """Seeded per-dispatch shadow-check decision — a pure function
@@ -496,17 +423,18 @@ class DevicePlane:
         ).random()
         return draw < rate
 
-    def _shadow_compare(
-        self, device_state: Tuple[np.ndarray, ...]
-    ) -> None:
-        """Bit-for-bit compare the fetched resident post-state against
-        the twin's folded post-state; raises DeviceCorruptionError
-        naming the first diverging row (and its key, when the row is in
-        the key registry) — the auditor-style attribution."""
-        self._twin_fold()
-        twin = self._twin_state
-        assert twin is not None
-        for index, (dev, host) in enumerate(zip(device_state, twin)):
+    def _shadow_compare(self, device_state, device_outputs) -> None:
+        """Bit-for-bit compare the fetched resident post-state and the
+        last dispatch's outputs (arrays numbered after the state's)
+        against the twin's; a mismatch fails the plane with
+        DeviceCorruptionError naming the first diverging row (and its
+        key, when the row is in the key registry)."""
+        twin_outputs = self._twin_fold()
+        assert self._twin_state is not None and twin_outputs is not None
+        pairs = list(zip(device_state, self._twin_state)) + list(
+            zip(device_outputs, twin_outputs)
+        )
+        for index, (dev, host) in enumerate(pairs):
             if dev.shape == host.shape and np.array_equal(dev, host):
                 continue
             if dev.shape != host.shape:
@@ -517,109 +445,15 @@ class DevicePlane:
                 )[0]
                 row = int(diverging[0]) if len(diverging) else 0
             key = self._keys[row] if row < len(self._keys) else None
-            raise DeviceCorruptionError(
+            self._fail(DeviceCorruptionError(
                 self.plane_name, self._fault_pid, self.dispatches,
                 index, row, key,
-            )
-
-    # --- failover + rebuild ---
-
-    def _device_failure(self, exc: BaseException) -> None:
-        """One device failure observed (the batch itself is already
-        served from the twin by the caller — never re-dispatched: the
-        hung program may have half-applied its in-place updates, so a
-        re-dispatch could double-apply).  A FIRST hang/timeout is
-        ambiguous (scheduler hiccup vs dead device): the plane goes
-        *suspect*, drops the untrusted resident buffers, and immediately
-        probes — a transient blip re-uploads the twin on the spot and
-        never counts a failover; a still-broken device (the injector's
-        window is open) escalates to FAILED.  A raise or a corruption
-        verdict is definitive and fails over directly."""
-        self.last_failure = exc
-        self._resident = None
-        # back-to-back hangs are not a hiccup: a second hang/timeout
-        # within two dispatches of a "recovered" one escalates straight
-        # to failover instead of flapping suspect -> healthy forever
-        repeat = self.dispatches - self._last_failure_dispatch <= 2
-        self._last_failure_dispatch = self.dispatches
-        if (
-            isinstance(exc, DeviceFailedError)
-            and exc.kind in ("hang", "timeout")
-            and self.health == HEALTH_HEALTHY
-            and not repeat
-        ):
-            self.health = HEALTH_SUSPECT
-            if self._probe_recovery():
-                return
-        self._enter_failed(exc)
-
-    def _probe_recovery(self) -> bool:
-        """The suspect probe: when the device answers again (no injector
-        window covers it), re-upload the folded twin state and return to
-        healthy — a transient hiccup costs one upload, no failover."""
-        inj = self._injector
-        if inj is not None and not inj.rebuild_allowed(
-            self.plane_name, self.dispatches
-        ):
-            return False
-        self._twin_fold()
-        if self._twin_state is None:
-            return False
-        self._upload(self._pad_state(self._twin_state, self._cap))
-        self._host_mirror = None
-        self.health = HEALTH_HEALTHY
-        return True
-
-    def _enter_failed(self, exc: BaseException) -> None:
-        self.health = HEALTH_FAILED
-        self.plane_failovers += 1
-        self.last_failure = exc
-        # the resident buffers are no longer trusted (hung program /
-        # poisoned in-place updates): drop them; the twin is authoritative
-        self._resident = None
-        listener = self._failure_listener
-        if listener is not None:
-            listener(self, exc)
-
-    def _note_degraded(self, t0: float) -> None:
-        self.degraded_ms += (time.perf_counter() - t0) * 1000.0
-
-    def _maybe_rebuild(self) -> bool:
-        """Cut back to device serving: ONE counted re-upload of the
-        folded twin state (the restart plane's acceptance signal,
-        reused), vetoed while the injector's fault window still covers
-        the device."""
-        if self.health != HEALTH_FAILED:
-            return False
-        inj = self._injector
-        if inj is not None and not inj.rebuild_allowed(
-            self.plane_name, self.dispatches
-        ):
-            return False
-        self.health = HEALTH_REBUILDING
-        self._twin_fold()
-        assert self._twin_state is not None
-        self._upload(self._pad_state(self._twin_state, self._cap))
-        self._host_mirror = None
-        self.plane_rebuilds += 1
-        self.health = HEALTH_HEALTHY
-        return True
-
-    def _recover_health(self) -> None:
-        """A suspect probe succeeded: the failure was transient."""
-        if self.health == HEALTH_SUSPECT:
-            self.health = HEALTH_HEALTHY
+            ))
 
     def fault_counters(self) -> Dict[str, float]:
-        """The fault-plane slice of ``device_counters()`` (prefixed by
-        the owning executor): failover/rebuild tallies, degraded wall,
-        and the numeric health gauge (max-folded across pools)."""
-        return {
-            "failovers": self.plane_failovers,
-            "rebuilds": self.plane_rebuilds,
-            "degraded_ms": self.degraded_ms,
-            "health": self.health,
-        }
+        """The fault slice of ``device_counters()`` (prefixed by the
+        owning executor): failures detected and the health gauge."""
+        return {"failures": self.plane_failures, "health": self.health}
 
     # --- durability (Executor.snapshot pickles through here) ---
 
@@ -630,51 +464,22 @@ class DevicePlane:
         return slots
 
     def __getstate__(self):
-        # injector + listener are runtime wiring (the runner re-attaches
-        # them after restore), never part of the durable image
+        self._check_usable()
         state = {
             slot: getattr(self, slot)
             for slot in self._all_slots()
-            if slot
-            not in (
-                "_resident", "_host_mirror", "_injector",
-                "_failure_listener", "last_failure",
-            )
+            if slot not in ("_resident", "_host_mirror", "last_failure")
         }
         mirror = self._host_mirror
         if self._resident is not None:
             mirror = self._fetch_state()
-        elif self.degraded and self._twin_state is not None:
-            # snapshot taken mid-failover: the twin IS the state —
-            # fold it so the restored image needs no log replay
-            state["_twin_log"] = []
-            outputs = self._twin_fold()
-            del outputs
-            state["_twin_state"] = self._twin_state
-            mirror = self._twin_state
         state["_host_mirror"] = mirror
         return state
 
     def __setstate__(self, state) -> None:
-        # fault-plane defaults first: images written before the fault
-        # plane existed (or with it unarmed) stay restorable
-        self.health = HEALTH_HEALTHY
-        self.plane_failovers = 0
-        self.plane_rebuilds = 0
-        self.degraded_ms = 0.0
-        self.last_failure = None
-        self._fault_pid = None
-        self._fault_seed = 0
-        self._shadow_rate = 0.0
-        self._timeout_ms = None
-        self._fault_armed = False
-        self._twin_state = None
-        self._twin_log = []
-        self._last_failure_dispatch = -(1 << 30)
+        self._reset_faults()
         for slot, value in state.items():
             setattr(self, slot, value)
         # device state never survives a pickle: the next dispatch
         # re-materializes from the host mirror (ONE counted upload)
         self._resident = None
-        self._injector = None
-        self._failure_listener = None

@@ -165,7 +165,7 @@ class BatchedDependencyGraph(DependencyGraph):
             structure_threshold=self._structure_threshold,
             device=device,
         )
-        # arm the fault plane (deadline + shadow-check) from the config
+        # arm the fault detector (deadline + shadow-check) from the config
         self._plane.configure_faults(config, process_id=process_id)
         # opt-in array drain: consumers that don't need Command objects
         # read the execution order as (src, seq) columns
@@ -258,17 +258,10 @@ class BatchedDependencyGraph(DependencyGraph):
 
     def monitor_pending(self, time: SysTime):
         self._flush(time)
-        self._plane.drain_all()
-        self._drain_plane_emissions()
         return self._plane.monitor_pending(time)
 
     def _flush(self, time: Optional[SysTime] = None) -> None:
         if not self._dirty:
-            if self._plane._emitted:
-                # depth-K pipelined serving: results of earlier rounds
-                # may have drained during a later feed — deliver them
-                # even when nothing new is dirty
-                self._drain_plane_emissions()
             return
         self._dirty = False
         if time is None:
@@ -380,7 +373,6 @@ class BatchedDependencyGraph(DependencyGraph):
         if (
             batch > self._structure_threshold
             and plane.pending_count == 0
-            and not plane.in_flight
             and not plane.has_patches
         ):
             dep_rows = self._map_deps(src, seq, deps)
@@ -413,15 +405,6 @@ class BatchedDependencyGraph(DependencyGraph):
                 self._order_arrays.append((src, seq))
             else:
                 self._to_execute.extend(cmds)
-
-    def flush_plane_pipeline(self, time: SysTime) -> None:
-        """Retire every in-flight plane round and deliver its results —
-        the end-of-stream flush of a depth-K pipelined serving loop
-        (depth 1, the executor-pool default, never has delivery lag)."""
-        self._last_time = time
-        self._flush(time)
-        self._plane.drain_all()
-        self._drain_plane_emissions()
 
     def resolve_now(self, time: SysTime) -> None:
         """Public flush: run the pending resolve without draining objects

@@ -196,17 +196,13 @@ class GraphExecutor(Executor):
             "graph_plane_resident_uploads": plane.resident_uploads,
             # configuration gauge (max-folded, not summed)
             "graph_plane_slot_capacity": plane._cap,
-            # accelerator fault tolerance: failover/rebuild tallies,
-            # degraded wall, and the health gauge (max-folded)
+            # accelerator fault detection: failures detected and the
+            # health gauge (max-folded)
             **{
                 f"graph_plane_{k}": v
                 for k, v in plane.fault_counters().items()
             },
         }
-
-    def device_planes(self):
-        plane = getattr(self.graph, "_plane", None)
-        return (plane,) if plane is not None else ()
 
     def to_clients(self) -> Optional[ExecutorResult]:
         return self._to_clients.popleft() if self._to_clients else None

@@ -24,13 +24,12 @@ the host (installs and patches are cheap numpy writes), so compaction,
 the stuck-cycle host oracle and the liveness watchdog never fetch device
 state.
 
-Pipelining: ``pipeline_depth`` K keeps up to K-1 dispatched rounds
-un-fetched; depth 1 (the default) is fully synchronous.  Host-side
-emission dedup makes drains idempotent.
+Each dispatch is drained at once: its result columns are fetched and
+emitted before the feed returns.
 
 Buffer lifecycle — resident tensors, lazy host-mirror re-materialization
 after restore with exactly ONE counted re-upload, pow2 capacity growth,
-per-dispatch counters, the fault-tolerance health machine — is the shared
+per-dispatch counters, the fault-detection health gauge — is the shared
 :class:`~fantoch_tpu_torch.executor.device_plane.DevicePlane` base.
 
 Modes: only ``keyed`` (single-key commands, at most one live dependency
@@ -45,8 +44,7 @@ from __future__ import annotations
 
 import os
 import time as _time
-from collections import deque
-from typing import Deque, Dict, List, Set, Tuple
+from typing import Dict, List, Set, Tuple
 
 import numpy as np
 import torch
@@ -55,11 +53,7 @@ from fantoch_tpu_torch.core.config import Config
 from fantoch_tpu_torch.core.ids import Dot, ProcessId, ShardId
 from fantoch_tpu_torch.core.metrics import Metrics
 from fantoch_tpu_torch.core.timing import SysTime
-from fantoch_tpu_torch.errors import (
-    ClockOverflowError,
-    DeviceCorruptionError,
-    DeviceFailedError,
-)
+from fantoch_tpu_torch.errors import ClockOverflowError
 from fantoch_tpu_torch.executor.base import ExecutorMetricsKind
 from fantoch_tpu_torch.executor.device_plane import DevicePlane, next_pow2 as _pow2
 from fantoch_tpu_torch.ops.frontier import DeviceFrontier, pack_dots
@@ -134,9 +128,7 @@ class DeviceGraphPlane(DevicePlane):
         "_waiters",
         "_waiter_since",
         "_patches",
-        "_inflight",
         "_emitted",
-        "pipeline_depth",
     )
 
     plane_name = "graph"
@@ -208,12 +200,8 @@ class DeviceGraphPlane(DevicePlane):
         # dep patches buffered between dispatches (noop resolutions land
         # here; arrival patches are generated at feed time)
         self._patches: List[Tuple[int, int, int]] = []
-        # in-flight dispatch tokens: (mode, step output, U, ucap, P,
-        # time, t0) — up to pipeline_depth - 1 stay un-fetched
-        self._inflight: Deque[tuple] = deque()
         # drained emissions awaiting the graph: (cmds, src, seq) chunks
         self._emitted: List[Tuple[list, np.ndarray, np.ndarray]] = []
-        self.pipeline_depth = 1
 
     # --- feed surface (BatchedDependencyGraph drives this) ---
 
@@ -221,10 +209,6 @@ class DeviceGraphPlane(DevicePlane):
     def pending_count(self) -> int:
         """Resident rows still blocked (committed, not yet executed)."""
         return len(self._slot_of)
-
-    @property
-    def in_flight(self) -> int:
-        return len(self._inflight)
 
     @property
     def has_patches(self) -> bool:
@@ -369,8 +353,7 @@ class DeviceGraphPlane(DevicePlane):
 
     def flush(self, time: SysTime) -> None:
         """Dispatch any buffered patches (noop resolutions with no new
-        feed) and drain per the pipeline depth (end-of-stream tails are
-        ``drain_all`` / the graph's ``flush_plane_pipeline``)."""
+        feed)."""
         if self._patches:
             empty = np.empty(0, dtype=np.int64)
             self._dispatch(
@@ -381,12 +364,6 @@ class DeviceGraphPlane(DevicePlane):
                 empty.astype(np.int32),
                 time,
             )
-        while len(self._inflight) > max(self.pipeline_depth - 1, 0):
-            self._drain_one()
-
-    def drain_all(self) -> None:
-        while self._inflight:
-            self._drain_one()
 
     def take_emitted(self) -> List[Tuple[list, np.ndarray, np.ndarray]]:
         """Drained (cmds, src, seq) emission chunks in execution order
@@ -414,16 +391,49 @@ class DeviceGraphPlane(DevicePlane):
         return "keyed"
 
     def _dispatch(self, slots, u_deps, u_key, u_src, u_seq, time) -> None:
+        """One resident dispatch, drained at once: fetch the result
+        columns, check the deadline and (when sampled) the shadow twin,
+        then emit.  A detected fault raises to the caller before anything
+        is emitted."""
         patches, self._patches = self._patches, []
         U, P = len(slots), len(patches)
         if U == 0 and P == 0:
             return
-        out, mode, t0, ucap = self._dispatch_raw(
-            slots, u_deps, u_key, u_src, u_seq, patches, (), time=time
+        t0 = _time.perf_counter()
+        out, mode, ucap = self._dispatch_raw(
+            slots, u_deps, u_key, u_src, u_seq, patches, ()
         )
-        self._inflight.append((mode, out, U, ucap, P, time, t0))
-        while len(self._inflight) > max(self.pipeline_depth - 1, 0):
-            self._drain_one()
+        order, newly, stuck, leader = self._fetch_result(mode, out)
+        self._check_deadline(t0)
+        if self._shadow_sampled():
+            self._shadow_compare(self._fetch_state(), (order, newly))
+        self._emit(order[newly[order]], leader, time)
+        # stuck residues (general modes: 3+-cycles the device pass cannot
+        # collapse) finish on the host Tarjan oracle; a follow-up dispatch
+        # marks them executed on device and resolves dependents
+        while stuck is not None:
+            stuck_slots = np.nonzero(stuck & ~self._exec_host)[0]
+            if not len(stuck_slots):
+                break
+            closed = self._close_stuck(stuck_slots)
+            if not len(closed):
+                break  # budget misclassification: wait for a later feed
+            self._stuck_oracle(closed, time)
+            empty = np.empty(0, dtype=np.int64)
+            out, mode, _ucap = self._dispatch_raw(
+                empty, np.empty((0, self._width), np.int32),
+                empty.astype(np.int32), empty.astype(np.int32),
+                empty.astype(np.int32), (), closed,
+            )
+            order, newly, stuck, leader = self._fetch_result(mode, out)
+            self._emit(order[newly[order]], leader, time)
+        self._count_dispatch(
+            t0,
+            new_rows=U,
+            update_capacity=ucap,
+            patched_cells=P,
+            residual_rows=self.pending_count,
+        )
 
     def _pad_columns(self, slots, u_deps, u_key, u_src, u_seq, patches, marks):
         """The padded kernel columns for one dispatch — shared by the
@@ -458,91 +468,33 @@ class DeviceGraphPlane(DevicePlane):
             e_row[:E] = marks
         return (u_row, u_dep, u_k, u_s, u_q, p_row, p_col, p_val, e_row), ucap
 
-    def _dispatch_raw(
-        self, slots, u_deps, u_key, u_src, u_seq, patches, marks, time=None
-    ):
+    def _dispatch_raw(self, slots, u_deps, u_key, u_src, u_seq, patches, marks):
+        self._check_usable()
         cols, ucap = self._pad_columns(
             slots, u_deps, u_key, u_src, u_seq, patches, marks
         )
         mode = self._mode()
         # every dispatch — primary AND stuck follow-up — is logged with
-        # its mode, so the twin replays the identical kernel sequence and
-        # tracks the resident state bit-for-bit (armed-only no-op)
-        self._twin_note((mode, time) + cols)
-        t0 = _time.perf_counter()
-        if self.degraded:
-            # served from the twin at this round's drain (out=None token)
-            return None, mode, t0, ucap
-        try:
-            fault = self._fault_check_pre()
-            self._materialize()
-            dev = self._device
-            out = resolve_graph_plane_step(
-                *self._resident,
-                *(torch.tensor(c, device=dev) for c in cols),
-                mode=mode,
-            )
-            self._resident = tuple(out[:6])
-            if fault is not None:
-                self._poison_resident(fault)
-            return out, mode, t0, ucap
-        except (DeviceFailedError, DeviceCorruptionError) as exc:
-            # dispatch-time failure (injected hang/raise): the round — and
-            # every in-flight round, whose device results are no longer
-            # trusted — is served from the twin at its drain
-            self._device_failure(exc)
-            self._fail_inflight()
-            self._note_degraded(t0)
-            return None, mode, t0, ucap
+        # its mode, so the twin replays the identical step sequence and
+        # tracks the resident state bit for bit (armed-only no-op)
+        self._twin_note((mode,) + cols)
+        self._materialize()
+        dev = self._device
+        out = resolve_graph_plane_step(
+            *self._resident,
+            *(torch.tensor(c, device=dev) for c in cols),
+            mode=mode,
+        )
+        self._resident = tuple(out[:6])
+        return out, mode, ucap
 
-    def _fail_inflight(self) -> None:
-        """Invalidate the device results of every in-flight round after a
-        failure: their rows replay from the twin log (emission dedup makes
-        the replay exactly-once), the drains just count them."""
-        if self._inflight:
-            self._inflight = deque(
-                (m, None, u, uc, p, tm, tt)
-                for (m, _o, u, uc, p, tm, tt) in self._inflight
-            )
-
-    # --- host twin (accelerator fault tolerance; DevicePlane base) ---
+    # --- host twin (the fault detector; DevicePlane base) ---
 
     def _twin_replay(self, state, entry):
-        """One logged dispatch replayed statelessly through the plain
-        version of the step on CPU tensors (copies of the host state),
-        with host emission performed HERE: emission dedup
-        (``_exec_host``) makes rounds the device already drained replay
-        as no-ops, while in-flight rounds at pipeline depth K emit
-        exactly once, in round order — the depth-K exactly-once replay.
-        Degraded serving has no device follow-ups, so stuck residues
-        resolve on the twin itself (healthy folds see them already
-        emitted and skip — the device's own follow-up was logged)."""
-        mode, time = entry[0], entry[1]
-        state, fetched = self._twin_step(state, mode, entry[2:])
-        order, newly, stuck, leader = fetched
-        self._emit(order[newly[order]], leader, time)
-        while stuck is not None:
-            stuck_slots = np.nonzero(stuck & ~self._exec_host)[0]
-            if not len(stuck_slots):
-                break
-            closed = self._close_stuck(stuck_slots)
-            if not len(closed):
-                break
-            self._stuck_oracle(closed, time)
-            empty = np.empty(0, dtype=np.int64)
-            mcols, _ucap = self._pad_columns(
-                empty, np.empty((0, self._width), np.int32),
-                empty.astype(np.int32), empty.astype(np.int32),
-                empty.astype(np.int32), (), closed,
-            )
-            state, fetched = self._twin_step(state, self._mode(), mcols)
-            order, newly, stuck, leader = fetched
-            self._emit(order[newly[order]], leader, time)
-        return state, fetched
-
-    def _twin_step(self, state, mode, cols):
-        """One plain-version run on host-owned twin state (CPU tensors);
-        returns the new state and the result columns, all host numpy."""
+        """One logged dispatch replayed through the plain version of the
+        step on CPU tensors made from the host-owned twin state; returns
+        the new state and the result columns, all host numpy."""
+        mode, cols = entry[0], entry[1:]
         out = resolve_graph_plane_step(
             *state_from_numpy(state, "cpu"),
             *(torch.tensor(c) for c in cols),
@@ -561,84 +513,10 @@ class DeviceGraphPlane(DevicePlane):
             None,
         )
 
-    def _drain_one(self) -> None:
-        mode, out, U, ucap, P, time, t0 = self._inflight.popleft()
-        if out is None:
-            # the round is (or already was, by an earlier fold) served
-            # bit-for-bit from the twin — emission dedup makes rounds an
-            # earlier fold replayed pure no-ops here
-            self._twin_fold()
-            self._note_degraded(t0)
-        else:
-            try:
-                order, newly, stuck, leader = self._fetch_result(mode, out)
-                self._check_deadline(t0)
-                live_stuck = stuck is not None and bool(
-                    (stuck & ~self._exec_host).any()
-                )
-                if (
-                    not self._inflight
-                    and not live_stuck
-                    and self._shadow_sampled()
-                ):
-                    # serve the round from the twin FIRST (the device
-                    # emission below dedups to a no-op), then verify the
-                    # device state against it — a corrupt ``newly`` never
-                    # reaches the host bookkeeping.  Rounds with live
-                    # stuck residues defer to the next sampled round (the
-                    # follow-up dispatch below would race the compare).
-                    self._twin_fold()
-                    self._shadow_compare(self._fetch_state())
-                self._emit(order[newly[order]], leader, time)
-                # stuck residues (general modes: 3+-cycles the device
-                # pass cannot collapse) finish on the host Tarjan oracle;
-                # a follow-up dispatch marks them executed on device and
-                # resolves dependents
-                while stuck is not None:
-                    stuck_slots = np.nonzero(stuck & ~self._exec_host)[0]
-                    if not len(stuck_slots):
-                        break
-                    closed = self._close_stuck(stuck_slots)
-                    if not len(closed):
-                        break  # budget misclassification: wait for a later feed
-                    self._stuck_oracle(closed, time)
-                    empty = np.empty(0, dtype=np.int64)
-                    out2, mode2, _t0b, _ucap2 = self._dispatch_raw(
-                        empty, np.empty((0, self._width), np.int32),
-                        empty.astype(np.int32), empty.astype(np.int32),
-                        empty.astype(np.int32), (), closed, time=time,
-                    )
-                    if out2 is None:
-                        # the follow-up itself hit the injected fault:
-                        # its marks entry replays through the twin
-                        self._twin_fold()
-                        break
-                    order, newly, stuck, leader = self._fetch_result(
-                        mode2, out2
-                    )
-                    self._emit(order[newly[order]], leader, time)
-            except (DeviceFailedError, DeviceCorruptionError) as exc:
-                # serve this round — and everything still logged — from
-                # the twin; in-flight device results are dropped
-                self._twin_fold()
-                self._device_failure(exc)
-                self._fail_inflight()
-                self._note_degraded(t0)
-        self._count_dispatch(
-            t0,
-            new_rows=U,
-            update_capacity=ucap,
-            patched_cells=P,
-            residual_rows=self.pending_count,
-        )
-        # cutback: once the fault window closed, ONE counted re-upload of
-        # the folded twin state (no-op unless failed)
-        self._maybe_rebuild()
-
     def _emit(self, slots: np.ndarray, leader, time) -> None:
         """Host bookkeeping for one drain's executed slots, in emission
         order.  Idempotent (already-executed slots are dropped) so the
-        stuck-cycle follow-up composes with in-flight rounds."""
+        stuck-cycle follow-up may re-emit a slot harmlessly."""
         slots = np.asarray(slots, dtype=np.int64)
         if len(slots):
             slots = slots[~self._exec_host[slots]]
@@ -736,12 +614,6 @@ class DeviceGraphPlane(DevicePlane):
         residual rows from flapping the capacity), then compact (re-pack
         pending rows to the bottom — same capacity, one counted
         re-upload) when the bump pointer is exhausted anyway."""
-        if (
-            len(self._slot_of) + need > (3 * self._cap) // 4
-            or self._next_slot + need > self._cap
-        ):
-            # both paths renumber or reshape: retire in-flight rounds
-            self.drain_all()
         while len(self._slot_of) + need > (3 * self._cap) // 4:
             self._grow_columns()
         if self._next_slot + need > self._cap:
@@ -770,11 +642,9 @@ class DeviceGraphPlane(DevicePlane):
     def _ensure_width(self, width: int) -> None:
         if width <= self._width:
             return
-        self.drain_all()
-        if self._fault_armed and self._twin_log:
+        if self._twin_log:
             # entries logged at the old width cannot replay against the
-            # widened twin — fold them out first (emission dedup makes
-            # the healthy-path replays no-ops)
+            # widened twin: fold them out first
             self._twin_fold()
         new_w = _pow2(width)
         deps = np.full((self._cap, new_w), TERMINAL, dtype=np.int32)
@@ -795,10 +665,9 @@ class DeviceGraphPlane(DevicePlane):
         from the HOST MIRRORS (no device fetch): dep cells remap through
         a LUT, references to executed rows fold to TERMINAL, one counted
         re-upload."""
-        assert not self._inflight
-        if self._fault_armed and self._twin_log:
+        if self._twin_log:
             # entries describe the pre-compaction slot layout: fold them
-            # before the renumbering (healthy replays dedup to no-ops)
+            # before the renumbering
             self._twin_fold()
         cap = self._cap
         old = np.fromiter(self._slot_of.values(), np.int64, len(self._slot_of))
@@ -843,11 +712,7 @@ class DeviceGraphPlane(DevicePlane):
         ]
         self._next_slot = P
         state = self._rebuild_state()
-        if self.degraded:
-            # no upload while failed over: the compacted window becomes
-            # the new twin state; cutback re-uploads it (ONE upload)
-            pass
-        elif self._resident is not None or self._host_mirror is None:
+        if self._resident is not None or self._host_mirror is None:
             self._upload(state)
         else:
             self._host_mirror = state
@@ -881,7 +746,6 @@ class DeviceGraphPlane(DevicePlane):
         recovery.  A waiter dot found executed in the frontier is a lost
         wake and folds like an executed cell (its dependents then panic
         as pending-without-missing, exactly like the host twin)."""
-        assert not self._inflight
         if not self._slot_of:
             return None
         from fantoch_tpu_torch.executor.graph.indexes import (
@@ -992,13 +856,3 @@ class DeviceGraphPlane(DevicePlane):
         out[4][:rows] = occ[:rows]
         out[5][:rows] = executed[:rows]
         return tuple(out)
-
-    # --- durability (in-flight rounds cannot survive a pickle) ---
-
-    def __getstate__(self):
-        self.drain_all()
-        if self._fault_armed and self._twin_log:
-            # fold so the pickled log is empty (entries hold live time
-            # handles); post-drain replays dedup to no-op emissions
-            self._twin_fold()
-        return super().__getstate__()

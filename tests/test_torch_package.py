@@ -5,13 +5,17 @@
   imports every port module).
 * No silent CPU route: without CUDA, building the plane or the executor
   without ``device=`` raises, and a wrapper handed CUDA tensors launches
-  its kernel or raises — it never reaches its plain version.  The kernel
-  build targets ``sm_90a`` into a directory ``.gitignore`` lists.
+  its kernel or raises — it never reaches its plain version.  An armed
+  plane whose dispatch is late or disagrees with its shadow twin raises
+  to the caller, emits nothing from that round and refuses every later
+  dispatch: no other route serves the work.  The kernel build targets
+  ``sm_90a`` into a directory ``.gitignore`` lists.
 
 Two collected items on purpose (see test_torch_graph_resolve.py).
 """
 
 import ast
+import pickle
 import subprocess
 import sys
 from pathlib import Path
@@ -21,7 +25,9 @@ import pytest
 import torch
 
 from fantoch_tpu_torch.core import Command, Config, Dot, KVOp, Rifl, RunTime
+from fantoch_tpu_torch.errors import DeviceCorruptionError, DeviceFailedError
 from fantoch_tpu_torch.executor.graph.batched import BatchedDependencyGraph
+from fantoch_tpu_torch.executor.graph import graph_plane
 from fantoch_tpu_torch.executor.graph.executor import GraphExecutor
 from fantoch_tpu_torch.ops import _build
 from fantoch_tpu_torch.ops import graph_plane_kernels as K
@@ -75,6 +81,67 @@ class _PlainReached(Exception):
     pass
 
 
+def _armed_graph(monkeypatch, steps, **knobs):
+    """A CPU plane armed with ``knobs``, its step calls counted in
+    ``steps``, and a feed helper that adds one single-key command."""
+    real = graph_resolve.resolve_graph_plane_step
+
+    def counted(*args, **kwargs):
+        steps.append(args[0].device.type)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(graph_plane, "resolve_graph_plane_step", counted)
+    config = Config(3, 1, batched_graph_executor=True, device_graph_plane=True, **knobs)
+    graph = BatchedDependencyGraph(1, 0, config, device="cpu")
+
+    def feed(seq):
+        cmd = Command.from_keys(Rifl(1, seq), 0, {"a": (KVOp.put(""),)})
+        graph.handle_add(Dot(1, seq), cmd, [], RunTime())
+        return graph.commands_to_execute()
+
+    return graph, feed
+
+
+def _armed_plane_fails_to_the_caller(monkeypatch):
+    # a late dispatch: the deadline raises, nothing of the round is
+    # emitted, and the step ran once (no twin served the round)
+    steps = []
+    graph, feed = _armed_graph(monkeypatch, steps, device_dispatch_timeout_ms=1e-9)
+    with pytest.raises(DeviceFailedError) as info:
+        feed(1)
+    assert info.value.kind == "timeout" and steps == ["cpu"], steps
+    plane = graph._plane
+    assert plane.health_name() == "failed" and plane.fault_counters()["failures"] == 1
+    assert graph.commands_to_execute() == [] and plane.pending_count == 1
+    # a failed plane refuses later rounds and snapshots outright
+    with pytest.raises(DeviceFailedError) as info:
+        feed(2)
+    assert info.value.kind == "failed" and steps == ["cpu"], steps
+    with pytest.raises(DeviceFailedError):
+        pickle.dumps(plane)
+
+    # a resident cell flipped between rounds: the shadow check names it
+    # and the round's outputs never reach the host bookkeeping
+    steps = []
+    graph, feed = _armed_graph(monkeypatch, steps, plane_shadow_rate=1.0)
+    assert len(feed(1)) == 1
+    plane = graph._plane
+    plane._resident[2][0] ^= 1  # the src column of row 0
+    with pytest.raises(DeviceCorruptionError) as info:
+        feed(2)
+    assert (info.value.array_index, info.value.row) == (2, 0), str(info.value)
+    assert graph.commands_to_execute() == [] and plane.health_name() == "failed"
+    # the primary step and the twin's replay, once per round
+    assert len(steps) == 4, steps
+    for name in dir(K):
+        if name.endswith("_plain"):
+            def refuse(*_a, _name=name, **_k):
+                raise _PlainReached(_name)
+            monkeypatch.setattr(K, name, refuse)
+    with pytest.raises(DeviceFailedError):
+        feed(3)
+
+
 def test_no_silent_cpu_route(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     # no device given and no CUDA: the plane, the graph and the executor raise
@@ -105,6 +172,8 @@ def test_no_silent_cpu_route(monkeypatch):
     ] + [torch.full((4,), cap, dtype=torch.int32)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         graph_resolve.resolve_graph_plane_step(*state, *feed, mode="general")
+
+    _armed_plane_fails_to_the_caller(monkeypatch)
 
     # tensors that claim to live on the card never reach a plain version
     for name in dir(K):
