@@ -29,9 +29,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    reaches the plane and its kernels; every command executes exactly
    once, each key in its dependency-chain order, every dispatch went
    through the kernels (prologue launches == plane dispatches) and the
-   plane stayed healthy.
+   plane stayed healthy;
+3. the general modes' kernels against their plain versions on the card,
+   exactly: mode ``general`` at its largest shape on the path (C = 4096
+   slots x W = 4) over a multi-key feed permuted within each feed of 1024
+   and a cycle-rich feed
+   (mutual collapse, affine rounds and the stuck-cycle host-oracle
+   follow-up all run; each dispatch is also held against the plain
+   composition on CPU tensors), and mode ``general_resident`` at full
+   width (C = 2^20 x W = 4): 2^20 commands of ``bench.py``'s general
+   generator (seed 7, 4 keys per command from 4096) as 4 feeds of 2^18,
+   shuffled around the feed edges as in phase 1; each kernel is timed
+   beside its plain version and its byte bound, with the affine and peel
+   round counts;
+4. the general path end to end: ``GraphExecutor`` on ``cuda`` takes the
+   2^20 multi-key commands as ``GraphAddBatch`` feeds of 250k, shuffled
+   around the feed edges (every command once, each key in dependency
+   order; commands/s and p50 dispatch by mode), then EPaxos and Atlas
+   (n = 5, f = 2, two keys per command, 50% conflict) through
+   ``sim.runner.Runner(device="cuda")`` must equal the same seed's
+   ``Runner(device="cpu")`` run in per-key orders and latency histograms;
+   every general kernel must have launched in this phase.
 
-The last lines are the ``{"kernels": [...]}`` record, the card line and
+Each phase reports its wall time.  The last lines are the
+``{"kernels": [...]}`` record, the card line and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -53,7 +74,11 @@ BIG = 1 << 20
 FEED = 1 << 18
 EXECUTOR_BATCH = 250_000
 SOURCE = "fantoch_tpu_torch/csrc/graph_plane_step.cu"
+GENERAL_SOURCE = "fantoch_tpu_torch/csrc/graph_general.cu"
 REPLACES = "fantoch_tpu/ops/pallas_resolve.py:334"
+GENERAL_C = 4096  # mode general's largest window: the kernel-size gate
+GENERAL_WIDTH = 4
+GENERAL_FEED = 1024
 
 
 def log(msg):
@@ -174,7 +199,15 @@ class Checker:
 
     @staticmethod
     def variant(name, args, kwargs):
-        """The call's use: the sort serves five, told apart by its keys."""
+        """The call's use: the sort serves five, told apart by its keys;
+        the affine round's final fold and the peel compaction's init and
+        publish are uses of their wrappers too."""
+        if name == "affine_round" and kwargs.get("final"):
+            return "affine_round, final fold"
+        if name == "graph_prologue" and kwargs.get("general"):
+            return "graph_prologue, general fold"
+        if name == "peel_compact" and kwargs["mode"] != "compact":
+            return f"peel_compact, {kwargs['mode']}"
         if name != "lex_sort":
             return name
         keys = args[0]
@@ -246,6 +279,65 @@ def describe(args):
     return " ".join("x".join(str(d) for d in t.shape) for t in tensors_of(args))
 
 
+def kernel_records(torch, K, checker, names, source, phase, extra_uses=()):
+    """Time each of ``names`` at its largest checked call (one record per
+    wrapper; the uses of a wrapper that serves several are listed under
+    ``uses``, the record's own numbers being its main use's).  The
+    ``extra_uses`` of other wrappers are timed too and returned under
+    ``records["uses"]`` for their own records."""
+    ran = {use.split(",")[0] for use in checker.calls}
+    missing = [name for name in names if name not in ran]
+    assert not missing, f"{phase} never ran {missing}"
+    main_use = {"lex_sort": "lex_sort, 1 key"}
+    records, uses = {}, {}
+    for use, (_size, args, kwargs, out) in checker.calls.items():
+        name = use.split(",")[0]
+        if name not in names and use not in extra_uses:
+            continue
+        kernel, plain = checker.real[name], getattr(K, f"{name}_plain")
+        ms = time_ms(kernel, args, kwargs)
+        plain_ms = time_ms(plain, args, kwargs)
+        library_ms = None
+        if name == "lex_sort" and len(args[0]) == 1 and args[0][0].dtype == torch.int32:
+            library_ms = time_ms(
+                lambda k: torch.sort(k, stable=True), (args[0][0],), {}
+            )
+        nbytes = moved_bytes(name, args, out)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(json.dumps({
+            f"{phase}_kernel": use, "launches": checker.count[name],
+            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": bound_ms, "library_ms": library_ms,
+            "shape": describe(args),
+        }))
+        uses.setdefault(name, []).append({
+            "use": use, "shape": describe(args), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "library_ms": library_ms,
+        })
+        if use != main_use.get(name, name):
+            continue
+        records[name] = {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": REPLACES,
+            "launches": 0,
+            "max_abs_err": checker.err[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "library_ms": library_ms,
+            "shape": describe(args),
+        }
+    for name, listed in uses.items():
+        if name in records and len(listed) > 1:
+            records[name]["uses"] = listed
+    records["uses"] = [u for name, listed in uses.items() if name not in names
+                       for u in listed]
+    return records
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -303,49 +395,9 @@ def phase1(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
         checker.uninstall()
         gp_module.resolve_graph_plane_step = real_step
 
-    ran = {use.split(",")[0] for use in checker.calls}
-    missing = [name for name in K.LAUNCHES if name not in ran]
-    assert not missing, f"phase 1 never ran {missing}"
-    records, sort_uses = {}, []
-    for use, (_size, args, kwargs, out) in checker.calls.items():
-        name = use.split(",")[0]
-        kernel, plain = checker.real[name], getattr(K, f"{name}_plain")
-        ms = time_ms(kernel, args, kwargs)
-        plain_ms = time_ms(plain, args, kwargs)
-        library_ms = None
-        if name == "lex_sort" and len(args[0]) == 1 and args[0][0].dtype == torch.int32:
-            library_ms = time_ms(
-                lambda k: torch.sort(k, stable=True), (args[0][0],), {}
-            )
-        nbytes = moved_bytes(name, args, out)
-        log(json.dumps({
-            "phase1_kernel": use, "launches": checker.count[name],
-            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "library_ms": library_ms,
-            "shape": describe(args),
-        }))
-        if name == "lex_sort":
-            sort_uses.append({
-                "use": use, "shape": describe(args), "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "library_ms": library_ms,
-            })
-            if use != "lex_sort, 1 key":
-                continue  # the record's own numbers are the key grouping's
-        records[name] = {
-            "name": name,
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": REPLACES,
-            "launches": 0,
-            "max_abs_err": checker.err[name],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": library_ms,
-            "shape": describe(args),
-        }
-    records["lex_sort"]["uses"] = sort_uses
+    keyed = [name for name in K.LAUNCHES if name not in K.GENERAL_KERNELS]
+    records = kernel_records(torch, K, checker, keyed, SOURCE, "phase1")
+    del records["uses"]
     return records
 
 
@@ -428,7 +480,7 @@ def phase2(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
     launches = dict(K.LAUNCHES)
     check_chain_order(executed, key_of, n)
     assert launches["graph_prologue"] == plane.dispatches > 0, (launches, plane.dispatches)
-    not_run = [k for k, v in launches.items() if v == 0]
+    not_run = [k for k, v in launches.items() if v == 0 and k not in K.GENERAL_KERNELS]
     assert not not_run, f"kernels of the path never launched: {not_run}"
     assert plane.health_name() == "healthy", plane.health_name()
     p50 = float(np.median(dispatch_ms))
@@ -445,6 +497,319 @@ def phase2(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
         "wall_s": wall_s, "commands_per_s": n / wall_s,
         "resident_uploads": plane.resident_uploads, "launches": launches,
     }}))
+    return launches
+
+
+def general_workload(batch, width=GENERAL_WIDTH):
+    """``bench.py``'s general generator (seed 7): ``width`` keys per command
+    from 4096, a dependency on the latest command of each key (all
+    backward); returns (keys, deps, dot_src, dot_seq)."""
+    rng = np.random.default_rng(7)
+    keys = rng.integers(0, 4096, size=(batch, width))
+    deps = np.full((batch, width), -1, dtype=np.int32)
+    last = {}
+    for i, row in enumerate(keys.tolist()):
+        slot = 0
+        for k in row:
+            prev = last.get(k)
+            if prev is not None and prev != i and slot < width:
+                deps[i, slot] = prev
+                slot += 1
+            last[k] = i
+    dot_src = (1 + rng.integers(0, 5, size=batch)).astype(np.int32)
+    dot_seq = np.arange(batch, dtype=np.int32)
+    return keys, deps, dot_src, dot_seq
+
+
+def cycle_rich(n, chunk, n_keys=256, seed=SEED):
+    """Two keys per command; each pair of consecutive commands on a key
+    within a chunk is linked in a random direction, or both (a mutual
+    edge): 2-cycles, mutual cliques and directed cycles with no mutual
+    edge, which the general resolver leaves stuck for the host oracle.
+    Links stay inside their chunk, so a feed of one chunk resolves whole."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, n_keys, size=(n, 2))
+    deps = [[] for _ in range(n)]
+    last = {}
+    for i, row in enumerate(keys.tolist()):
+        if i % chunk == 0:
+            last = {}
+        for k in sorted(set(row)):
+            prev = last.get(k)
+            if prev is not None:
+                c = int(rng.integers(0, 3))
+                if c in (0, 2):
+                    deps[i].append(prev)
+                if c in (1, 2):
+                    deps[prev].append(i)
+            last[k] = i
+    mat = np.full((n, GENERAL_WIDTH), -1, dtype=np.int32)
+    for i, row in enumerate(deps):
+        mat[i, : len(row)] = row
+    dot_src = (1 + rng.integers(0, 5, size=n)).astype(np.int32)
+    return keys, mat, dot_src, np.arange(n, dtype=np.int32)
+
+
+def general_columns(deps, src, seq, order):
+    """Plane feed columns in arrival order: dots (seq = index + 1), the
+    multi-key marker (-1) and the packed dep dots."""
+    dot_src = src.astype(np.int64)
+    dot_seq = seq.astype(np.int64) + 1
+    has = deps >= 0
+    di = np.where(has, deps, 0)
+    packed = np.where(has, (dot_src[di] << 32) | dot_seq[di], -1)
+    key = np.full(len(src), -1, dtype=np.int32)
+    return dot_src[order], dot_seq[order], key[order], packed[order]
+
+
+def check_key_order(executed_seq, keys, n):
+    """Every command exactly once; each key's commands in index order (its
+    dependency chain: every command depends on the latest of each key)."""
+    idx = np.asarray(executed_seq, dtype=np.int64) - 1
+    assert len(idx) == n, f"executed {len(idx)} of {n}"
+    assert np.array_equal(np.sort(idx), np.arange(n)), "not exactly once"
+    pos = np.empty(n, dtype=np.int64)
+    pos[idx] = np.arange(n)
+    kk = keys.ravel()
+    rr = np.repeat(np.arange(n), keys.shape[1])
+    o = np.lexsort((rr, kk))
+    kk, rr = kk[o], rr[o]
+    same = (kk[1:] == kk[:-1]) & (rr[1:] != rr[:-1])
+    assert np.all(pos[rr[1:]][same] > pos[rr[:-1]][same]), "a key left its order"
+
+
+def phase3(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
+    checker = Checker(K)
+    real_step = gp_module.resolve_graph_plane_step
+    twin = {"on": True}
+
+    def checked_step(*args, mode):
+        cpu_args = [a.to("cpu", copy=True) for a in args] if twin["on"] else None
+        got = real_step(*args, mode=mode)
+        if cpu_args is not None:
+            checker.uninstall()
+            try:
+                want = real_step(*cpu_args, mode=mode)
+            finally:
+                checker.install()
+            for field, g, w in zip(got._fields, got, want):
+                assert torch.equal(g.cpu(), w), f"{mode} step field {field} differs"
+        return got
+
+    n3 = 4 * GENERAL_FEED
+    keys_p, deps_p, src_p, seq_p = general_workload(n3)
+    # bench.py's adversarial arrival (a random permutation, :620-634) within
+    # each feed, so the pending window stays within the kernel-size gate
+    rng13 = np.random.default_rng(13)
+    perm = np.concatenate([
+        s + rng13.permutation(GENERAL_FEED) for s in range(0, n3, GENERAL_FEED)
+    ])
+    keys_c, deps_c, src_c, seq_c = cycle_rich(n3, GENERAL_FEED)
+    keys_b, deps_b, src_b, seq_b = general_workload(BIG)
+    cases = (
+        ("general, permuted C=4096", "general", GENERAL_C, GENERAL_FEED,
+         general_columns(deps_p, src_p, seq_p, perm), None, True),
+        ("general, cycle-rich C=4096", "general", GENERAL_C, GENERAL_FEED,
+         general_columns(deps_c, src_c, seq_c, perm),
+         None, True),
+        ("general_resident C=2^20", "general_resident", BIG, FEED,
+         general_columns(deps_b, src_b, seq_b, arrival(BIG, FEED, 8192, 128, SEED)),
+         keys_b, False),
+    )
+    rounds = {}
+    oracle_calls = []  # rows each stuck-cycle host-oracle follow-up closed
+    real_oracle = gp_module.DeviceGraphPlane._stuck_oracle
+
+    def counted_oracle(plane, slots, t):
+        oracle_calls.append(len(slots))
+        return real_oracle(plane, slots, t)
+
+    checker.install()
+    gp_module.resolve_graph_plane_step = checked_step
+    gp_module.DeviceGraphPlane._stuck_oracle = counted_oracle
+    try:
+        for name, mode, cap, feed, cols, keys, with_twin in cases:
+            twin["on"] = with_twin
+            src, seq, key, packed = cols
+            n = len(src)
+            plane = gp_module.DeviceGraphPlane(
+                1, 0, Config(5, 2, batched_graph_executor=True, device_graph_plane=True),
+                DeviceFrontier([1, 2, 3, 4, 5]), Metrics(), slot_capacity=cap,
+            )
+            oracle_calls.clear()
+            t0 = time.perf_counter()
+            emitted = []
+            before = dict(checker.count)
+            for s in range(0, n, feed):
+                cut = slice(s, s + feed)
+                # distinct command objects: the host oracle maps them back
+                plane.feed(
+                    src[cut], seq[cut], key[cut], np.zeros(len(src[cut])),
+                    packed[cut], [object() for _ in range(len(src[cut]))], RunTime(),
+                )
+                assert plane._mode() in (mode, "keyed"), plane._mode()
+                emitted += [q for _c, _s, q in plane.take_emitted()]
+            executed = np.concatenate(emitted)
+            if keys is not None:
+                check_key_order(executed, keys, n)
+            else:
+                idx = np.sort(executed.astype(np.int64) - 1)
+                assert np.array_equal(idx, np.arange(n)), f"{name}: not exactly once"
+            # wrapper calls, each checked against its plain version
+            ran = {k: checker.count[k] - before[k] for k in K.LAUNCHES}
+            assert plane._cap == cap, (name, plane._cap)
+            rounds[name] = {
+                "dispatches": plane.dispatches,
+                # one final fold per resolve (one mutual collapse each)
+                "affine_rounds": ran["affine_round"] - ran["mutual_collapse"],
+                "peel_rounds": ran["peel_round"],
+                "stuck_oracle_runs": len(oracle_calls),
+                "stuck_rows": int(sum(oracle_calls)),
+                "wall_s": time.perf_counter() - t0,
+            }
+            log(f"phase 3: {name}: {plane.dispatches} dispatches"
+                f"{' equal to the CPU twin' if with_twin else ''}, every kernel call "
+                f"equal to its plain version ({time.perf_counter() - t0:.1f} s); "
+                f"kernel calls {ran}; stuck-oracle runs {len(oracle_calls)} "
+                f"({sum(oracle_calls)} rows)")
+            if mode == "general":
+                for wrapper in ("mutual_collapse", "affine_round"):
+                    assert ran[wrapper] > 0, (name, wrapper)
+            else:
+                for wrapper in ("peel_round", "peel_compact"):
+                    assert ran[wrapper] > 0, (name, wrapper)
+        assert rounds["general, cycle-rich C=4096"]["stuck_oracle_runs"] > 0, rounds
+    finally:
+        checker.uninstall()
+        gp_module.resolve_graph_plane_step = real_step
+        gp_module.DeviceGraphPlane._stuck_oracle = real_oracle
+    log(json.dumps({"phase3_rounds": rounds}))
+    # the prologue's general fold is a use of the prologue (graph_plane_step.cu)
+    return kernel_records(torch, K, checker, list(K.GENERAL_KERNELS),
+                          GENERAL_SOURCE, "phase3",
+                          extra_uses=("graph_prologue, general fold",))
+
+
+def sim_run(device, protocol_name):
+    """EPaxos/Atlas through the simulator at n = 5, f = 2, two keys per
+    command, 50% conflict (tests/harness.py's shape), seed 0; returns the
+    per-process per-key orders, the latency histograms and the runner."""
+    from fantoch_tpu_torch.client import ConflictRateKeyGen, Workload
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch import protocol
+    from fantoch_tpu_torch.sim import Runner
+
+    config = Config(
+        5, 2, batched_graph_executor=True, device_graph_plane=True,
+        executor_monitor_execution_order=True, gc_interval_ms=100,
+        executor_executed_notification_interval_ms=100,
+    )
+    planet = Planet.new("gcp")
+    workload = Workload(
+        shard_count=1, key_gen=ConflictRateKeyGen(50), keys_per_command=2,
+        commands_per_client=10, payload_size=1,
+    )
+    regions = sorted(planet.regions())[:5]
+    runner = Runner(
+        getattr(protocol, protocol_name), planet, config, workload, 3,
+        process_regions=list(regions), client_regions=list(regions), seed=0,
+        device=device,
+    )
+    runner.reorder_messages()
+    _metrics, monitors, latencies = runner.run(extra_sim_time_ms=10_000)
+    orders = {
+        pid: {k: [(r.source, r.sequence) for r in m.get_order(k)] for k in sorted(m.keys())}
+        for pid, m in monitors.items()
+    }
+    hists = {str(r): (c, list(h.values())) for r, (c, h) in latencies.items()}
+    return orders, hists, runner
+
+
+def phase4(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
+           GraphExecutor, GraphAddBatch):
+    n = BIG
+    keys, deps, src0, seq0 = general_workload(n)
+    order = arrival(n, EXECUTOR_BATCH, 4096, 64, SEED + 1)
+    src, seq, key, packed = general_columns(deps, src0, seq0, order)
+    t0 = time.perf_counter()
+    cmds = [
+        Command.from_keys(Rifl(int(s), int(q)), 0,
+                          {f"g{k}": (KVOp.put(""),) for k in keys[int(q) - 1].tolist()})
+        for s, q in zip(src.tolist(), seq.tolist())
+    ]
+    setup_s = time.perf_counter() - t0
+    config = Config(5, 2, batched_graph_executor=True, device_graph_plane=True)
+    executor = GraphExecutor(1, 0, config)
+    plane = executor.graph._plane
+    assert plane._device.type == "cuda"
+    real_step = gp_module.resolve_graph_plane_step
+    dispatch_ms = {}
+
+    def timed_step(*args, mode):
+        t = time.perf_counter()
+        out = real_step(*args, mode=mode)
+        torch.cuda.synchronize()
+        dispatch_ms.setdefault(mode, []).append((time.perf_counter() - t) * 1e3)
+        return out
+
+    K.reset_launch_counts()
+    gp_module.resolve_graph_plane_step = timed_step
+    try:
+        executed, wall_s = drive(
+            executor, (src, seq, key, packed), cmds, RunTime, GraphAddBatch
+        )
+        # one result per key of a command: each command once, with one
+        # result for each of its distinct keys
+        results = np.asarray(executed, dtype=np.int64)
+        first = np.sort(np.unique(results, return_index=True)[1])
+        distinct = np.array([len(set(row)) for row in keys.tolist()])
+        assert np.array_equal(np.bincount(results - 1, minlength=n), distinct), (
+            "a command's results are not one per key")
+        check_key_order(results[first], keys, n)
+        assert plane.health_name() == "healthy", plane.health_name()
+        by_mode = {
+            mode: {"dispatches": len(ms), "p50_dispatch_ms": float(np.median(ms))}
+            for mode, ms in dispatch_ms.items()
+        }
+        log(f"phase 4: {n} multi-key commands executed exactly once in per-key "
+            f"order through GraphExecutor on cuda: {plane.dispatches} dispatches, "
+            f"slot capacity {plane._cap}, {n / wall_s:.1f} commands/s "
+            f"({wall_s:.3f} s; {setup_s:.1f} s building Command objects before); "
+            f"by mode {by_mode}")
+        log(json.dumps({"general_path": {
+            "commands": n, "feeds": len(range(0, n, EXECUTOR_BATCH)),
+            "dispatches": plane.dispatches, "slot_capacity": plane._cap,
+            "wall_s": wall_s, "commands_per_s": n / wall_s, "by_mode": by_mode,
+            "dispatch_ms": dispatch_ms, "resident_uploads": plane.resident_uploads,
+        }}))
+        del executor, cmds
+        sims = {}
+        for name in ("EPaxos", "Atlas"):
+            t0 = time.perf_counter()
+            got = sim_run("cuda", name)
+            cuda_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = sim_run("cpu", name)
+            cpu_s = time.perf_counter() - t0
+            assert got[0] == want[0], f"{name}: per-key orders differ from the CPU run"
+            assert got[1] == want[1], f"{name}: latency histograms differ from the CPU run"
+            counters = [e.device_counters() for _p, (_x, e, _q)
+                        in got[2]._simulation.processes()]
+            assert all(c["graph_plane_dispatches"] > 0 for c in counters)
+            sims[name] = {
+                "dispatches": sum(c["graph_plane_dispatches"] for c in counters),
+                "cuda_wall_s": cuda_s, "cpu_wall_s": cpu_s,
+                "commands": sum(len(set().union(*o.values())) for o in got[0].values()),
+            }
+            log(f"phase 4: {name} through Runner(device='cuda'): per-key orders and "
+                f"latency histograms equal to Runner(device='cpu'); {sims[name]}")
+    finally:
+        gp_module.resolve_graph_plane_step = real_step
+    launches = dict(K.LAUNCHES)
+    on_path = list(K.GENERAL_KERNELS) + ["graph_prologue", "lex_sort", "plane_epilogue"]
+    not_run = [k for k in on_path if launches[k] == 0]
+    assert not not_run, f"kernels of the general path never launched: {not_run}"
+    log(json.dumps({"general_sims": sims, "launches": launches}))
     return launches
 
 
@@ -487,11 +852,33 @@ def main():
             log(f"phase 0: ptxas {name}: {len(regs)} kernels, at most {max(regs)} "
                 f"registers a thread, {spills} bytes of spills")
 
-    records = phase1(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime)
-    launches = phase2(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
-                      GraphExecutor, GraphAddBatch)
-    for name, count in launches.items():
-        records[name]["launches"] = count
+    walls = {"phase 0": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t
+        log(f"{name}: {walls[name]:.1f} s wall")
+        return out
+
+    records = timed("phase 1", phase1, torch, K, gp_module, Config, Metrics,
+                    DeviceFrontier, RunTime)
+    keyed = timed("phase 2", phase2, torch, K, gp_module, Config, Command, Rifl,
+                  KVOp, RunTime, GraphExecutor, GraphAddBatch)
+    general_records = timed("phase 3", phase3, torch, K, gp_module, Config, Metrics,
+                            DeviceFrontier, RunTime)
+    for use in general_records.pop("uses"):
+        records["graph_prologue"].setdefault("uses", []).append(use)
+    records.update(general_records)
+    general = timed("phase 4", phase4, torch, K, gp_module, Config, Command, Rifl,
+                    KVOp, RunTime, GraphExecutor, GraphAddBatch)
+    # launches: each kernel's count on the main path of its slice, the
+    # keyed path (phase 2) or the general path (phase 4), both listed
+    for name, record in records.items():
+        path = general if name in K.GENERAL_KERNELS else keyed
+        record["launches"] = path[name]
+        record["launches_by_path"] = {"keyed": keyed[name], "general": general[name]}
+    log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": list(records.values())}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -14,4 +14,5 @@ from fantoch_tpu_torch.core.ids import (
 )
 from fantoch_tpu_torch.core.kvs import KVOp, KVOpKind, KVOpResult, KVStore, Key, Value
 from fantoch_tpu_torch.core.metrics import Histogram, Metrics
+from fantoch_tpu_torch.core.planet import Planet, Region
 from fantoch_tpu_torch.core.timing import RunTime, SimTime, SysTime

@@ -1,15 +1,16 @@
-"""System configuration: the knobs the graph-executor slice reads.
+"""System configuration and the EPaxos/Atlas quorum-size formulas.
 
-The port of fantoch_tpu/core/config.py, cut to the fields this slice of
-the port reads; each keeps its name, default and check so a reader finds
-its counterpart.  The other knobs (protocols, serving, WAL, ingest,
-overload, audit and telemetry) come with the slices that read them.
+The port of fantoch_tpu/core/config.py, cut to the fields the ported
+modules read (the graph executor, EPaxos/Atlas, the clients and the
+simulator); each keeps its name, default and check so a reader finds its
+counterpart.  The other knobs (Newt, Caesar, FPaxos, serving, WAL and
+overload) come with the slices that read them.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple
 
 
 @dataclass
@@ -25,6 +26,13 @@ class Config:
     # if True, commands are executed at commit time by the protocol itself
     # (skipping the executor's ordering) — only safe for benchmarks
     execute_at_commit: bool = False
+    # interval at which executors inform workers of executed commands
+    # (drives dot-based GC); None disables the notification (default 5ms,
+    # fantoch/src/config.rs:58-61)
+    executor_executed_notification_interval_ms: Optional[int] = 5
+    # interval at which executors check for stuck commands (liveness
+    # watchdog; the simulator runs it under a fault plan)
+    executor_monitor_pending_interval_ms: Optional[int] = None
     # bounded wait: a command pending on *missing* (never-committed)
     # dependencies past this threshold raises a typed StalledExecutionError
     # from the watchdog instead of hanging (None keeps the log-only
@@ -67,12 +75,61 @@ class Config:
     # per-key hash chain over executed writes inside every executor's
     # KVStore (the audit plane's input; off by default)
     execution_digests: bool = False
+    # record every commit decision (dot -> (rifl, value)) in a log that
+    # survives GC, so the ConsistencyAuditor can check commit-value
+    # agreement and classify committed-then-lost commands (audit/test
+    # only: the log grows with the run)
+    audit_log_commits: bool = False
+    # garbage-collection interval; None disables GC (the simulator
+    # requires it)
+    gc_interval_ms: Optional[int] = None
+    # adaptive ingest batching (run/ingest.py): the deadline budget (ms)
+    # a queued submission may wait for its round to fill.  None = the
+    # FANTOCH_INGEST_DEADLINE_MS env var, else 2.0; 0 disables batching.
+    # The simulator batches only when a deadline was requested
+    ingest_deadline_ms: Optional[float] = None
+    # fixed ingest size target overriding the EWMA-adaptive one (None =
+    # the FANTOCH_INGEST_TARGET env var, else adaptive)
+    ingest_target: Optional[int] = None
+    # ceiling on the auto-tuned serving chain length (run/ingest.py
+    # ChainAutoTuner); None = the FANTOCH_SERVING_CHAIN_MAX env var, else
+    # 8; 1 disables chaining
+    serving_chain_max: Optional[int] = None
+    # telemetry window (ms) of the simulator's telemetry tick; None = the
+    # built-in 1 s window.  Telemetry is not ported yet: the simulator
+    # raises when a telemetry path is given
+    telemetry_interval_ms: Optional[int] = None
+    # per-dot lifecycle tracing: fraction of commands traced, selected by
+    # a deterministic hash of the command id; 0.0 disables tracing
+    trace_sample_rate: float = 0.0
+    # failure flight recorder (observability/recorder.py in the JAX
+    # package; not ported yet: the simulator raises when it is on)
+    flight_recorder: bool = False
 
     def __post_init__(self) -> None:
         if self.n == 0:
             raise ValueError("n must be positive")
         if self.f > self.n:
             raise ValueError(f"f = {self.f} must not exceed n = {self.n}")
+        if self.ingest_deadline_ms is not None and self.ingest_deadline_ms < 0:
+            raise ValueError(
+                f"ingest_deadline_ms = {self.ingest_deadline_ms} must be "
+                ">= 0 (0 = batching off)"
+            )
+        if self.ingest_target is not None and self.ingest_target < 1:
+            raise ValueError(
+                f"ingest_target = {self.ingest_target} must be >= 1"
+            )
+        if self.serving_chain_max is not None and self.serving_chain_max < 1:
+            raise ValueError(
+                f"serving_chain_max = {self.serving_chain_max} must be >= 1 "
+                "(1 = chaining off)"
+            )
+        if self.telemetry_interval_ms is not None and self.telemetry_interval_ms < 1:
+            raise ValueError(
+                f"telemetry_interval_ms = {self.telemetry_interval_ms} "
+                "must be >= 1"
+            )
         if self.device_graph_plane and not self.batched_graph_executor:
             # the plane lives inside BatchedDependencyGraph: without the
             # batched executor the knob would silently do nothing
@@ -98,3 +155,22 @@ class Config:
                 f"plane_shadow_rate = {self.plane_shadow_rate} must be "
                 "in [0, 1]"
             )
+
+    # --- quorum sizes (protocol facts; fantoch/src/config.rs:252-317) ---
+
+    def atlas_quorum_sizes(self) -> Tuple[int, int]:
+        """(fast_quorum_size, write_quorum_size) = (n//2 + f, f + 1)."""
+        return (self.n // 2 + self.f, self.f + 1)
+
+    def epaxos_quorum_sizes(self) -> Tuple[int, int]:
+        """EPaxos always tolerates a minority: f = n//2.
+
+        fast quorum = f + floor((f+1)/2)  (i.e. f + ceil(f/2) for the paper's
+        3n/4-ish quorum), write quorum = f + 1.
+        """
+        f = self.n // 2
+        return (f + (f + 1) // 2, f + 1)
+
+    def with_(self, **kwargs) -> "Config":
+        """Functional update helper."""
+        return replace(self, **kwargs)

@@ -1,7 +1,9 @@
-// Hopper kernels of the keyed graph-plane step (one resident EPaxos/Atlas
-// backlog dispatch).  They replace the TPU kernel graph_plane_step_pallas
+// Hopper kernels of the graph-plane step (one resident EPaxos/Atlas
+// backlog dispatch): the prologue of every mode and the stages of mode
+// "keyed".  They replace the TPU kernel graph_plane_step_pallas
 // (fantoch_tpu/ops/pallas_resolve.py:334, tracing graph_plane_step_core,
-// fantoch_tpu/ops/graph_resolve.py:883) in mode "keyed".  The Python
+// fantoch_tpu/ops/graph_resolve.py:883); the general modes' stages are in
+// graph_general.cu.  The Python
 // wrappers, plain versions and per-stage notes on bounds and design are in
 // fantoch_tpu_torch/ops/graph_plane_kernels.py.
 //
@@ -100,13 +102,44 @@ __global__ void k_fold_compress(const int32_t* deps, const int32_t* key,
   pk[r] = pending ? key[r] : (INT_MAX - r);  // private pad key per slot
 }
 
+// the general modes' fold: the folded, masked dep matrix, and the count
+// of cells that bar resolve_general's backward-only fast path once
+// self-dependencies are pruned (a forward dep, or a MISSING one);
+// n_bad is zeroed by the caller
+__global__ void k_fold_general(const int32_t* deps, const uint8_t* occ,
+                               const uint8_t* executed, int32_t* dmat,
+                               int32_t* n_bad, int cap, int width) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  int bad = 0;
+  if (r < cap) {
+    bool pending = occ[r] && !executed[r];
+    for (int w = 0; w < width; ++w) {
+      int v = TERMINAL;
+      if (pending) {
+        v = deps[(long)r * width + w];
+        if (v >= 0) {
+          int safe = v < cap ? v : cap - 1;
+          if (executed[safe]) v = TERMINAL;  // fold deps on executed slots
+        }
+      }
+      dmat[(long)r * width + w] = v;
+      bad += (v > r || v == MISSING) ? 1 : 0;
+    }
+  }
+  bad = __reduce_add_sync(0xffffffffu, bad);
+  if ((threadIdx.x & 31) == 0 && bad) atomicAdd(n_bad, bad);
+}
+
+// general == 0: the keyed fold + compression into col/pk;
+// general == 1: the general fold into dmat/n_bad
 extern "C" int gp_prologue(int32_t* deps, int32_t* key, int32_t* src, int32_t* seq,
                            uint8_t* occ, uint8_t* executed, const int32_t* u_row,
                            const int32_t* u_deps, const int32_t* u_key,
                            const int32_t* u_src, const int32_t* u_seq,
                            const int32_t* p_row, const int32_t* p_col,
                            const int32_t* p_val, const int32_t* e_row, int32_t* col,
-                           int32_t* pk, int cap, int width, int U, int P, int E,
+                           int32_t* pk, int32_t* dmat, int32_t* n_bad, int cap,
+                           int width, int U, int P, int E, int general,
                            cudaStream_t stream) {
   if (U > 0) {
     k_install<<<grid_for(U, EW_BLOCK), EW_BLOCK, 0, stream>>>(
@@ -119,7 +152,11 @@ extern "C" int gp_prologue(int32_t* deps, int32_t* key, int32_t* src, int32_t* s
         deps, executed, p_row, p_col, p_val, e_row, cap, width, P, E);
     CHECK_LAUNCH();
   }
-  if (cap > 0) {
+  if (cap > 0 && general) {
+    k_fold_general<<<grid_for(cap, EW_BLOCK), EW_BLOCK, 0, stream>>>(
+        deps, occ, executed, dmat, n_bad, cap, width);
+    CHECK_LAUNCH();
+  } else if (cap > 0) {
     k_fold_compress<<<grid_for(cap, EW_BLOCK), EW_BLOCK, 0, stream>>>(
         deps, key, occ, executed, col, pk, cap, width);
     CHECK_LAUNCH();

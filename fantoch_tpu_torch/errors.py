@@ -1,13 +1,14 @@
-"""Typed errors of the port's executor layer: a command stalled on
-dependencies that never commit, a device plane that failed or whose
-resident state diverged, and a clock past the device window.  (The JAX
-package's ``errors.py`` also carries the run and sim layers' errors; the
-port copies them with the slice that raises them.)
+"""Typed errors of the port's executor and simulator layers: a command
+stalled on dependencies that never commit, a simulation past its
+virtual-time bound, a device plane that failed or whose resident state
+diverged, and a clock past the device window.  (The JAX package's
+``errors.py`` also carries the run layer's errors; the port copies them
+with the slice that raises them.)
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 
 class FaultToleranceError(Exception):
@@ -48,6 +49,22 @@ class StalledExecutionError(FaultToleranceError):
         super().__init__(
             f"p{process_id}: execution stalled > {waited_ms}ms on "
             f"dependencies that never commit: {detail} [{self.recovery_note}]"
+        )
+
+
+class SimStalledError(FaultToleranceError):
+    """The simulation passed its virtual-time bound with clients still
+    waiting — the whole-system analog of :class:`StalledExecutionError`
+    (e.g. every quorum of an in-flight command crashed)."""
+
+    def __init__(self, time_ms: int, bound_ms: int, waiting_clients: Iterable[int]):
+        self.time_ms = time_ms
+        self.bound_ms = bound_ms
+        self.waiting_clients = sorted(waiting_clients)
+        super().__init__(
+            f"simulation stalled: virtual time {time_ms}ms exceeded the "
+            f"{bound_ms}ms bound with clients {self.waiting_clients} still "
+            "waiting for results"
         )
 
 

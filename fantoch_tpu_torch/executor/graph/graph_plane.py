@@ -32,9 +32,12 @@ after restore with exactly ONE counted re-upload, pow2 capacity growth,
 per-dispatch counters, the fault-detection health gauge — is the shared
 :class:`~fantoch_tpu_torch.executor.device_plane.DevicePlane` base.
 
-Modes: only ``keyed`` (single-key commands, at most one live dependency
-per row) is ported; a window with multi-key rows raises
-``NotImplementedError`` (ROADMAP.md Queue B1).
+Modes: ``keyed`` while every resident row is single-key with at most one
+live dependency; otherwise ``general`` (window at or below the kernel-size
+gate: exact structure, SCC leaders fetched for CHAIN_SIZE) or
+``general_resident`` (above it: the peel-and-compact resolver).  Cycles
+the general resolvers cannot collapse come back ``stuck`` and finish on
+the host Tarjan oracle, whose follow-up dispatch marks them executed.
 
 Clock width: device dot sequences are int32; the plane refuses
 sequences at or above ``2^31 - 1`` with the shared typed error.
@@ -376,18 +379,12 @@ class DeviceGraphPlane(DevicePlane):
 
     def _mode(self) -> str:
         """Single-key functional windows ride the sort-based keyed
-        kernels.  Multi-key / multi-dep windows need ``general`` (below
-        the kernel-size gate) or ``general_resident`` (above it), which
-        are not ported yet."""
+        kernels; multi-key / multi-dep windows ride ``resolve_general``
+        below the kernel-size gate and the resident peeler above it."""
         if self._general_rows > 0:
-            mode = (
-                "general" if self._cap <= self._structure_threshold
-                else "general_resident"
-            )
-            raise NotImplementedError(
-                f"graph plane mode {mode!r} (multi-key commands) is not "
-                "ported yet: ROADMAP.md Queue B1"
-            )
+            if self._cap <= self._structure_threshold:
+                return "general"
+            return "general_resident"
         return "keyed"
 
     def _dispatch(self, slots, u_deps, u_key, u_src, u_seq, time) -> None:
@@ -504,14 +501,16 @@ class DeviceGraphPlane(DevicePlane):
 
     def _fetch_result(self, mode: str, out):
         """The dispatch's small result columns as host numpy (the backlog
-        state itself never round-trips); ``keyed`` has no stuck/leader."""
-        assert mode == "keyed", mode
-        return (
-            out.order.to("cpu", copy=True).numpy(),
-            out.newly.to("cpu", copy=True).numpy(),
-            None,
-            None,
-        )
+        state itself never round-trips): ``keyed`` has no stuck/leader,
+        the general modes fetch ``stuck``, and ``general`` alone fetches
+        the SCC ``leader`` (exact CHAIN_SIZE below the kernel-size gate)."""
+        def host(t):
+            return t.to("cpu", copy=True).numpy()
+
+        if mode == "keyed":
+            return host(out.order), host(out.newly), None, None
+        leader = host(out.leader) if mode == "general" else None
+        return host(out.order), host(out.newly), host(out.stuck), leader
 
     def _emit(self, slots: np.ndarray, leader, time) -> None:
         """Host bookkeeping for one drain's executed slots, in emission

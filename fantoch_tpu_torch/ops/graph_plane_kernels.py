@@ -1,11 +1,13 @@
-"""Hopper kernels of the keyed graph-plane step, with their plain versions.
+"""Hopper kernels of the graph-plane step, with their plain versions.
 
 These replace the TPU kernel ``graph_plane_step_pallas``
 (fantoch_tpu/ops/pallas_resolve.py:334, body ``_graph_step_kernel`` :297,
 tracing ``graph_plane_step_core`` in fantoch_tpu/ops/graph_resolve.py:883)
-for the ``keyed`` mode.  On the TPU that kernel is one program resident in
-VMEM; on an H100 the step is a short chain of launches from
-``csrc/graph_plane_step.cu``, composed by ``ops/graph_resolve.py``.
+in all three of its modes.  On the TPU that kernel is one program resident
+in VMEM; on an H100 the step is a chain of launches composed by
+``ops/graph_resolve.py``: the prologue and the ``keyed`` mode's stages
+(1-8) from ``csrc/graph_plane_step.cu``, the ``general`` and
+``general_resident`` modes' stages (9-12) from ``csrc/graph_general.cu``.
 
 Every stage below is one wrapper with three things beside it:
 
@@ -50,7 +52,17 @@ LAUNCHES: Dict[str, int] = {
     "pointer_doubling": 0,
     "emit_scatter": 0,
     "plane_epilogue": 0,
+    "mutual_collapse": 0,
+    "affine_round": 0,
+    "peel_round": 0,
+    "peel_compact": 0,
 }
+# the wrappers of the general modes, each in csrc/graph_general.cu
+GENERAL_KERNELS = ("mutual_collapse", "affine_round", "peel_round", "peel_compact")
+# slot sentinel of resolve_general_resident's compaction: a dep whose
+# target was cut at a fixpoint compaction (fantoch_tpu/ops/graph_resolve.py
+# :729); only ever created after the publish gate closed
+FROZEN = -3
 
 
 def reset_launch_counts() -> None:
@@ -72,10 +84,10 @@ def num_doubling_steps(batch: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-# the C launchers of csrc/graph_plane_step.cu: "p" a device pointer, "i"
-# an int; every launcher takes the stream last and returns cudaError_t
+# the C launchers, by library (csrc/<library>.cu): "p" a device pointer,
+# "i" an int; every launcher takes the stream last and returns cudaError_t
 _SIGNATURES = {
-    "gp_prologue": "p" * 17 + "i" * 5,
+    "gp_prologue": "p" * 19 + "i" * 6,
     "gp_sort_pass": "pipppp" + "ii",
     "gp_link_scan": "p" * 8 + "i",
     "gp_residual_view": "p" * 13 + "iii",
@@ -84,34 +96,47 @@ _SIGNATURES = {
     "gp_emit_scatter": "p" * 8 + "iii",
     "gp_epilogue": "p" * 5 + "i",
 }
-_lib_handle = None
+_GENERAL_SIGNATURES = {
+    "gg_mutual_collapse": "p" * 8 + "iii",
+    "gg_affine_round": "p" * 15 + "iii",
+    "gg_peel_round": "p" * 11 + "ii",
+    "gg_peel_compact": "p" * 19 + "iiiii",
+}
+_LIBRARY_OF = {
+    **{fn: "graph_plane_step" for fn in _SIGNATURES},
+    **{fn: "graph_general" for fn in _GENERAL_SIGNATURES},
+}
+_lib_handles: Dict[str, ctypes.CDLL] = {}
 
 
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
+def _lib(name: str):
+    lib = _lib_handles.get(name)
+    if lib is None:
         from fantoch_tpu_torch.ops import _build
 
-        lib = _build.load("graph_plane_step")
-        for name, sig in _SIGNATURES.items():
-            fn = getattr(lib, name)
+        lib = _build.load(name)
+        for fn_name, lib_name in _LIBRARY_OF.items():
+            if lib_name != name:
+                continue
+            fn = getattr(lib, fn_name)
+            sig = {**_SIGNATURES, **_GENERAL_SIGNATURES}[fn_name]
             fn.argtypes = [
                 ctypes.c_void_p if c == "p" else ctypes.c_int for c in sig
             ] + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        _lib_handle = lib
-    return _lib_handle
+        _lib_handles[name] = lib
+    return lib
 
 
 def _launch(fn: str, device: torch.device, *args) -> None:
     """Call one C launcher on the current stream; it returns
     ``cudaGetLastError()`` after its launches, and a refused launch raises
     here (``torch.cuda.synchronize`` would never report it)."""
-    sig = _SIGNATURES[fn]
+    sig = _SIGNATURES.get(fn) or _GENERAL_SIGNATURES[fn]
     assert len(args) == len(sig), (fn, len(args), len(sig))
     stream = torch.cuda.current_stream(device).cuda_stream
     values = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = getattr(_lib(), fn)(*values, stream)
+    err = getattr(_lib(_LIBRARY_OF[fn]), fn)(*values, stream)
     if err != 0:
         raise RuntimeError(f"CUDA launch of {fn} failed with error {err}")
 
@@ -139,24 +164,33 @@ def _b(n: int, device) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # 1. prologue: install + patch + executed marks, then fold + keyed compress
+#    (or, for the general modes, fold + the backward-only fast-path count)
 # ---------------------------------------------------------------------------
 # Bound: bytes.  One pass over the int32[C, W] dep matrix (read for the
-# fold) plus the key/occ/executed columns and the col/pk outputs; installs
-# and patches are scattered writes of U and P cells.  Design: three
-# launches — install, then patches and marks (which touch different
-# arrays), then the per-row fold/compress that reads ``executed`` of the
-# dep targets once every mark has landed.  Splitting install from patch
-# keeps the reference's order (install, then patch, then marks) when a
-# dispatch patches or marks a row it also installs.
+# fold) plus the key/occ/executed columns and the col/pk outputs (the
+# dmat matrix and one count in the general variant); installs and patches
+# are scattered writes of U and P cells.  Design: three launches —
+# install, then patches and marks (which touch different arrays), then
+# the per-row fold that reads ``executed`` of the dep targets once every
+# mark has landed.  Splitting install from patch keeps the reference's
+# order (install, then patch, then marks) when a dispatch patches or marks
+# a row it also installs.  The general variant's fast-path test is a
+# warp-reduced count with one atomicAdd per warp into a device int that
+# the host reads once per dispatch.
 
 
 def graph_prologue_plain(
     deps, key, src, seq, occ, executed,
     u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
+    general: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Updates the resident state in place; returns the keyed dependency
-    column ``col[C]`` and the run keys ``pk[C]`` (pending rows keep their
-    key, non-pending rows get the private pad key ``INT32_MAX - idx``)."""
+    """Updates the resident state in place.  ``keyed``: returns the keyed
+    dependency column ``col[C]`` and the run keys ``pk[C]`` (pending rows
+    keep their key, non-pending rows get the private pad key
+    ``INT32_MAX - idx``).  ``general``: returns the folded, masked
+    ``dmat[C, W]`` (graph_resolve.py:941-946) and ``n_bad int32[1]``, the
+    cells that bar ``resolve_general``'s fast path once self-dependencies
+    are pruned: a forward dependency or a MISSING one."""
     cap, width = deps.shape
     m = (u_row >= 0) & (u_row < cap)
     rows = u_row[m].long()
@@ -177,7 +211,11 @@ def graph_prologue_plain(
     pending = occ & ~executed
     safe = deps.clamp(0, cap - 1).long()
     dmat = torch.where((deps >= 0) & executed[safe], TERMINAL, deps)
-    dmat = torch.where(pending[:, None], dmat, TERMINAL)
+    dmat = torch.where(pending[:, None], dmat, TERMINAL).to(torch.int32)
+    idx = torch.arange(cap, dtype=torch.int32, device=deps.device)
+    if general:
+        bad = (dmat > idx[:, None]) | (dmat == MISSING)
+        return dmat, bad.sum().to(torch.int32).reshape(1)
     live = dmat >= 0
     first = live.to(torch.int32).argmax(dim=1, keepdim=True)
     col = dmat.gather(1, first)[:, 0]
@@ -186,7 +224,6 @@ def graph_prologue_plain(
         col,
         torch.where((dmat == MISSING).any(dim=1), MISSING, TERMINAL),
     ).to(torch.int32)
-    idx = torch.arange(cap, dtype=torch.int32, device=deps.device)
     pk = torch.where(pending, key, INT32_MAX - idx).to(torch.int32)
     return col, pk
 
@@ -194,11 +231,13 @@ def graph_prologue_plain(
 def graph_prologue(
     deps, key, src, seq, occ, executed,
     u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
+    general: bool = False,
 ):
     if not deps.is_cuda:
         return graph_prologue_plain(
             deps, key, src, seq, occ, executed,
             u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
+            general,
         )
     cap, width = deps.shape
     U, P, E = u_row.numel(), p_row.numel(), e_row.numel()
@@ -214,16 +253,21 @@ def graph_prologue(
     for name, t in (("p_row", p_row), ("p_col", p_col), ("p_val", p_val)):
         _check(t, torch.int32, name, P)
     _check(e_row, torch.int32, "e_row", E)
-    col = _i32(cap, deps.device)
-    pk = _i32(cap, deps.device)
+    if general:
+        col = pk = None
+        dmat = torch.empty((cap, width), dtype=torch.int32, device=deps.device)
+        n_bad = _i32(1, deps.device, 0)
+    else:
+        col, pk = _i32(cap, deps.device), _i32(cap, deps.device)
+        dmat = n_bad = None
     _launch(
         "gp_prologue", deps.device,
         deps, key, src, seq, occ, executed,
         u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
-        col, pk, cap, width, U, P, E,
+        col, pk, dmat, n_bad, cap, width, U, P, E, int(general),
     )
     LAUNCHES["graph_prologue"] += 1
-    return col, pk
+    return (dmat, n_bad) if general else (col, pk)
 
 
 # ---------------------------------------------------------------------------
@@ -584,3 +628,403 @@ def plane_epilogue(occ, executed, flags=None, flag_perm=None):
     _launch("gp_epilogue", occ.device, occ, executed, flags, flag_perm, newly, n)
     LAUNCHES["plane_epilogue"] += 1
     return newly
+
+
+# ---------------------------------------------------------------------------
+# the general modes (csrc/graph_general.cu): resolve_general's mutual-edge
+# collapse and affine-max rounds, resolve_general_resident's peel rounds
+# and compactions (fantoch_tpu/ops/graph_resolve.py:467-1177)
+# ---------------------------------------------------------------------------
+
+
+def _amax_into(n: int, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``zeros(n).at[index].max(values)``: a scatter-max into zeros."""
+    out = torch.zeros(n, dtype=torch.int32, device=values.device)
+    return out.scatter_reduce_(0, index.long(), values.to(torch.int32), "amax")
+
+
+# ---------------------------------------------------------------------------
+# 9. mutual collapse: SCCs joined by mutual edges (graph_resolve.py:1058-1077)
+# ---------------------------------------------------------------------------
+# Bound: bytes — the back test reads each live target's W cells, then each
+# round gathers the leader of every live target; the gathers are random,
+# so it runs at the card's gather rate.  Design: one launch for the
+# self-dependency prune and the back test (each row reads its targets' W
+# cells), then ``num_doubling_steps(B)`` rounds of two ping-pong launches
+# — ``leader = min(leader, nbr_min)`` and ``leader = min(leader,
+# leader[leader])`` each read the whole array the line before wrote, as
+# the reference's lines do (an in-place asynchronous update converges
+# differently within a fixed number of rounds) — then one launch that
+# retargets through the leaders, drops intra-SCC edges, seeds the affine
+# state (add, missing) and counts members by atomicAdd.
+
+
+def mutual_collapse_plain(deps):
+    """``deps int32[B, W]`` (TERMINAL/MISSING sentinels, self-deps not yet
+    pruned) -> ``(leader int32[B], tgt int32[B, W], add int32[B, W],
+    missing bool[B], member_count int32[B])``: the mutual-edge SCC
+    leaders, the deps retargeted through them with intra-SCC edges
+    dropped, and the affine rounds' initial ``add``/``missing``."""
+    batch = deps.shape[0]
+    device = deps.device
+    idx = torch.arange(batch, dtype=torch.int32, device=device)
+    deps = torch.where(deps == idx[:, None], TERMINAL, deps)
+    valid = deps >= 0
+    safe = torch.where(valid, deps, 0).long()
+    back = (deps[safe] == idx[:, None, None]).any(dim=-1) & valid
+    leader = idx
+    for _ in range(num_doubling_steps(batch)):
+        nbr_min = torch.where(back, leader[safe], batch).min(dim=-1).values
+        leader = torch.minimum(leader, nbr_min.to(torch.int32))
+        leader = torch.minimum(leader, leader[leader.long()])
+    tgt = torch.where(valid, leader[safe], deps)
+    tgt = torch.where(valid & (tgt == leader[:, None]), TERMINAL, tgt).to(torch.int32)
+    add = (tgt >= 0).to(torch.int32)
+    missing = (tgt == MISSING).any(dim=-1)
+    member_count = torch.zeros(batch, dtype=torch.int32, device=device)
+    member_count.index_add_(0, leader.long(), torch.ones_like(leader))
+    return leader, tgt, add, missing, member_count
+
+
+def mutual_collapse(deps):
+    if not deps.is_cuda:
+        return mutual_collapse_plain(deps)
+    batch, width = deps.shape
+    device = deps.device
+    _check(deps, torch.int32, "deps", batch * width)
+    leader = _i32(batch, device)
+    tgt = torch.empty_like(deps)
+    add = torch.empty_like(deps)
+    missing = _b(batch, device)
+    member_count = _i32(batch, device)
+    back = torch.empty((batch, width), dtype=torch.bool, device=device)
+    spare = _i32(batch, device)
+    _launch(
+        "gg_mutual_collapse", device, deps, leader, tgt, add, missing,
+        member_count, back, spare, batch, width, num_doubling_steps(batch),
+    )
+    LAUNCHES["mutual_collapse"] += 1
+    return leader, tgt, add, missing, member_count
+
+
+# ---------------------------------------------------------------------------
+# 10. affine round: one iteration of resolve_general's while_loop body
+#     (graph_resolve.py:1089-1157), or the final SCC fold (:1166-1176)
+# ---------------------------------------------------------------------------
+# Bound: bytes — each round reads and writes the [B, W] tgt/add/floor
+# state once plus random [B]-column gathers at the live targets.  Design:
+# the SCC aggregates (``.at[leader].max/add``) are integer atomicMax /
+# atomicAdd / atomicOr into [B] columns zeroed by cudaMemsetAsync — exact
+# in any order; one launch per row builds them (and each row's first-live
+# slot for composition), a second writes the round's new state into fresh
+# buffers (the reference reads the whole old state) and raises a device
+# ``changed`` flag.  The host reads the flag after every round.  With
+# ``final=True`` the same wrapper folds SCC members onto their leader
+# (scatter-max of ranks, ``.at[leader].min(final)`` as an atomicOr of
+# ``~final`` into zeros) and emits resolved/rank/stuck.
+
+
+def affine_round_plain(tgt, add, floor, missing, leader, member_count, *, final=False):
+    """One round: returns ``(tgt, add, floor, missing, changed int32[1])``
+    as new tensors.  ``final=True``: returns ``(resolved bool[B], rank
+    int32[B], stuck bool[B])``."""
+    batch = tgt.shape[0]
+    device = tgt.device
+    lead = leader.long()
+    if final:
+        live = tgt >= 0
+        fin = (live.sum(dim=-1) == 0) & ~missing
+        vrank = floor.max(dim=-1).values
+        scc_rank = _amax_into(batch, lead, torch.where(fin, vrank, 0))
+        scc_final = _amax_into(batch, lead, ~fin) == 0
+        scc_missing = _amax_into(batch, lead, missing) > 0
+        resolved = scc_final[lead] & ~scc_missing[lead]
+        rank = torch.where(resolved, scc_rank[lead], INT32_MAX).to(torch.int32)
+        stuck = ~resolved & ~(missing | scc_missing[lead])
+        return resolved, rank, stuck
+    idx = torch.arange(batch, dtype=torch.int32, device=device)
+    frozen = tgt == idx[:, None]
+    live = (tgt >= 0) & ~frozen
+    safe = torch.where(live, tgt, 0).long()
+    n_live = live.sum(dim=-1).to(torch.int32)
+    vfloor = floor.max(dim=-1).values
+    agg_floor = _amax_into(batch, lead, vfloor)
+    agg_live = torch.zeros(batch, dtype=torch.int32, device=device)
+    agg_live.index_add_(0, lead, n_live)
+    agg_miss = _amax_into(batch, lead, missing) > 0
+    agg_frozen = _amax_into(batch, lead, frozen.any(dim=-1)) > 0
+    agg_final = (agg_live == 0) & ~agg_miss & ~agg_frozen
+    t_final = agg_final[safe]
+    t_miss = agg_miss[safe]
+    t_vfloor = agg_floor[safe]
+    lf = live & t_final
+    new_floor = torch.where(lf, torch.maximum(floor, add + t_vfloor), floor)
+    new_tgt = torch.where(lf, TERMINAL, tgt)
+    new_missing = missing | (live & t_miss).any(dim=-1)
+    still = live & ~t_final & ~t_miss
+    new_floor = torch.where(still, torch.maximum(new_floor, add + t_vfloor), new_floor)
+    single = still & (agg_live[safe] == 1) & (member_count[safe] == 1) & (add < batch)
+    # first live slot (argmax of a bool row: the first True, else 0)
+    live_slot = live.to(torch.int32).argmax(dim=-1, keepdim=True)
+    comp_tgt = tgt.gather(1, live_slot)[:, 0]
+    comp_add = add.gather(1, live_slot)[:, 0]
+    new_tgt = torch.where(single, comp_tgt[safe], new_tgt).to(torch.int32)
+    new_add = torch.where(single, add + comp_add[safe], add)
+    new_floor = torch.clamp(new_floor, max=batch).to(torch.int32)
+    new_add = torch.clamp(new_add, max=batch).to(torch.int32)
+    changed = (
+        (new_tgt != tgt).any() | (new_floor != floor).any()
+        | (new_missing != missing).any()
+    )
+    return new_tgt, new_add, new_floor, new_missing, changed.to(torch.int32).reshape(1)
+
+
+def affine_round(tgt, add, floor, missing, leader, member_count, *, final=False):
+    if not tgt.is_cuda:
+        return affine_round_plain(
+            tgt, add, floor, missing, leader, member_count, final=final
+        )
+    batch, width = tgt.shape
+    device = tgt.device
+    for name, t in (("tgt", tgt), ("add", add), ("floor", floor)):
+        _check(t, torch.int32, name, batch * width)
+    _check(missing, torch.bool, "missing", batch)
+    _check(leader, torch.int32, "leader", batch)
+    _check(member_count, torch.int32, "member_count", batch)
+    # four aggregate columns and the two composition columns
+    scratch = _i32(6 * batch, device)
+    if final:
+        resolved, stuck = _b(batch, device), _b(batch, device)
+        rank = _i32(batch, device)
+        outs = (None, None, None, None, None, resolved, rank, stuck)
+    else:
+        changed = _i32(1, device)
+        new = (torch.empty_like(tgt), torch.empty_like(add), torch.empty_like(floor),
+               _b(batch, device))
+        outs = (*new, changed, None, None, None)
+    _launch(
+        "gg_affine_round", device, tgt, add, floor, missing, leader,
+        member_count, scratch, *outs, batch, width, int(final),
+    )
+    LAUNCHES["affine_round"] += 1
+    return (resolved, rank, stuck) if final else (*new, changed)
+
+
+# ---------------------------------------------------------------------------
+# 11. peel round: one iteration of _peel_stage's body (graph_resolve.py
+#     :536-553), plus the stop rule's inputs
+# ---------------------------------------------------------------------------
+# Bound: bytes — the [S, W] target matrix and the [S] columns read once
+# and written once, with random gathers of final/miss/rank at the live
+# targets.  Design: one thread per row writes the round's new state into
+# fresh buffers (other rows read the old final/miss/rank); ``changed`` is
+# an atomicOr and the live count (``~final & ~miss`` after the round, for
+# the non-terminal stage's ``live > half`` rule) a warp-reduced
+# atomicAdd, both into one int32[2] the host reads after every round, so
+# the loop stops at the round the reference stops at.
+
+
+def peel_round_plain(tgt, floor, miss, final, rank):
+    """Returns the new ``(tgt, floor, miss, final, rank)`` and ``stats
+    int32[2] = [changed, live]``."""
+    live = tgt >= 0
+    safe = torch.where(live, tgt, 0).long()
+    fold = live & final[safe]
+    lift = torch.where(fold, rank[safe] + 1, 0).max(dim=-1).values
+    new_floor = torch.maximum(floor, lift).to(torch.int32)
+    new_tgt = torch.where(fold, TERMINAL, tgt).to(torch.int32)
+    new_miss = miss | (live & miss[safe]).any(dim=-1)
+    open_slots = (new_tgt >= 0).sum(dim=-1)
+    newly_final = ~final & ~new_miss & (open_slots == 0)
+    new_rank = torch.where(newly_final, new_floor, rank).to(torch.int32)
+    new_final = final | newly_final
+    changed = newly_final.any() | (new_miss != miss).any()
+    n_live = (~new_final & ~new_miss).sum()
+    stats = torch.stack([changed.to(torch.int32), n_live.to(torch.int32)])
+    return new_tgt, new_floor, new_miss, new_final, new_rank, stats
+
+
+def peel_round(tgt, floor, miss, final, rank):
+    if not tgt.is_cuda:
+        return peel_round_plain(tgt, floor, miss, final, rank)
+    size, width = tgt.shape
+    device = tgt.device
+    _check(tgt, torch.int32, "tgt", size * width)
+    _check(floor, torch.int32, "floor", size)
+    _check(rank, torch.int32, "rank", size)
+    _check(miss, torch.bool, "miss", size)
+    _check(final, torch.bool, "final", size)
+    out = (torch.empty_like(tgt), _i32(size, device), _b(size, device),
+           _b(size, device), _i32(size, device))
+    stats = _i32(2, device)
+    _launch(
+        "gg_peel_round", device, tgt, floor, miss, final, rank, *out, stats,
+        size, width,
+    )
+    LAUNCHES["peel_round"] += 1
+    return (*out, stats)
+
+
+# ---------------------------------------------------------------------------
+# 12. peel compact: the resident peeler's init, publish and compaction
+#     (graph_resolve.py:772-846)
+# ---------------------------------------------------------------------------
+# Bound: bytes — the stage's [S, W] matrix and columns read once, the
+# half-size state and the published rows written once.  Design:
+# ``init`` pads the window to a power of two (pad rows start final) with
+# self-dependencies pruned; ``publish`` scatters the stage's rows into
+# the full-batch outputs unless the device ``dead`` gate is closed
+# (``orig == batch`` pads dropped; orig values are distinct, so no two
+# threads write one cell) and, for the terminal stage, writes ``stuck``;
+# ``compact`` publishes, then partitions live rows to the front stably —
+# a block scan of the live flags (per-block counts, one block scanning
+# the block totals, then the per-row positions), as link_scan's max-scan
+# — closes the gate when more than ``half`` rows are live, and gathers
+# the kept rows with their targets remapped (``FROZEN`` for cut rows),
+# finalized targets folded into the floor, and the new live count.
+
+
+def peel_compact_plain(*arrays, mode, half=0):
+    """``mode="init"``: ``peel_compact(deps)`` -> ``(state, outs, live)``
+    with ``state = (tgt, floor, miss, final, rank, orig)`` at the padded
+    size and ``outs = (out_final, out_miss, out_rank, dead int32[1])``.
+    ``mode="publish"``: ``peel_compact(*state, *outs)`` publishes into
+    ``outs`` in place and returns ``stuck bool[B]``.  ``mode="compact"``:
+    the same publish, then returns ``(state at half, live int32[1])`` and
+    updates ``dead`` in place."""
+    if mode == "init":
+        (deps,) = arrays
+        batch, width = deps.shape
+        device = deps.device
+        size = 1
+        while size < batch:
+            size *= 2
+        idx = torch.arange(batch, dtype=torch.int32, device=device)
+        pruned = torch.where(deps == idx[:, None], TERMINAL, deps).to(torch.int32)
+        tgt = torch.full((size, width), TERMINAL, dtype=torch.int32, device=device)
+        tgt[:batch] = pruned
+        miss = torch.zeros(size, dtype=torch.bool, device=device)
+        miss[:batch] = (pruned == MISSING).any(dim=1)
+        iota = torch.arange(size, dtype=torch.int32, device=device)
+        final = iota >= batch
+        state = (
+            tgt,
+            torch.zeros(size, dtype=torch.int32, device=device),
+            miss,
+            final,
+            torch.zeros(size, dtype=torch.int32, device=device),
+            torch.where(iota < batch, iota, batch).to(torch.int32),
+        )
+        outs = (
+            torch.zeros(batch, dtype=torch.bool, device=device),
+            torch.zeros(batch, dtype=torch.bool, device=device),
+            torch.full((batch,), INT32_MAX, dtype=torch.int32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device),
+        )
+        live = (~final & ~miss).sum().to(torch.int32).reshape(1)
+        return state, outs, live
+    tgt, floor, miss, final, rank, orig, out_final, out_miss, out_rank, dead = arrays
+    batch = out_final.shape[0]
+    # publish, gated by dead; orig == batch (pads) is dropped
+    keep_old = dead[0] != 0
+    m = orig < batch
+    rows = orig[m].long()
+    for out, value in (
+        (out_final, final),
+        (out_miss, miss),
+        (out_rank, torch.where(final, rank, INT32_MAX).to(torch.int32)),
+    ):
+        pub = out.clone()
+        pub[rows] = value[m]
+        out.copy_(torch.where(keep_old, out, pub))
+    if mode == "publish":
+        return ~out_final & ~out_miss
+    assert mode == "compact", mode
+    size = tgt.shape[0]
+    device = tgt.device
+    live = ~final & ~miss
+    dead |= (live.sum() > half).to(torch.int32)
+    perm = torch.sort((~live).to(torch.int32), stable=True).indices
+    keep = perm[:half]
+    remap = torch.full((size,), FROZEN, dtype=torch.int32, device=device)
+    remap[keep] = torch.arange(half, dtype=torch.int32, device=device)
+    tgt_k = tgt[keep]
+    valid = tgt_k >= 0
+    t_rows = torch.where(valid, tgt_k, 0).long()
+    t_final = final[t_rows] & valid
+    t_miss = miss[t_rows] & valid
+    new_floor = torch.maximum(
+        floor[keep], torch.where(t_final, rank[t_rows] + 1, 0).max(dim=1).values
+    ).to(torch.int32)
+    new_miss = miss[keep] | t_miss.any(dim=1)
+    new_tgt = torch.where(
+        t_final, TERMINAL, torch.where(valid, remap[t_rows], tgt_k)
+    ).to(torch.int32)
+    new_final = final[keep]
+    state = (new_tgt, new_floor, new_miss, new_final, rank[keep], orig[keep])
+    n_live = (~new_final & ~new_miss).sum().to(torch.int32).reshape(1)
+    return state, n_live
+
+
+def peel_compact(*arrays, mode, half=0):
+    if not arrays[0].is_cuda:
+        return peel_compact_plain(*arrays, mode=mode, half=half)
+    device = arrays[0].device
+    if mode == "init":
+        (deps,) = arrays
+        batch, width = deps.shape
+        _check(deps, torch.int32, "deps", batch * width)
+        size = 1
+        while size < batch:
+            size *= 2
+        state = (torch.empty((size, width), dtype=torch.int32, device=device),
+                 _i32(size, device), _b(size, device), _b(size, device),
+                 _i32(size, device), _i32(size, device))
+        outs = (_b(batch, device), _b(batch, device), _i32(batch, device),
+                _i32(1, device))
+        live = _i32(1, device)
+        _launch(
+            "gg_peel_compact", device, deps, None, None, None, None, None,
+            *outs, *state, live, None, None,
+            0, batch, size, width, 0,
+        )
+        LAUNCHES["peel_compact"] += 1
+        return state, outs, live
+    tgt, floor, miss, final, rank, orig, out_final, out_miss, out_rank, dead = arrays
+    size, width = tgt.shape
+    batch = out_final.numel()
+    _check(tgt, torch.int32, "tgt", size * width)
+    for name, t in (("floor", floor), ("rank", rank), ("orig", orig)):
+        _check(t, torch.int32, name, size)
+    _check(miss, torch.bool, "miss", size)
+    _check(final, torch.bool, "final", size)
+    _check(out_final, torch.bool, "out_final", batch)
+    _check(out_miss, torch.bool, "out_miss", batch)
+    _check(out_rank, torch.int32, "out_rank", batch)
+    _check(dead, torch.int32, "dead", 1)
+    if mode == "publish":
+        stuck = _b(batch, device)
+        _launch(
+            "gg_peel_compact", device, tgt, floor, miss, final, rank, orig,
+            out_final, out_miss, out_rank, dead,
+            None, None, None, None, None, None, None, stuck, None,
+            1, batch, size, width, 0,
+        )
+        LAUNCHES["peel_compact"] += 1
+        return stuck
+    assert mode == "compact", mode
+    state = (torch.empty((half, width), dtype=torch.int32, device=device),
+             _i32(half, device), _b(half, device), _b(half, device),
+             _i32(half, device), _i32(half, device))
+    live = _i32(1, device)
+    # remap + per-block live counts + their scan + keep
+    nb = _blocks(size)
+    scratch = _i32(2 * size + 2 * nb + 1, device)
+    _launch(
+        "gg_peel_compact", device, tgt, floor, miss, final, rank, orig,
+        out_final, out_miss, out_rank, dead,
+        *state, live, None, scratch,
+        2, batch, size, width, half,
+    )
+    LAUNCHES["peel_compact"] += 1
+    return state, live

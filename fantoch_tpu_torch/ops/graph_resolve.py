@@ -1,10 +1,11 @@
-"""Batched dependency-graph resolution: the keyed path, on PyTorch.
+"""Batched dependency-graph resolution, on PyTorch.
 
-The port of fantoch_tpu/ops/graph_resolve.py for the mode the north-star
-workload runs (single-key commands: every row has at most one live
-dependency).  The output contract is the reference's: members of one SCC
-execute contiguously in dot order, an SCC executes after every SCC it
-depends on, and independent SCCs may interleave.
+The port of fantoch_tpu/ops/graph_resolve.py: the keyed path (single-key
+commands: every row has at most one live dependency) and the general
+paths (multi-key commands: out-degree up to W).  The output contract is
+the reference's: members of one SCC execute contiguously in dot order,
+an SCC executes after every SCC it depends on, and independent SCCs may
+interleave.
 
 Representation: ``dep[B]`` holds the batch index of each command's single
 dependency, or ``TERMINAL = -1`` (none / executed) or ``MISSING = -2`` (not
@@ -18,18 +19,24 @@ fantoch_tpu/ops/graph_resolve.py:366 and the overflow fallback at :994)
 become one host read of the ``n_residual`` scalar per call — the one
 device sync of a dispatch; the overflow flag follows from it on the host.
 
-The ``general`` and ``general_resident`` modes (multi-key commands) are
-not ported yet: ROADMAP.md Queue B1.
+The general modes keep the reference's loops on the host: each
+``while_loop`` round of ``resolve_general`` and of the resident peeler is
+one wrapper call followed by one host read of its device flag (and, for
+the peeler, its live count), so the loops stop at the round the
+reference's stop; ``resolve_general``'s fast-path ``lax.cond`` is one host
+read of the prologue's bad-cell count.  ``resolve_general_staged`` (the
+host-column route's resolver) is not ported: ROADMAP.md Queue A3.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from fantoch_tpu_torch.ops import graph_plane_kernels as K
 from fantoch_tpu_torch.ops.graph_plane_kernels import (
+    FROZEN,
     INT32_MAX,
     MISSING,
     TERMINAL,
@@ -37,11 +44,10 @@ from fantoch_tpu_torch.ops.graph_plane_kernels import (
 
 # rank assigned to unresolved vertices so they sort after all resolved ones
 _UNRESOLVED_RANK = INT32_MAX
-
-_GENERAL_TODO = (
-    "graph-plane mode {!r} (multi-key commands) is not ported yet: "
-    "ROADMAP.md Queue B1 (resolve_general / resolve_general_resident)"
-)
+# slot sentinel internal to resolve_general_resident's compaction: a dep
+# whose target was cut at a fixpoint compaction — only ever created after
+# the publish gate closed, so it is never read into a published result
+_FROZEN = FROZEN
 
 
 class Resolution(NamedTuple):
@@ -82,8 +88,17 @@ class GraphPlaneStep(NamedTuple):
     executed: torch.Tensor  # bool[C]
     order: torch.Tensor  # int32[C] permutation; emitted = rows with newly
     newly: torch.Tensor  # bool[C] executed by this dispatch
-    stuck: torch.Tensor  # bool[C] (general modes only; zeros here)
-    leader: torch.Tensor  # int32[C] (general modes only; zeros here)
+    stuck: torch.Tensor  # bool[C] general modes: cycles for the host oracle
+    leader: torch.Tensor  # int32[C] general modes: SCC leader (CHAIN_SIZE)
+
+
+class GeneralResolution(NamedTuple):
+    order: torch.Tensor  # int32[B]
+    resolved: torch.Tensor  # bool[B]
+    rank: torch.Tensor  # int32[B]
+    leader: torch.Tensor  # int32[B]
+    stuck: torch.Tensor  # bool[B] — not resolved and not missing-blocked:
+    # cycles the device pass could not collapse; host oracle finishes them.
 
 
 def _num_doubling_steps(batch: int) -> int:
@@ -193,6 +208,164 @@ def resolve_functional_keyed(
     )
 
 
+def _order_from_ranks(rank, leader, dot_src, dot_seq) -> torch.Tensor:
+    """Execution order: (rank, SCC leader, dot) lexicographic.
+
+    Same-SCC members share (rank, leader) and are therefore contiguous and
+    dot-sorted (the reference's BTreeSet<Dot> order, tarjan.rs:15).  The
+    rank key makes every SCC follow all SCCs it depends on.  Unresolved
+    vertices carry rank INT32_MAX and sink to the tail.
+    """
+    return K.lex_sort([rank, leader, dot_src, dot_seq])
+
+
+def _all_pending_view(deps: torch.Tensor):
+    """``(dmat, n_bad)`` of a bare dep matrix: the general prologue over
+    an all-pending window with an empty feed (nothing installed, patched
+    or folded) — the fast-path count for ``resolve_general`` called
+    outside the plane."""
+    cap, width = deps.shape
+    device = deps.device
+    i32 = lambda n: torch.zeros(n, dtype=torch.int32, device=device)  # noqa: E731
+    return K.graph_prologue(
+        deps, i32(cap), i32(cap), i32(cap),
+        torch.ones(cap, dtype=torch.bool, device=device),
+        torch.zeros(cap, dtype=torch.bool, device=device),
+        i32(0), torch.zeros((0, width), dtype=torch.int32, device=device),
+        i32(0), i32(0), i32(0), i32(0), i32(0), i32(0), i32(0),
+        general=True,
+    )
+
+
+def resolve_general(
+    deps: torch.Tensor,  # int32[B, D]
+    dot_src: torch.Tensor,
+    dot_seq: torch.Tensor,
+    *,
+    max_iters: int = 0,  # 0 -> auto: 4 * log2(B) + 8
+    n_bad: Optional[int] = None,
+) -> GeneralResolution:
+    """Batched resolution for out-degree-D graphs (the reference's
+    ``resolve_general``, fantoch_tpu/ops/graph_resolve.py:467).
+
+    Self-dependencies are pruned (a command never waits on itself).  When
+    every remaining dependency points backward in batch order and none is
+    MISSING, batch order is a topological order of singleton SCCs (the
+    fast path).  Otherwise mutual-edge SCCs are collapsed exactly and
+    affine-max pointer doubling resolves the rest; cycles with no mutual
+    edges surface as ``stuck`` for the host Tarjan oracle.  ``n_bad`` is
+    the plane prologue's fast-path count when the caller has it.
+    """
+    batch = deps.shape[0]
+    device = deps.device
+    if max_iters == 0:
+        max_iters = 4 * _num_doubling_steps(batch) + 8
+    if n_bad is None:
+        n_bad = int(_all_pending_view(deps)[1].item())
+    if n_bad == 0:
+        idx = torch.arange(batch, dtype=torch.int32, device=device)
+        return GeneralResolution(
+            idx,
+            torch.ones(batch, dtype=torch.bool, device=device),
+            idx,
+            idx,
+            torch.zeros(batch, dtype=torch.bool, device=device),
+        )
+    return GeneralResolution(
+        *_resolve_general_iterative(deps, dot_src, dot_seq, max_iters)
+    )
+
+
+def _resolve_general_iterative(deps, dot_src, dot_seq, max_iters):
+    """The exact fallback: mutual-edge SCC collapse + affine-max doubling
+    (see resolve_general).  Returns the GeneralResolution fields.  The
+    reference's ``while_loop`` is a host loop over ``affine_round``: it
+    stops after the first round that changed nothing (whose outputs equal
+    its inputs) or after ``max_iters`` rounds."""
+    leader, tgt, add, missing, member_count = K.mutual_collapse(deps)
+    floor = torch.zeros_like(tgt)
+    for _ in range(max_iters):
+        tgt, add, floor, missing, changed = K.affine_round(
+            tgt, add, floor, missing, leader, member_count
+        )
+        if not int(changed.item()):
+            break
+    resolved, rank, stuck = K.affine_round(
+        tgt, add, floor, missing, leader, member_count, final=True
+    )
+    order = _order_from_ranks(rank, leader, dot_src, dot_seq)
+    return order, resolved, rank, leader, stuck
+
+
+def _peel_stage(tgt, floor, miss, final, rank, live: int, *, run_to_fixpoint: bool):
+    """One stage of the staged peeler: frontier peeling (absorption only,
+    one dependency level per round) until progress stops or — unless
+    ``run_to_fixpoint`` — the live set halves.  ``live`` is the stage's
+    initial ``(~final & ~miss).sum()``: the reference's ``while_loop``
+    tests its condition before the first round too."""
+    half = max(tgt.shape[0] // 2, 1)
+    changed = True
+    while changed and (run_to_fixpoint or live > half):
+        tgt, floor, miss, final, rank, stats = K.peel_round(
+            tgt, floor, miss, final, rank
+        )
+        changed, live = stats.tolist()
+    return tgt, floor, miss, final, rank
+
+
+def _resident_schedule(batch: int, min_size: int) -> Tuple[int, ...]:
+    """Static pow2 halving schedule from the padded batch down to the
+    terminal stage size (inclusive)."""
+    sizes = []
+    size = _pow2_at_least(max(batch, 1))
+    floor_size = _pow2_at_least(max(min_size, 1))
+    while size > floor_size:
+        sizes.append(size)
+        size //= 2
+    sizes.append(size)
+    return tuple(sizes)
+
+
+def resolve_general_resident(
+    deps: torch.Tensor,  # int32[B, W] — TERMINAL/MISSING sentinels
+    dot_src: torch.Tensor,
+    dot_seq: torch.Tensor,
+    *,
+    min_size: int = 4096,
+) -> GeneralResolution:
+    """The peel-and-compact resolver kept resident on the card (the
+    reference's ``resolve_general_resident``, graph_resolve.py:746):
+    frontier peeling until the live set halves, compaction to half
+    capacity, repeat down to ``min_size``, then a terminal fixpoint.  DAG
+    rows finalize with frontier-proportional total cost, missing-blocked
+    rows and their dependents come back unresolved-not-stuck, cycles never
+    peel and return ``stuck`` (leader = self) for the host Tarjan oracle.
+    A fixpoint reached while the live set still exceeds the next stage's
+    capacity closes the publish gate: results are final there, so later
+    stages (whose cut rows dangle as ``FROZEN``) cannot corrupt them."""
+    batch = deps.shape[0]
+    # the schedule's last stage must be the terminal one (the reference's
+    # callers all pass the default)
+    assert min_size & (min_size - 1) == 0, "min_size must be a power of two"
+    state, outs, live = K.peel_compact(deps, mode="init")
+    live = int(live.item())
+    schedule = _resident_schedule(batch, min_size)
+    for size in schedule:
+        state = _peel_stage(*state[:5], live, run_to_fixpoint=size <= min_size) + (
+            state[5],
+        )
+        if size <= min_size:
+            stuck = K.peel_compact(*state, *outs, mode="publish")
+            break  # terminal stage ran to its fixpoint
+        state, live = K.peel_compact(*state, *outs, mode="compact", half=size // 2)
+        live = int(live.item())
+    out_rank = outs[2]
+    # (rank, idx) order: the index is unique, so the dots never decide
+    order = K.lex_sort([out_rank])
+    idx = torch.arange(batch, dtype=torch.int32, device=deps.device)
+    return GeneralResolution(order, outs[0], out_rank, idx, stuck)
+
+
 def graph_plane_step_core(
     deps, key, src, seq, occ, executed,
     u_row, u_deps, u_key, u_src, u_seq,
@@ -206,10 +379,14 @@ def graph_plane_step_core(
     marks, fold deps on executed slots to TERMINAL, mask non-pending rows
     inert, and resolve the whole pending window.  The state tensors are
     updated in place (what JAX's buffer donation did)."""
-    if mode != "keyed":
-        raise NotImplementedError(_GENERAL_TODO.format(mode))
     cap = deps.shape[0]
     assert cap < (1 << 30), "the packed emit key needs C < 2^30"
+    if mode != "keyed":
+        return _general_plane_step(
+            deps, key, src, seq, occ, executed,
+            u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
+            mode=mode,
+        )
     col, pk = K.graph_prologue(
         deps, key, src, seq, occ, executed,
         u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
@@ -241,6 +418,33 @@ def graph_plane_step_core(
     )
 
 
+def _general_plane_step(
+    deps, key, src, seq, occ, executed,
+    u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
+    *,
+    mode: str,
+) -> GraphPlaneStep:
+    """The ``general`` and ``general_resident`` branches of
+    ``graph_plane_step_core`` (graph_resolve.py:997-1007).  The reference
+    masks ``stuck`` with ``pending``; every stuck row is pending here
+    already, since the prologue masks non-pending rows to all-TERMINAL
+    rows, which both resolvers always finalize."""
+    dmat, n_bad = K.graph_prologue(
+        deps, key, src, seq, occ, executed,
+        u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
+        general=True,
+    )
+    if mode == "general":
+        res = resolve_general(dmat, src, seq, n_bad=int(n_bad.item()))
+    else:
+        assert mode == "general_resident", mode
+        res = resolve_general_resident(dmat, src, seq)
+    newly = K.plane_epilogue(occ, executed, res.resolved)
+    return GraphPlaneStep(
+        deps, key, src, seq, occ, executed, res.order, newly, res.stuck, res.leader
+    )
+
+
 def resolve_graph_plane_step(
     deps, key, src, seq, occ, executed,
     u_row, u_deps, u_key, u_src, u_seq,
@@ -248,9 +452,10 @@ def resolve_graph_plane_step(
     *,
     mode: str,
 ) -> GraphPlaneStep:
-    """The plane's dispatch entry: CPU tensors run every stage's plain
-    version, CUDA tensors the Hopper kernels (each wrapper routes on the
-    device of its inputs; there is no fallback from one to the other)."""
+    """The plane's dispatch entry (``mode``: "keyed" | "general" |
+    "general_resident"): CPU tensors run every stage's plain version,
+    CUDA tensors the Hopper kernels (each wrapper routes on the device of
+    its inputs; there is no fallback from one to the other)."""
     return graph_plane_step_core(
         deps, key, src, seq, occ, executed,
         u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,

@@ -1,15 +1,16 @@
-"""Shared utilities: the framework-wide key hash and the package logger.
+"""Shared utilities: key hashing, distance-based process sorting, logging.
 
-Reference: fantoch/src/util.rs.  The port carries only what the graph
-executor slice needs; the distance-based process sorting of the JAX
-package's ``utils`` (which needs ``core.planet``) comes with a later slice.
+Reference: fantoch/src/util.rs.
 """
 
 from __future__ import annotations
 
 import logging
+from typing import Dict, Iterable, Iterator, List, Tuple
 
+from fantoch_tpu_torch.core.ids import Dot, ProcessId, ShardId
 from fantoch_tpu_torch.core.kvs import Key
+from fantoch_tpu_torch.core.planet import Planet, Region
 
 logger = logging.getLogger("fantoch_tpu_torch")
 
@@ -27,3 +28,37 @@ def key_hash(key: Key) -> int:
     for b in key.encode():
         h = ((h ^ b) * _FNV_PRIME) & _MASK
     return h
+
+
+def dots(repr_: Iterable[Tuple[ProcessId, int, int]]) -> Iterator[Dot]:
+    """Expand (process, start, end) ranges into dots (fantoch/src/util.rs:135-140)."""
+    for process_id, start, end in repr_:
+        for seq in range(start, end + 1):
+            yield Dot(process_id, seq)
+
+
+def sort_processes_by_distance(
+    region: Region,
+    planet: Planet,
+    processes: List[Tuple[ProcessId, ShardId, Region]],
+) -> List[Tuple[ProcessId, ShardId]]:
+    """Sort processes by the distance of their region from `region`; ties
+    (same region) break by process id.  Reference: fantoch/src/util.rs:142-176.
+    """
+    sorted_regions = planet.sorted_by_distance(region)
+    assert sorted_regions is not None, f"{region} should be part of planet"
+    index_of = {reg: i for i, (_dist, reg) in enumerate(sorted_regions)}
+    ordered = sorted(processes, key=lambda p: (index_of[p[2]], p[0]))
+    return [(pid, shard) for pid, shard, _ in ordered]
+
+
+def closest_process_per_shard(
+    region: Region,
+    planet: Planet,
+    processes: List[Tuple[ProcessId, ShardId, Region]],
+) -> Dict[ShardId, ProcessId]:
+    """Closest process of each shard (fantoch/src/util.rs:178-192)."""
+    out: Dict[ShardId, ProcessId] = {}
+    for process_id, shard_id in sort_processes_by_distance(region, planet, processes):
+        out.setdefault(shard_id, process_id)
+    return out

@@ -2,7 +2,8 @@
 
 * ``fantoch_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   anything of ``fantoch_tpu`` (an AST scan plus a fresh interpreter that
-  imports every port module).
+  imports every port module, the simulator, EPaxos/Atlas and the clients
+  among them).
 * No silent CPU route: without CUDA, building the plane or the executor
   without ``device=`` raises, and a wrapper handed CUDA tensors launches
   its kernel or raises — it never reaches its plain version.  An armed
@@ -32,6 +33,7 @@ from fantoch_tpu_torch.executor.graph.executor import GraphExecutor
 from fantoch_tpu_torch.ops import _build
 from fantoch_tpu_torch.ops import graph_plane_kernels as K
 from fantoch_tpu_torch.ops import graph_resolve
+from fantoch_tpu_torch.protocol.common.graph_deps import Dependency
 
 torch.set_num_threads(1)
 
@@ -64,11 +66,17 @@ def test_port_imports_no_jax_and_no_reference_package():
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py")
     )
+    for entry in ("sim.runner", "protocol.graph_protocol", "client"):
+        assert f"fantoch_tpu_torch.{entry}" in modules, entry
     script = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'fantoch_tpu')]\n"
         "assert not bad, bad\n"
+        "from fantoch_tpu_torch.protocol import Atlas, EPaxos\n"
+        "from fantoch_tpu_torch.sim import Runner\n"
+        "from fantoch_tpu_torch.core import Planet\n"
+        "assert Planet.new('gcp').regions()\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True,
@@ -151,15 +159,36 @@ def test_no_silent_cpu_route(monkeypatch):
         GraphExecutor(1, 0, PLANE_CFG)
     GraphExecutor(1, 0, PLANE_CFG, device="cpu")  # an explicit CPU is fine
 
-    # modes and routes not ported yet raise instead of guessing
+    # a multi-key command rides the general mode; routes not ported yet
+    # raise instead of guessing
     graph = BatchedDependencyGraph(1, 0, PLANE_CFG, device="cpu")
     two_keys = Command.from_keys(Rifl(1, 1), 0, {"a": (KVOp.put(""),), "b": (KVOp.put(""),)})
-    graph.handle_add(Dot(1, 1), two_keys, [], RunTime())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        graph.commands_to_execute()
+    ghost = Dot(2, 1)
+    graph.handle_add(Dot(1, 1), two_keys, [Dependency(ghost, frozenset({0}))], RunTime())
+    assert graph.commands_to_execute() == []
+    assert graph._plane._mode() == "general" and graph._plane.dispatches == 1
+    ghost_cmd = Command.from_keys(Rifl(2, 1), 0, {"a": (KVOp.put(""),)})
+    graph.handle_add(ghost, ghost_cmd, [], RunTime())
+    assert graph.commands_to_execute() == [ghost_cmd, two_keys]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BatchedDependencyGraph(1, 0, Config(3, 1, batched_graph_executor=True),
                                device="cpu")
+    from fantoch_tpu_torch.client import ConflictRateKeyGen, Workload
+    from fantoch_tpu_torch.core import Planet
+    from fantoch_tpu_torch.protocol import EPaxos
+    from fantoch_tpu_torch.sim import Runner
+
+    planet = Planet.new("gcp")
+    regions = sorted(planet.regions())[:3]
+    workload = Workload(1, ConflictRateKeyGen(50), 2, 1, 1)
+    sim_cfg = PLANE_CFG.with_(gc_interval_ms=100)
+    for kwargs in ({"telemetry_path": "t.jsonl"}, {"flight_dir": "."}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Runner(EPaxos, planet, sim_cfg, workload, 1, regions, regions,
+                   device="cpu", **kwargs)
+    # the simulator's default device is the card
+    with pytest.raises((RuntimeError, AssertionError)):
+        Runner(EPaxos, planet, sim_cfg, workload, 1, regions, regions).run()
     cap, width = 8, 2
     state = [torch.full((cap, width), -1, dtype=torch.int32)] + [
         torch.zeros(cap, dtype=torch.int32) for _ in range(3)
@@ -170,8 +199,11 @@ def test_no_silent_cpu_route(monkeypatch):
     ] + [torch.full((4,), cap, dtype=torch.int32)] + [
         torch.zeros(4, dtype=torch.int32) for _ in range(2)
     ] + [torch.full((4,), cap, dtype=torch.int32)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        graph_resolve.resolve_graph_plane_step(*state, *feed, mode="general")
+    for mode in ("general", "general_resident"):
+        out = graph_resolve.resolve_graph_plane_step(
+            *[t.clone() for t in state], *feed, mode=mode
+        )
+        assert not out.newly.any() and not out.stuck.any()
 
     _armed_plane_fails_to_the_caller(monkeypatch)
 
@@ -184,6 +216,12 @@ def test_no_silent_cpu_route(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     calls = [
         lambda: graph_resolve.resolve_graph_plane_step(*state, *feed, mode="keyed"),
+        lambda: graph_resolve.resolve_graph_plane_step(*state, *feed, mode="general"),
+        lambda: graph_resolve.resolve_general_resident(state[0], state[1], state[2]),
+        lambda: K.mutual_collapse(state[0]),
+        lambda: K.affine_round(state[0], state[0], state[0], state[4], state[1], state[1]),
+        lambda: K.peel_round(state[0], state[1], state[4], state[5], state[2]),
+        lambda: K.peel_compact(state[0], mode="init"),
         lambda: K.lex_sort([state[1]]),
         lambda: K.link_scan(state[1], state[2], state[3]),
         lambda: K.pointer_doubling(state[1]),
