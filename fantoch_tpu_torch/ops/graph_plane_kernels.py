@@ -84,27 +84,22 @@ def num_doubling_steps(batch: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-# the C launchers, by library (csrc/<library>.cu): "p" a device pointer,
-# "i" an int; every launcher takes the stream last and returns cudaError_t
+# the C launchers: library (csrc/<library>.cu) and signature, "p" a device
+# pointer, "i" an int; every launcher takes the stream last and returns
+# cudaError_t
 _SIGNATURES = {
-    "gp_prologue": "p" * 19 + "i" * 6,
-    "gp_sort_pass": "pipppp" + "ii",
-    "gp_link_scan": "p" * 8 + "i",
-    "gp_residual_view": "p" * 13 + "iii",
-    "gp_group_scan": "pppp" + "i",
-    "gp_pointer_doubling": "p" * 7 + "ii",
-    "gp_emit_scatter": "p" * 8 + "iii",
-    "gp_epilogue": "p" * 5 + "i",
-}
-_GENERAL_SIGNATURES = {
-    "gg_mutual_collapse": "p" * 8 + "iii",
-    "gg_affine_round": "p" * 15 + "iii",
-    "gg_peel_round": "p" * 11 + "ii",
-    "gg_peel_compact": "p" * 19 + "iiiii",
-}
-_LIBRARY_OF = {
-    **{fn: "graph_plane_step" for fn in _SIGNATURES},
-    **{fn: "graph_general" for fn in _GENERAL_SIGNATURES},
+    "gp_prologue": ("graph_plane_step", "p" * 19 + "i" * 6),
+    "gp_sort_pass": ("graph_plane_step", "pipppp" + "ii"),
+    "gp_link_scan": ("graph_plane_step", "p" * 8 + "i"),
+    "gp_residual_view": ("graph_plane_step", "p" * 13 + "iii"),
+    "gp_group_scan": ("graph_plane_step", "pppp" + "i"),
+    "gp_pointer_doubling": ("graph_plane_step", "p" * 7 + "ii"),
+    "gp_emit_scatter": ("graph_plane_step", "p" * 8 + "iii"),
+    "gp_epilogue": ("graph_plane_step", "p" * 5 + "i"),
+    "gg_mutual_collapse": ("graph_general", "p" * 8 + "iii"),
+    "gg_affine_round": ("graph_general", "p" * 15 + "iii"),
+    "gg_peel_round": ("graph_general", "p" * 11 + "ii"),
+    "gg_peel_compact": ("graph_general", "p" * 19 + "iiiii"),
 }
 _lib_handles: Dict[str, ctypes.CDLL] = {}
 
@@ -115,15 +110,13 @@ def _lib(name: str):
         from fantoch_tpu_torch.ops import _build
 
         lib = _build.load(name)
-        for fn_name, lib_name in _LIBRARY_OF.items():
-            if lib_name != name:
-                continue
-            fn = getattr(lib, fn_name)
-            sig = {**_SIGNATURES, **_GENERAL_SIGNATURES}[fn_name]
-            fn.argtypes = [
-                ctypes.c_void_p if c == "p" else ctypes.c_int for c in sig
-            ] + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        for fn_name, (lib_name, sig) in _SIGNATURES.items():
+            if lib_name == name:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = [
+                    ctypes.c_void_p if c == "p" else ctypes.c_int for c in sig
+                ] + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
         _lib_handles[name] = lib
     return lib
 
@@ -132,11 +125,11 @@ def _launch(fn: str, device: torch.device, *args) -> None:
     """Call one C launcher on the current stream; it returns
     ``cudaGetLastError()`` after its launches, and a refused launch raises
     here (``torch.cuda.synchronize`` would never report it)."""
-    sig = _SIGNATURES.get(fn) or _GENERAL_SIGNATURES[fn]
+    lib_name, sig = _SIGNATURES[fn]
     assert len(args) == len(sig), (fn, len(args), len(sig))
     stream = torch.cuda.current_stream(device).cuda_stream
     values = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = getattr(_lib(_LIBRARY_OF[fn]), fn)(*values, stream)
+    err = getattr(_lib(lib_name), fn)(*values, stream)
     if err != 0:
         raise RuntimeError(f"CUDA launch of {fn} failed with error {err}")
 
