@@ -133,8 +133,8 @@ class ConsistencyAuditor:
 
     def _check_duplicates(self, items, verdict: AuditVerdict) -> None:
         """Exactly-once execution: one rifl must not touch one key more
-        often than the workload's op multiplicity allows (the PR 7
-        GC-straggler commit REPLAY executed commands twice)."""
+        often than the workload's op multiplicity allows (a GC-straggler
+        commit replay once executed commands twice)."""
         if self.expected_ops_per_key is None:
             return
         from collections import Counter

@@ -294,8 +294,8 @@ class GraphProtocol(PartialCommitMixin, RecoveryMixin, SyncMixin, CommitGCMixin,
         # even without failures, due to connection multiplexing)
         self._buffered_commits: Dict[Dot, Tuple[ProcessId, ConsensusValue]] = {}
         # single-shard commits cross the executor boundary as arrays built
-        # incrementally here at commit time (GraphAddBatch — VERDICT r2
-        # item 2); multi-shard keeps per-command GraphAdd because remote
+        # incrementally here at commit time (GraphAddBatch); multi-shard
+        # keeps per-command GraphAdd because remote
         # Dependency shard sets must survive the crossing
         self._commit_buffer = (
             _CommitBuffer(shard_id) if config.shard_count == 1 else None

@@ -21,7 +21,7 @@ the sim's open-loop arrivals, and ``OrderingPool`` shard rounds):
   command immediately — sync latency never regresses.
 * :class:`ChainAutoTuner` — pick S, the serving rounds fused per device
   dispatch (``step_chained_pipelined``), from the measured per-round
-  host dispatch overhead vs in-dispatch device time (the PR 6 busy/span
+  host dispatch overhead vs in-dispatch device time (the busy/span
   counters): grow S while the dispatch round-trip still dominates a
   round, shrink once it is amortized, clamp at
   ``Config.serving_chain_max``.

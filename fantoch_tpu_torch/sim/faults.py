@@ -83,8 +83,8 @@ class LinkFault:
     # models a late retransmit — the sender re-sent after losing the ack,
     # and the copy lands long after the original (possibly after the
     # commit went stable-everywhere and was GC'd: the straggler schedules
-    # the GC-straggler guards exist for, and the one that reaches the
-    # PR 7 commit-replay bug when those guards are off)
+    # the GC-straggler guards exist for, and the one that reaches a
+    # commit-replay bug when those guards are off)
     duplicate_delay_ms: int = 0
     from_ms: int = 0
     until_ms: Optional[int] = None
@@ -135,7 +135,7 @@ class Partition:
 class Crash:
     """A process failure at ``at_ms``, in one of two modes:
 
-    * **Crash-forever** (``restart_at_ms=None``, the PR-2 behavior):
+    * **Crash-forever** (``restart_at_ms=None``, the original behavior):
       the process stops for good — inbound messages are dropped, its
       periodic events stop, and clients attached to it are abandoned.
       Every such crash permanently burns one unit of the ``n - f``
