@@ -85,16 +85,13 @@ class Config:
     gc_interval_ms: Optional[int] = None
     # adaptive ingest batching (run/ingest.py): the deadline budget (ms)
     # a queued submission may wait for its round to fill.  None = the
-    # FANTOCH_INGEST_DEADLINE_MS env var, else 2.0; 0 disables batching.
-    # The simulator batches only when a deadline was requested
+    # FANTOCH_INGEST_DEADLINE_MS env var, else no batching; 0 releases
+    # every arrival at once.  The simulator batches only when a deadline
+    # was requested
     ingest_deadline_ms: Optional[float] = None
     # fixed ingest size target overriding the EWMA-adaptive one (None =
     # the FANTOCH_INGEST_TARGET env var, else adaptive)
     ingest_target: Optional[int] = None
-    # ceiling on the auto-tuned serving chain length (run/ingest.py
-    # ChainAutoTuner); None = the FANTOCH_SERVING_CHAIN_MAX env var, else
-    # 8; 1 disables chaining
-    serving_chain_max: Optional[int] = None
     # telemetry window (ms) of the simulator's telemetry tick; None = the
     # built-in 1 s window.  Telemetry is not ported yet: the simulator
     # raises when a telemetry path is given
@@ -119,11 +116,6 @@ class Config:
         if self.ingest_target is not None and self.ingest_target < 1:
             raise ValueError(
                 f"ingest_target = {self.ingest_target} must be >= 1"
-            )
-        if self.serving_chain_max is not None and self.serving_chain_max < 1:
-            raise ValueError(
-                f"serving_chain_max = {self.serving_chain_max} must be >= 1 "
-                "(1 = chaining off)"
             )
         if self.telemetry_interval_ms is not None and self.telemetry_interval_ms < 1:
             raise ValueError(

@@ -13,7 +13,11 @@ against its plain version — ``chip_smoke.Checker`` does it per call:
 
     from fantoch_tpu_torch.csrc.emu.emulate import emulated
     with emulated():
-        out = graph_resolve.resolve_general(deps, src, seq)
+        out = graph_resolve.resolve_general_resident(deps, src, seq)
+
+The switch is the wrappers' own device test and stream handle
+(``graph_plane_kernels._on_card`` and ``_stream``) and their library
+loader; ``torch`` itself is left as it is.
 
 What it cannot show: that ``nvcc`` accepts the source, races between
 blocks (blocks run one after another), memory-ordering faults, and
@@ -27,10 +31,7 @@ import contextlib
 import ctypes
 import re
 import subprocess
-import types
 from pathlib import Path
-
-import torch
 
 EMU_DIR = Path(__file__).resolve().parent
 CSRC_DIR = EMU_DIR.parent
@@ -72,13 +73,13 @@ def emulated():
     from fantoch_tpu_torch.ops import graph_plane_kernels as K
 
     libs = {name: build(name) for name in ("graph_plane_step", "graph_general")}
-    saved = (torch.Tensor.is_cuda, torch.cuda.current_stream, _build.load)
-    torch.Tensor.is_cuda = property(lambda self: True)
-    torch.cuda.current_stream = lambda device=None: types.SimpleNamespace(cuda_stream=0)
+    saved = (K._on_card, K._stream, _build.load)
+    K._on_card = lambda tensor: True
+    K._stream = lambda device: 0
     _build.load = lambda name: ctypes.CDLL(str(libs[name]))
     K._lib_handles.clear()
     try:
         yield
     finally:
-        torch.Tensor.is_cuda, torch.cuda.current_stream, _build.load = saved
+        K._on_card, K._stream, _build.load = saved
         K._lib_handles.clear()

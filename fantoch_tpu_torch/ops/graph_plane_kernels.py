@@ -121,13 +121,23 @@ def _lib(name: str):
     return lib
 
 
+def _on_card(tensor: torch.Tensor) -> bool:
+    """Whether a wrapper given ``tensor`` takes its kernel route."""
+    return tensor.is_cuda
+
+
+def _stream(device: torch.device) -> int:
+    """The handle of the current CUDA stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _launch(fn: str, device: torch.device, *args) -> None:
     """Call one C launcher on the current stream; it returns
     ``cudaGetLastError()`` after its launches, and a refused launch raises
     here (``torch.cuda.synchronize`` would never report it)."""
     lib_name, sig = _SIGNATURES[fn]
     assert len(args) == len(sig), (fn, len(args), len(sig))
-    stream = torch.cuda.current_stream(device).cuda_stream
+    stream = _stream(device)
     values = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = getattr(_lib(lib_name), fn)(*values, stream)
     if err != 0:
@@ -135,7 +145,7 @@ def _launch(fn: str, device: torch.device, *args) -> None:
 
 
 def _check(tensor: torch.Tensor, dtype: torch.dtype, name: str, numel=None) -> None:
-    if not tensor.is_cuda:
+    if not _on_card(tensor):
         raise ValueError(f"{name} must be a CUDA tensor (got {tensor.device})")
     if tensor.dtype != dtype:
         raise ValueError(f"{name} must be {dtype} (got {tensor.dtype})")
@@ -226,7 +236,7 @@ def graph_prologue(
     u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
     general: bool = False,
 ):
-    if not deps.is_cuda:
+    if not _on_card(deps):
         return graph_prologue_plain(
             deps, key, src, seq, occ, executed,
             u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
@@ -302,7 +312,7 @@ def lex_sort(
     invert: Sequence[bool] = (),
     through: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    if not keys[0].is_cuda:
+    if not _on_card(keys[0]):
         return lex_sort_plain(keys, invert, through)
     assert 1 <= len(keys) <= 8, "lex_sort takes 1..8 key columns"
     n = keys[0].numel()
@@ -362,7 +372,7 @@ def link_scan_plain(pk, col, pos_s):
 
 
 def link_scan(pk, col, pos_s):
-    if not pk.is_cuda:
+    if not _on_card(pk):
         return link_scan_plain(pk, col, pos_s)
     n = pk.numel()
     for name, t in (("pk", pk), ("col", col), ("pos_s", pos_s)):
@@ -414,7 +424,7 @@ def residual_view_plain(p_r, pos_s, dep_s, run_start, src, seq, n_residual: int)
 
 
 def residual_view(p_r, pos_s, dep_s, run_start, src, seq, n_residual: int):
-    if not p_r.is_cuda:
+    if not _on_card(p_r):
         return residual_view_plain(p_r, pos_s, dep_s, run_start, src, seq, n_residual)
     batch, res_n = pos_s.numel(), p_r.numel()
     device = p_r.device
@@ -453,7 +463,7 @@ def group_scan_plain(rrs, p_r):
 
 
 def group_scan(rrs, p_r):
-    if not rrs.is_cuda:
+    if not _on_card(rrs):
         return group_scan_plain(rrs, p_r)
     m = rrs.numel()
     _check(rrs, torch.int32, "rrs", m)
@@ -517,7 +527,7 @@ def pointer_doubling_plain(dep):
 
 
 def pointer_doubling(dep):
-    if not dep.is_cuda:
+    if not _on_card(dep):
         return pointer_doubling_plain(dep)
     n = dep.numel()
     _check(dep, torch.int32, "dep", n)
@@ -565,7 +575,7 @@ def emit_scatter_plain(e, p_r, l_resolved, target_r, chain_ok, n_residual: int):
 
 
 def emit_scatter(e, p_r, l_resolved, target_r, chain_ok, n_residual: int):
-    if not e.is_cuda:
+    if not _on_card(e):
         return emit_scatter_plain(e, p_r, l_resolved, target_r, chain_ok, n_residual)
     batch, res_n = chain_ok.numel(), e.numel()
     device = e.device
@@ -608,7 +618,7 @@ def plane_epilogue_plain(occ, executed, flags=None, flag_perm=None):
 
 
 def plane_epilogue(occ, executed, flags=None, flag_perm=None):
-    if not occ.is_cuda:
+    if not _on_card(occ):
         return plane_epilogue_plain(occ, executed, flags, flag_perm)
     n = occ.numel()
     _check(occ, torch.bool, "occ", n)
@@ -680,7 +690,7 @@ def mutual_collapse_plain(deps):
 
 
 def mutual_collapse(deps):
-    if not deps.is_cuda:
+    if not _on_card(deps):
         return mutual_collapse_plain(deps)
     batch, width = deps.shape
     device = deps.device
@@ -773,7 +783,7 @@ def affine_round_plain(tgt, add, floor, missing, leader, member_count, *, final=
 
 
 def affine_round(tgt, add, floor, missing, leader, member_count, *, final=False):
-    if not tgt.is_cuda:
+    if not _on_card(tgt):
         return affine_round_plain(
             tgt, add, floor, missing, leader, member_count, final=final
         )
@@ -838,7 +848,7 @@ def peel_round_plain(tgt, floor, miss, final, rank):
 
 
 def peel_round(tgt, floor, miss, final, rank):
-    if not tgt.is_cuda:
+    if not _on_card(tgt):
         return peel_round_plain(tgt, floor, miss, final, rank)
     size, width = tgt.shape
     device = tgt.device
@@ -960,7 +970,7 @@ def peel_compact_plain(*arrays, mode, half=0):
 
 
 def peel_compact(*arrays, mode, half=0):
-    if not arrays[0].is_cuda:
+    if not _on_card(arrays[0]):
         return peel_compact_plain(*arrays, mode=mode, half=half)
     device = arrays[0].device
     if mode == "init":

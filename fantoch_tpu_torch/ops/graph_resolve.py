@@ -30,7 +30,7 @@ host-column route's resolver) is not ported: ROADMAP.md Queue A3.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -219,31 +219,13 @@ def _order_from_ranks(rank, leader, dot_src, dot_seq) -> torch.Tensor:
     return K.lex_sort([rank, leader, dot_src, dot_seq])
 
 
-def _all_pending_view(deps: torch.Tensor):
-    """``(dmat, n_bad)`` of a bare dep matrix: the general prologue over
-    an all-pending window with an empty feed (nothing installed, patched
-    or folded) — the fast-path count for ``resolve_general`` called
-    outside the plane."""
-    cap, width = deps.shape
-    device = deps.device
-    i32 = lambda n: torch.zeros(n, dtype=torch.int32, device=device)  # noqa: E731
-    return K.graph_prologue(
-        deps, i32(cap), i32(cap), i32(cap),
-        torch.ones(cap, dtype=torch.bool, device=device),
-        torch.zeros(cap, dtype=torch.bool, device=device),
-        i32(0), torch.zeros((0, width), dtype=torch.int32, device=device),
-        i32(0), i32(0), i32(0), i32(0), i32(0), i32(0), i32(0),
-        general=True,
-    )
-
-
 def resolve_general(
     deps: torch.Tensor,  # int32[B, D]
     dot_src: torch.Tensor,
     dot_seq: torch.Tensor,
     *,
+    n_bad: int,
     max_iters: int = 0,  # 0 -> auto: 4 * log2(B) + 8
-    n_bad: Optional[int] = None,
 ) -> GeneralResolution:
     """Batched resolution for out-degree-D graphs (the reference's
     ``resolve_general``, fantoch_tpu/ops/graph_resolve.py:467).
@@ -253,15 +235,15 @@ def resolve_general(
     MISSING, batch order is a topological order of singleton SCCs (the
     fast path).  Otherwise mutual-edge SCCs are collapsed exactly and
     affine-max pointer doubling resolves the rest; cycles with no mutual
-    edges surface as ``stuck`` for the host Tarjan oracle.  ``n_bad`` is
-    the plane prologue's fast-path count when the caller has it.
+    edges surface as ``stuck`` for the host Tarjan oracle.  ``n_bad``
+    decides the fast path: the number of cells that bar it, a forward
+    dependency or a MISSING one (self-dependencies aside).  The plane's
+    general prologue counts it on the device (``K.graph_prologue``).
     """
     batch = deps.shape[0]
     device = deps.device
     if max_iters == 0:
         max_iters = 4 * _num_doubling_steps(batch) + 8
-    if n_bad is None:
-        n_bad = int(_all_pending_view(deps)[1].item())
     if n_bad == 0:
         idx = torch.arange(batch, dtype=torch.int32, device=device)
         return GeneralResolution(

@@ -1,15 +1,9 @@
-"""Adaptive ingest batching for the serving edge.
+"""Adaptive ingest batching for the simulator's open-loop arrivals.
 
-The device kernels already amortize: one fused dispatch orders a whole
-4096-slot round in ~3 ms, and ``step_chained`` proves ~0.9M cmds/s
-in-dispatch.  End-to-end serving was ~25x slower because the serving
-loops dispatch the instant anything is queued — under open-loop load a
-round leaves with a handful of rows and the device round-trip is paid
-per trickle, not per batch.  This module is the accumulate-fuse-
-dispatch-lazily discipline of the GraphBLAS nonblocking-execution line
-(PAPERS.md) applied to that edge, shared by every serving surface
-(``DeviceRuntime._driver_task``, the process runner's executor pools,
-the sim's open-loop arrivals, and ``OrderingPool`` shard rounds):
+Batching amortizes a device dispatch over a whole round instead of paying
+it per trickle of arrivals: this module is the accumulate-fuse-dispatch-
+lazily discipline of the GraphBLAS nonblocking-execution line (PAPERS.md)
+applied to the ingest edge.
 
 * :class:`AdaptiveIngestBatcher` — hold queued submissions until a
   **size target** or a **deadline budget** fills.  The size target
@@ -19,41 +13,24 @@ the sim's open-loop arrivals, and ``OrderingPool`` shard rounds):
   waits.  The deadline bounds the latency a queued command can pay to
   batching.  An **idle-system fast path** releases a lone closed-loop
   command immediately — sync latency never regresses.
-* :class:`ChainAutoTuner` — pick S, the serving rounds fused per device
-  dispatch (``step_chained_pipelined``), from the measured per-round
-  host dispatch overhead vs in-dispatch device time (the busy/span
-  counters): grow S while the dispatch round-trip still dominates a
-  round, shrink once it is amortized, clamp at
-  ``Config.serving_chain_max``.
 
-Knob resolution follows the ``serving_pipeline_depth`` one-knob rule
-(run/pipeline.py): explicit argument > ``Config`` field > env var >
-default — any spelling is the same knob, never three.
+Knob resolution: explicit argument > ``Config`` field > env var — any
+spelling is the same knob, never three.
 
-Time is injected (float milliseconds): the run layer passes a monotonic
-wall clock, the sim its virtual clock — the batcher itself never reads
-a clock, which is what makes the sim wire-through deterministic
-(same-seed byte-identical traces with the batcher on).
+Time is injected (float milliseconds): the sim passes its virtual clock
+— the batcher itself never reads a clock, which is what makes the sim
+wire-through deterministic (same-seed byte-identical traces with the
+batcher on).
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Optional, Tuple
 
 ENV_INGEST_DEADLINE_MS = "FANTOCH_INGEST_DEADLINE_MS"
 ENV_INGEST_TARGET = "FANTOCH_INGEST_TARGET"
-ENV_SERVING_CHAIN_MAX = "FANTOCH_SERVING_CHAIN_MAX"
-
-# the default latency budget a queued command may pay to batching: small
-# against the ~68 ms remote dispatch round-trip the batch amortizes, and
-# against any cross-region commit, yet ~the device kernel time — so a
-# deadline-released round still carries most of a saturated window
-DEFAULT_INGEST_DEADLINE_MS = 2.0
-# chain-length ceiling for the auto-tuner: 8 rounds per dispatch already
-# cuts per-round dispatch overhead 8x while keeping result lag bounded
-DEFAULT_SERVING_CHAIN_MAX = 8
 
 
 def requested_ingest_deadline_ms(
@@ -62,8 +39,8 @@ def requested_ingest_deadline_ms(
     """The explicitly requested ingest deadline budget, by precedence:
     an explicit value, then ``Config.ingest_deadline_ms``, then the
     ``FANTOCH_INGEST_DEADLINE_MS`` env var — or None when no channel
-    requested one (callers that stay legacy-immediate unless asked, like
-    the sim and the host executor pools, branch on this)."""
+    requested one (the sim, which releases every arrival at once unless
+    asked, branches on this)."""
     deadline = explicit
     if deadline is None and config is not None:
         deadline = getattr(config, "ingest_deadline_ms", None)
@@ -72,20 +49,6 @@ def requested_ingest_deadline_ms(
         if raw:
             deadline = float(raw)
     return None if deadline is None else float(deadline)
-
-
-def resolve_ingest_deadline_ms(
-    explicit: Optional[float] = None, config: Any = None
-) -> float:
-    """:func:`requested_ingest_deadline_ms` with the default applied
-    (2 ms).  0 is a valid resolution: batching off, release immediately
-    (the legacy dispatch-on-anything behavior)."""
-    deadline = requested_ingest_deadline_ms(explicit, config)
-    if deadline is None:
-        deadline = DEFAULT_INGEST_DEADLINE_MS
-    if deadline < 0:
-        raise ValueError(f"ingest deadline must be >= 0 ms, got {deadline}")
-    return deadline
 
 
 def resolve_ingest_target(
@@ -107,27 +70,6 @@ def resolve_ingest_target(
     if target < 1:
         raise ValueError(f"ingest target must be >= 1, got {target}")
     return target
-
-
-def resolve_serving_chain_max(
-    explicit: Optional[int] = None, config: Any = None
-) -> int:
-    """Chain-length ceiling for the auto-tuner (explicit >
-    ``Config.serving_chain_max`` > ``FANTOCH_SERVING_CHAIN_MAX`` env >
-    8).  1 disables chaining: every dispatch carries one round."""
-    chain_max = explicit
-    if chain_max is None and config is not None:
-        chain_max = getattr(config, "serving_chain_max", None)
-    if chain_max is None:
-        raw = os.environ.get(ENV_SERVING_CHAIN_MAX)
-        if raw:
-            chain_max = int(raw)
-    if chain_max is None:
-        chain_max = DEFAULT_SERVING_CHAIN_MAX
-    chain_max = int(chain_max)
-    if chain_max < 1:
-        raise ValueError(f"serving chain max must be >= 1, got {chain_max}")
-    return chain_max
 
 
 class AdaptiveIngestBatcher:
@@ -287,137 +229,3 @@ class AdaptiveIngestBatcher:
             "ingest_target": self.target(),
             "ingest_rate_per_s": round(self.rate_per_s(), 1),
         }
-
-
-class ChainAutoTuner:
-    """Auto-tuned S for chained serving (``step_chained_pipelined``).
-
-    Starts at S=1 and adjusts from deltas of the shared PipelineCore
-    counters: per-round host dispatch overhead
-    (``dispatch_wall_ms / rounds``) vs per-round in-dispatch device time
-    (``busy_ms / rounds``).  While the dispatch call still costs more
-    than ``grow_frac`` of a round's device time, fusing more rounds per
-    dispatch keeps paying — S doubles (fast convergence from cold).
-    Once overhead falls under ``shrink_frac`` the chain HALVES
-    (hysteresis between the two bands keeps S stable).  S moves on a
-    strict pow2 schedule — double up, halve down, ceiling at the pow2
-    floor of ``chain_max`` — because the chained step programs compile
-    per chain length: a decrement schedule would bake every value in
-    ``[1, chain_max]`` into a distinct compiled signature (the compile
-    wall), while pow2 bounds the set at O(log chain_max) programs.
-    Observations under ``min_dispatches`` new dispatches are deferred so
-    one jittery round cannot thrash S.
-    """
-
-    __slots__ = (
-        "chain", "chain_max", "grow_frac", "shrink_frac",
-        "min_dispatches", "adjustments", "_last",
-    )
-
-    def __init__(
-        self,
-        chain_max: int,
-        grow_frac: float = 0.25,
-        shrink_frac: float = 0.05,
-        min_dispatches: int = 8,
-    ):
-        assert chain_max >= 1
-        self.chain = 1
-        # pow2 floor: the largest chain the tuner will emit.  chain_max
-        # itself may be arbitrary (config/env), but every EMITTED S must
-        # come from the pow2 ladder (see the class docstring)
-        self.chain_max = 1
-        while self.chain_max * 2 <= int(chain_max):
-            self.chain_max *= 2
-        self.grow_frac = float(grow_frac)
-        self.shrink_frac = float(shrink_frac)
-        self.min_dispatches = int(min_dispatches)
-        self.adjustments = 0
-        self._last: Optional[Tuple[float, float, float, float]] = None
-
-    def observe(
-        self,
-        dispatches: float,
-        dispatch_wall_ms: float,
-        busy_ms: float,
-        rounds: float,
-    ) -> int:
-        """Feed cumulative counters; returns the (possibly adjusted)
-        chain length.  Call as often as convenient — the tuner
-        rate-limits itself by dispatch count."""
-        if self._last is None:
-            self._last = (dispatches, dispatch_wall_ms, busy_ms, rounds)
-            return self.chain
-        d_disp = dispatches - self._last[0]
-        if d_disp < self.min_dispatches:
-            return self.chain
-        d_wall = dispatch_wall_ms - self._last[1]
-        d_busy = busy_ms - self._last[2]
-        d_rounds = rounds - self._last[3]
-        self._last = (dispatches, dispatch_wall_ms, busy_ms, rounds)
-        if d_rounds <= 0 or d_busy <= 0:
-            return self.chain
-        ratio = (d_wall / d_rounds) / (d_busy / d_rounds)
-        if ratio > self.grow_frac and self.chain < self.chain_max:
-            self.chain = min(self.chain * 2, self.chain_max)
-            self.adjustments += 1
-        elif ratio < self.shrink_frac and self.chain > 1:
-            # halve, not decrement: stay on the pow2 ladder so shrink
-            # never mints a fresh compiled chain program
-            self.chain //= 2
-            self.adjustments += 1
-        return self.chain
-
-
-def plan_ingest_releases(
-    arrival_ms: Sequence[float], batcher: AdaptiveIngestBatcher
-) -> List[Tuple[float, int, int]]:
-    """Replay a sorted arrival-time column through a batcher, returning
-    the release plan ``[(release_ms, start, end)]`` over half-open index
-    groups — the offline coalescing used by ``OrderingPool`` shard
-    rounds (and the unit tests' oracle for the online loops).  A
-    deadline that expires between two arrivals releases at the deadline
-    instant, without the later arrival; the tail releases at its
-    window's deadline."""
-    out: List[Tuple[float, int, int]] = []
-    start = 0
-    for i, t in enumerate(arrival_ms):
-        pending = i - start
-        if pending:
-            opened = batcher._window_start
-            deadline_at = (
-                None if opened is None or batcher.deadline_ms <= 0
-                else opened + batcher.deadline_ms
-            )
-            if deadline_at is not None and t >= deadline_at:
-                batcher.poll(deadline_at, pending)
-                # a deadline release by construction; the poll at the
-                # computed instant can land 1 ulp short of the budget
-                # (opened + d - opened < d in floats), so the cause is
-                # pinned rather than trusted to the comparison
-                batcher._cause = "deadline"
-                batcher.note_release(deadline_at, pending)
-                out.append((deadline_at, start, i))
-                start = i
-        batcher.note_arrivals(t, 1)
-        pending = i + 1 - start
-        release, _wait = batcher.poll(t, pending)
-        if release:
-            batcher.note_release(t, pending)
-            out.append((t, start, i + 1))
-            start = i + 1
-    n = len(arrival_ms)
-    if start < n:
-        opened = batcher._window_start
-        deadline_tail = opened is not None and batcher.deadline_ms > 0
-        t = (
-            opened + batcher.deadline_ms if deadline_tail
-            else arrival_ms[n - 1]
-        )
-        batcher.poll(t, n - start)
-        if deadline_tail:
-            # pinned for the same 1-ulp reason as the in-loop release
-            batcher._cause = "deadline"
-        batcher.note_release(t, n - start)
-        out.append((t, start, n))
-    return out

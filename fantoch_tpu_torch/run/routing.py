@@ -1,6 +1,6 @@
 """Worker-index routing: maps messages/events to worker pool indices.
 
-Reference: fantoch/src/run/prelude.rs:11-35 and fantoch/src/run/pool.rs:106-124.
+Reference: fantoch/src/run/prelude.rs:11-35.
 Messages with the same index always land on the same worker; two reserved
 indices exist for the GC worker / leader (0) and protocol-specific workers
 (e.g. Newt's clock-bump worker at 1).
@@ -12,8 +12,6 @@ from typing import Optional, Tuple
 
 from fantoch_tpu_torch.core.ids import Dot
 
-# worker index used by leader-based protocols
-LEADER_WORKER_INDEX = 0
 # worker index used for garbage collection (same as leader: leader-based
 # protocols run gc in the leader/acceptor worker)
 GC_WORKER_INDEX = 0
@@ -40,16 +38,3 @@ def worker_index_shift(index: int) -> WorkerIndex:
 def worker_dot_index_shift(dot: Dot) -> WorkerIndex:
     """Route by dot sequence (the common case for leaderless protocols)."""
     return worker_index_shift(dot.sequence)
-
-
-def resolve_index(index: WorkerIndex, pool_size: int) -> Optional[int]:
-    """Compute the concrete pool position (None = broadcast).
-
-    Reference: fantoch/src/run/pool.rs:115-124.
-    """
-    if index is None:
-        return None
-    reserved, idx = index
-    if reserved < pool_size:
-        return reserved + (idx % (pool_size - reserved))
-    return idx % pool_size

@@ -1,41 +1,21 @@
-"""Seeded device-fault nemesis: deterministic accelerator failures.
+"""Device faults as a fault plan describes them.
 
-Every replica-level failure mode is already chaos-testable (sim/faults.py
-crashes, partitions, pauses, link faults); this module makes the device
-plane itself failable the same way.  A :class:`DeviceFault` describes one
-accelerator failure against one process's plane — a dispatch that hangs,
-an XLA runtime raise, or a silent bit-flip of a resident column — and a
-:class:`DeviceFaultInjector` fires it deterministically.
+A :class:`DeviceFault` names one accelerator failure against one
+process's plane — a dispatch that hangs, a runtime raise, or a silent
+bit-flip of a resident column — windowed in **dispatch counts**, not
+wall or virtual time: the plane's ``dispatches`` counter advances
+identically on every same-seed run, so a window replays bit-identically.
+``sim/faults.py``'s ``FaultPlan`` carries these faults and round-trips
+them through its dict form.
 
-Determinism is the whole design: faults are windowed in **dispatch
-counts**, not wall or virtual time.  The plane's ``dispatches`` counter
-advances identically on every same-seed run (it is driven purely by the
-deterministic batch schedule), so "hang dispatches 12..15 of p2's pred
-plane" replays bit-identically in the sim, under the fuzzer's shrinker,
-and on a live rig — where a time-based window would race the scheduler.
-
-The injector is *passive*: it never touches device state itself.  The
-plane's guarded dispatch (executor/device_plane.py) asks
-``on_dispatch(plane, n)`` before each fused call and applies the verdict
-— short-circuiting a hung dispatch into its deadline, raising for a
-``raise`` fault, or poisoning its own resident buffer for a ``corrupt``
-fault (one high-bit flip of the first element of state array 0, so the
-flip survives the kernel's monotone max/pass-through writes and the
-shadow-check provably sees it).  ``rebuild_allowed`` vetoes the plane's
-cutback re-upload while the fault window is still open — the device is
-"still broken" — which is what makes time-to-cutback a measurable,
-deterministic quantity.
-
-Live drivers arm the same injector from the environment
-(:func:`install_env_faults`, ``FANTOCH_DEVICE_FAULT=plane:kind:at[:down
-[:pid]]``) so a real rig can rehearse failover without a sim.
+The port has no injector yet: the simulator refuses a plan that carries
+device faults (``sim/runner.py``, ROADMAP A4's injector hook).
 """
 
 from __future__ import annotations
 
-import os
-from dataclasses import asdict, dataclass, replace
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Optional
 
 PLANES = ("table", "pred", "graph")
 KINDS = ("hang", "raise", "corrupt")
@@ -45,15 +25,13 @@ KINDS = ("hang", "raise", "corrupt")
 # keep the larger value instead of washing the flip out
 DEFAULT_CORRUPT_BIT = 20
 
-ENV_DEVICE_FAULT = "FANTOCH_DEVICE_FAULT"
-
 
 @dataclass(frozen=True)
 class DeviceFault:
     """One deterministic accelerator failure.
 
-    ``process_id`` None targets every process's matching plane (the env
-    install on a single-runtime driver); the sim plans always pin one.
+    ``process_id`` None targets every process's matching plane; the sim
+    plans always pin one.
     ``at_dispatch`` is the plane's ``dispatches`` counter value the
     fault first fires at; ``down_dispatches`` is how many subsequent
     dispatches the device stays broken for (hang/raise re-fire inside
@@ -78,126 +56,3 @@ class DeviceFault:
             raise ValueError("at_dispatch must be >= 0")
         if self.down_dispatches < 1:
             raise ValueError("down_dispatches must be >= 1")
-
-    def covers(self, dispatch: int) -> bool:
-        return (
-            self.at_dispatch
-            <= dispatch
-            < self.at_dispatch + self.down_dispatches
-        )
-
-    def to_dict(self) -> Dict:
-        return asdict(self)
-
-    @classmethod
-    def from_dict(cls, data: Dict) -> "DeviceFault":
-        return cls(**data)
-
-
-class DeviceFaultInjector:
-    """The per-process injector a plane consults on every dispatch.
-
-    ``record`` (optional) is called ``record(plane, kind, dispatch,
-    detail)`` the moment a fault fires — the sim runner wires it into
-    the nemesis trace so fault firings are part of the deterministic
-    trace digest, and a live driver can wire it to its logger."""
-
-    def __init__(
-        self,
-        faults: Sequence[DeviceFault],
-        process_id: Optional[int] = None,
-        record: Optional[Callable[[str, str, int, str], None]] = None,
-    ):
-        self.process_id = process_id
-        self.record = record
-        self._faults: List[DeviceFault] = [
-            f
-            for f in faults
-            if f.process_id is None
-            or process_id is None
-            or f.process_id == process_id
-        ]
-        # corrupt faults fire exactly once; keyed by identity in the list
-        self._corrupted: set = set()
-        self.fired: int = 0
-
-    def faults_for(self, plane: str) -> List[DeviceFault]:
-        return [f for f in self._faults if f.plane == plane]
-
-    def on_dispatch(self, plane: str, dispatch: int) -> Optional[DeviceFault]:
-        """The fault this dispatch suffers, or None.  hang/raise fire on
-        every dispatch inside their window; corrupt fires once at its
-        window's first covered dispatch."""
-        for index, fault in enumerate(self._faults):
-            if fault.plane != plane or not fault.covers(dispatch):
-                continue
-            if fault.kind == "corrupt":
-                if index in self._corrupted:
-                    continue
-                self._corrupted.add(index)
-            self.fired += 1
-            if self.record is not None:
-                self.record(
-                    plane,
-                    fault.kind,
-                    dispatch,
-                    f"window [{fault.at_dispatch}, "
-                    f"{fault.at_dispatch + fault.down_dispatches})",
-                )
-            return fault
-        return None
-
-    def rebuild_allowed(self, plane: str, dispatch: int) -> bool:
-        """False while any fault window for this plane is still open:
-        the device is still broken, cutback must wait."""
-        return not any(
-            f.plane == plane and f.covers(dispatch) for f in self._faults
-        )
-
-
-def faults_from_env(env: Optional[str] = None) -> Tuple[DeviceFault, ...]:
-    """Parse ``FANTOCH_DEVICE_FAULT`` — one or more comma-separated
-    ``plane:kind:at[:down[:pid]]`` specs — into :class:`DeviceFault`
-    tuples (empty when unset), so live drivers rehearse the same
-    deterministic failures the sim injects."""
-    raw = os.environ.get(ENV_DEVICE_FAULT) if env is None else env
-    if not raw:
-        return ()
-    faults = []
-    for spec in raw.split(","):
-        parts = spec.strip().split(":")
-        if len(parts) < 3:
-            raise ValueError(
-                f"bad {ENV_DEVICE_FAULT} spec {spec!r}: want "
-                "plane:kind:at[:down[:pid]]"
-            )
-        fault = DeviceFault(
-            plane=parts[0], kind=parts[1], at_dispatch=int(parts[2])
-        )
-        if len(parts) > 3:
-            fault = replace(fault, down_dispatches=int(parts[3]))
-        if len(parts) > 4:
-            fault = replace(fault, process_id=int(parts[4]))
-        faults.append(fault)
-    return tuple(faults)
-
-
-def install_env_faults(
-    planes: Sequence,
-    process_id: Optional[int] = None,
-    record: Optional[Callable[[str, str, int, str], None]] = None,
-) -> Optional[DeviceFaultInjector]:
-    """Attach one env-configured injector to every device plane of a
-    live runtime (run/process_runner.py executor pools,
-    run/device_runner.py drivers).  No-op (returns None) when
-    ``FANTOCH_DEVICE_FAULT`` is unset or no plane exists."""
-    faults = faults_from_env()
-    if not faults:
-        return None
-    planes = [p for p in planes if p is not None]
-    if not planes:
-        return None
-    injector = DeviceFaultInjector(faults, process_id, record=record)
-    for plane in planes:
-        plane.attach_injector(injector)
-    return injector
