@@ -49,7 +49,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (n = 5, f = 2, two keys per command, 50% conflict) through
    ``sim.runner.Runner(device="cuda")`` must equal the same seed's
    ``Runner(device="cpu")`` run in per-key orders and latency histograms;
-   every general kernel must have launched in this phase.
+   every general kernel must have launched in this phase;
+5. the votes-table kernels (``csrc/table_plane.cu``) against their plain
+   versions on the card, exactly, flags and counts included, each timed
+   beside its plain version, its byte bound and the one PyTorch call that
+   computes the same function where there is one: ``vote_runs`` and
+   ``stable_rows`` at ``bench.py``'s table shape (K = 8192 key buckets,
+   n = 3, V = 2^19: a round of 100,000 commands on 4,096 keys voted by
+   three processes, padded), contiguous and with gaps that leave residual
+   runs, and at K = 2^20, n = 5, V = 2^20; ``clock_proposal`` at
+   B = 2^17 over K = 8192 with half the commands on one key;
+   ``clock_bump``; the table round (``fused_table_round``) and an S = 8
+   ``fused_table_rounds`` chain at ``bench.py``'s fused-round shape
+   (B = 2^17, K = 8192, n = 3), the chain also against the plain
+   composition on CPU tensors;
+6. the Newt path on the card: ``BatchedKeyClocks.proposal_batch_arrays``
+   and ``TableExecutor.handle_batch_arrays`` on the votes-table plane, as
+   ``bench.py``'s steady rounds (100,000 single-key commands a round on
+   4,096 keys, n = 3, one warm and three timed rounds) with scalar clock
+   bumps between rounds (their detached votes ride the next round): every
+   command drains once, in the same per-key order as the same rounds on
+   ``cpu``; then Newt through ``Runner(device="cuda")`` equal to
+   ``Runner(device="cpu")`` at n = 5, f = 2; every table kernel launched
+   on this path and the 31-bit-window fallback was taken 0 times.
 
 Each phase reports its wall time.  The last lines are the
 ``{"kernels": [...]}`` record, the card line and
@@ -200,14 +222,17 @@ class Checker:
     @staticmethod
     def variant(name, args, kwargs):
         """The call's use: the sort serves five, told apart by its keys;
-        the affine round's final fold and the peel compaction's init and
-        publish are uses of their wrappers too."""
+        the affine round's final fold, the peel compaction's init and
+        publish and the stable clocks' table round are uses of their
+        wrappers too."""
         if name == "affine_round" and kwargs.get("final"):
             return "affine_round, final fold"
         if name == "graph_prologue" and kwargs.get("general"):
             return "graph_prologue, general fold"
         if name == "peel_compact" and kwargs["mode"] != "compact":
             return f"peel_compact, {kwargs['mode']}"
+        if name == "stable_rows" and len(args) > 2 and args[2] is not None:
+            return "stable_rows, table round"
         if name != "lex_sort":
             return name
         keys = args[0]
@@ -813,6 +838,390 @@ def phase4(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the votes-table plane (phases 5 and 6)
+# ---------------------------------------------------------------------------
+
+CARD = "cuda"
+TABLE_SOURCE = "fantoch_tpu_torch/csrc/table_plane.cu"
+TABLE_REPLACES = {
+    "clock_proposal": "fantoch_tpu/ops/pallas_resolve.py:441",
+    "clock_bump": "fantoch_tpu/ops/pallas_resolve.py:441",
+    "vote_runs": "fantoch_tpu/ops/pallas_resolve.py:394",
+    "stable_rows": "fantoch_tpu/ops/pallas_resolve.py:394",
+}
+TABLE_BATCH = 100_000  # bench.py bench_table_path
+TABLE_KEYS = 4096
+TABLE_N = 3
+TABLE_KCAP = 8192  # next_pow2(4096 + 1): the pad bucket is the last
+TABLE_VCAP = 1 << 19  # next_pow2(100,000 x 3)
+TABLE_BIG = 1 << 20  # the grid-wide shape: K = V = 2^20, n = 5
+FUSED_BATCH = 1 << 17  # bench.py _bench_fused_table_rounds
+FUSED_CHAIN = 8
+
+
+def table_round_votes(gap_rate=0.0, seed=11):
+    """The vote columns of one ``bench_table_path`` round on a fresh table:
+    100,000 single-key commands on 4,096 keys (seed 11), each voted
+    ``[vote_start, clock]`` by the three processes, padded to 2^19 rows
+    with invalid ones; with ``gap_rate`` that share of process 2's ranges
+    is missing, so its later ranges on those keys come back residual."""
+    import torch
+
+    from fantoch_tpu_torch.ops import table_kernels as T
+
+    rng = np.random.default_rng(seed)
+    key_ids = rng.integers(0, TABLE_KEYS, TABLE_BATCH).astype(np.int32)
+    prior = torch.zeros(TABLE_KCAP, dtype=torch.int32)
+    clock, start = T.clock_proposal_plain(
+        prior, torch.tensor(key_ids), torch.zeros(TABLE_BATCH, dtype=torch.int32)
+    )
+    V = TABLE_BATCH * TABLE_N
+    vcap = TABLE_VCAP
+    cols = np.zeros((4, vcap), dtype=np.int32)
+    cols[0, :V] = np.repeat(key_ids, TABLE_N)
+    cols[1, :V] = np.tile(np.arange(TABLE_N), TABLE_BATCH)
+    cols[2, :V] = np.repeat(start.numpy(), TABLE_N)
+    cols[3, :V] = np.repeat(clock.numpy(), TABLE_N)
+    valid = np.zeros(vcap, dtype=bool)
+    valid[:V] = True
+    if gap_rate:
+        drop = (cols[1, :V] == 1) & (rng.random(V) < gap_rate)
+        valid[:V][drop] = False
+    return [torch.tensor(c) for c in cols] + [torch.tensor(valid)]
+
+
+def table_library_call(torch, name, args):
+    """The one PyTorch call that computes the same function as a table
+    wrapper's use, where there is one (a yardstick, used nowhere in the
+    port): ``kthvalue`` for the stable clocks, ``scatter_reduce_`` for the
+    bump; None otherwise."""
+    if name == "stable_rows" and (len(args) < 3 or args[2] is None):
+        frontier, threshold = args[0], args[1]
+        return torch.kthvalue(frontier, frontier.shape[1] - threshold + 1, dim=1).values
+    if name == "clock_bump":
+        prior, idx, clock = args
+        return prior.scatter_reduce_(0, idx.long(), clock, "amax")
+    return None
+
+
+def table_moved_bytes(name, args, out):
+    """Each input read once, each output written once; the state a wrapper
+    updates in place (prior, frontier) counts as an output too."""
+    read = sum(t.numel() * t.element_size() for t in tensors_of(args))
+    written = sum(t.numel() * t.element_size() for t in tensors_of(out))
+    round_mode = name == "stable_rows" and len(args) > 2 and args[2] is not None
+    if name in ("clock_proposal", "clock_bump", "vote_runs") or round_mode:
+        state = args[0]
+        written += state.numel() * state.element_size()
+    return read + written
+
+
+def phase5(torch, T, table_ops):
+    """The table kernels against their plain versions on the card."""
+    from fantoch_tpu_torch.core import Config
+
+    dev = torch.device(CARD)
+    rng = np.random.default_rng(SEED)
+    _fast, _write, threshold = Config(TABLE_N, 1).newt_quorum_sizes()
+
+    def cuda(tensors):
+        return [t.to(dev) for t in tensors]
+
+    commit = cuda(table_round_votes())
+    commit_gaps = cuda(table_round_votes(gap_rate=0.05))
+    zeros3 = torch.zeros((TABLE_KCAP, TABLE_N), dtype=torch.int32, device=dev)
+    big_k, big_n, big_v = TABLE_BIG, 5, TABLE_BIG
+    big_start = rng.integers(1, 64, big_v)
+    big = cuda([
+        torch.tensor(rng.integers(0, 16, (big_k, big_n)).astype(np.int32)),
+        torch.tensor(rng.integers(0, big_k, big_v).astype(np.int32)),
+        torch.tensor(rng.integers(0, big_n, big_v).astype(np.int32)),
+        torch.tensor(big_start.astype(np.int32)),
+        torch.tensor((big_start + rng.integers(0, 8, big_v)).astype(np.int32)),
+        torch.tensor(rng.random(big_v) < 0.9),
+    ])
+    hot = np.where(rng.random(FUSED_BATCH) < CONFLICT, 0,
+                   rng.integers(1, TABLE_KEYS, FUSED_BATCH)).astype(np.int32)
+    prop = cuda([
+        torch.tensor(rng.integers(0, 50, TABLE_KCAP).astype(np.int32)),
+        torch.tensor(hot),
+        torch.tensor(np.where(rng.random(FUSED_BATCH) < 0.1, 60, 0).astype(np.int32)),
+    ])
+    bump_m = 4096
+    bump = cuda([
+        torch.tensor(rng.integers(0, 100, TABLE_KCAP).astype(np.int32)),
+        torch.tensor(rng.integers(0, TABLE_KCAP - 1, bump_m).astype(np.int32)),
+        torch.tensor(rng.integers(0, 200, bump_m).astype(np.int32)),
+    ])
+    fused_rng = np.random.default_rng(19)  # bench.py's fused-round seed
+    keys_np = fused_rng.integers(0, TABLE_KEYS, (FUSED_CHAIN, FUSED_BATCH)).astype(np.int32)
+    round_keys = torch.tensor(keys_np, device=dev)
+    round_mins = torch.zeros((FUSED_CHAIN, FUSED_BATCH), dtype=torch.int32, device=dev)
+    prior0 = torch.zeros(TABLE_KCAP, dtype=torch.int32, device=dev)
+    # the inputs of stable_rows' round mode on the first round
+    r_prior = prior0.clone()
+    r_clock, _ = T.clock_proposal_plain(r_prior, round_keys[0], round_mins[0])
+    round_args = (zeros3, threshold, (round_keys[0], r_clock, prior0, r_prior, TABLE_N))
+
+    # (use, wrapper, args): every call held against the plain version and
+    # timed; the first use of a wrapper is its record's own
+    shape = f"K={TABLE_KCAP} n={TABLE_N}"
+    uses = [
+        (f"vote_runs, contiguous, {shape} V={TABLE_VCAP}", "vote_runs",
+         [zeros3] + commit),
+        (f"vote_runs, with gaps, {shape} V={TABLE_VCAP}", "vote_runs",
+         [zeros3] + commit_gaps),
+        (f"vote_runs, grid-wide, K={big_k} n={big_n} V={big_v}", "vote_runs", big),
+        (f"stable_rows, {shape}", "stable_rows",
+         (torch.randint(0, 1 << 20, (TABLE_KCAP, TABLE_N), dtype=torch.int32,
+                        device=dev), threshold)),
+        (f"stable_rows, grid-wide, K={big_k} n={big_n}", "stable_rows", (big[0], 3)),
+        (f"stable_rows, table round, {shape} B={FUSED_BATCH}", "stable_rows",
+         round_args),
+        (f"clock_proposal, B={FUSED_BATCH} K={TABLE_KCAP}, 50% on one key",
+         "clock_proposal", prop),
+        (f"clock_bump, M={bump_m} K={TABLE_KCAP}", "clock_bump", bump),
+    ]
+    records, err = {}, {name: 0.0 for name in T.LAUNCHES}
+    for use, name, args in uses:
+        kernel, plain = getattr(T, name), getattr(T, f"{name}_plain")
+        args = tuple(args)
+        plain_args, kernel_args = clone_args(args), clone_args(args)
+        want = plain(*plain_args)
+        got = kernel(*kernel_args)
+        e = max(max_abs_err(got, want, use), max_abs_err(kernel_args, plain_args, use))
+        err[name] = max(err[name], e)
+        assert e == 0.0, f"{use}: kernel differs from its plain version"
+        if name == "vote_runs":
+            residual = int(got[4].sum())
+            assert ("gaps" in use) == (residual > 0) or "grid-wide" in use, (use, residual)
+        ms = time_ms(kernel, args, {})
+        plain_ms = time_ms(plain, args, {})
+        library_ms = None
+        if table_library_call(torch, name, args) is not None:
+            library_ms = time_ms(lambda *a: table_library_call(torch, name, a), args, {})
+        nbytes = table_moved_bytes(name, args, got)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"use": use, "shape": describe(args), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "library_ms": library_ms}
+        log(json.dumps({"phase5_kernel": use, "ms": ms, "plain_ms": plain_ms,
+                        "bytes": nbytes, "bound_ms": bound_ms,
+                        "library_ms": library_ms, "shape": describe(args)}))
+        if name not in records:
+            records[name] = {
+                "name": name, "route": "cuda", "source": TABLE_SOURCE,
+                "replaces": TABLE_REPLACES[name], "launches": 0, "max_abs_err": 0.0,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes", "library_ms": library_ms, "shape": row["shape"],
+                "uses": [],
+            }
+        records[name]["uses"].append(row)
+
+    # the composed entry points, every wrapper call checked on the card
+    checker = Checker(T)
+    checker.install()
+    try:
+        out = table_ops.fused_votes_commit(zeros3.clone(), *commit_gaps, threshold=threshold)
+        assert int(out[6].sum()) > 0, "the gapped round left no residual run"
+        prior, frontier = prior0.clone(), zeros3.clone()
+        table_ops.fused_table_round(prior, frontier, round_keys[0], round_mins[0],
+                                    threshold=threshold, voters=TABLE_N)
+        prior, frontier = prior0.clone(), zeros3.clone()
+        t0 = time.perf_counter()
+        chain = table_ops.fused_table_rounds(prior, frontier, round_keys, round_mins,
+                                             threshold=threshold, voters=TABLE_N)
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t0
+    finally:
+        checker.uninstall()
+    want = table_ops.fused_table_rounds(
+        prior0.cpu(), zeros3.cpu(), round_keys.cpu(), round_mins.cpu(),
+        threshold=threshold, voters=TABLE_N)
+    for i, (g, w) in enumerate(zip(chain, want)):
+        assert torch.equal(g.cpu(), w), f"fused_table_rounds output {i} differs from CPU"
+    executable = chain[4]
+    assert int(chain[5].sum()) == 0 and bool(executable.all()), (
+        "the dense chain left gaps or unexecutable commands")
+    for name in T.LAUNCHES:
+        err[name] = max(err[name], checker.err[name])
+        records[name]["max_abs_err"] = err[name]
+    log(f"phase 5: every table kernel call equal to its plain version; the S = "
+        f"{FUSED_CHAIN} fused_table_rounds chain (B = {FUSED_BATCH}) equal to its "
+        f"CPU composition ({chain_s * 1e3:.3f} ms with every call checked); "
+        f"checked calls {checker.count}")
+    return records
+
+
+def newt_steady_rounds(device, rounds=3):
+    """``bench.py``'s ``steady_rounds(plane=True)`` on ``device``: a
+    persistent ``BatchedKeyClocks`` and ``TableExecutor`` on the votes-table
+    plane; each round proposes 100,000 single-key commands on 4,096 keys
+    and commits them voted by all three processes.  Between rounds 64 keys
+    take a scalar clock bump (live Newt's detached bumps), folded into the
+    resident clock table by the next batch; their detached votes ride the
+    next round.  Returns the per-key drain order, the round times (ms) and
+    the counters."""
+    from fantoch_tpu_torch.core import Config, KVOp, Rifl, RunTime
+    from fantoch_tpu_torch.core.command import Command
+    from fantoch_tpu_torch.executor.table import TableExecutor, TableVotesArrays
+    from fantoch_tpu_torch.protocol.common.table_batched import BatchedKeyClocks
+    from fantoch_tpu_torch.protocol.common.table_clocks import Votes
+    import torch
+
+    rng = np.random.default_rng(11)
+    key_ids = rng.integers(0, TABLE_KEYS, TABLE_BATCH)
+    key_strs = [f"t{k}" for k in key_ids.tolist()]
+    mins = [0] * TABLE_BATCH
+    pids = np.arange(1, TABLE_N + 1, dtype=np.int64)
+    config = Config(TABLE_N, 1, newt_detached_send_interval_ms=5,
+                    batched_table_executor=True, device_table_plane=True)
+    executor = TableExecutor(1, 0, config, device=device)
+    clocks = BatchedKeyClocks(1, 0, device=device)
+    ones = np.ones(TABLE_BATCH, dtype=np.int64)
+    seqs = np.arange(1, TABLE_BATCH + 1, dtype=np.int64)
+    ops = [(KVOp.put(""),)] * TABLE_BATCH
+    bump_rng = np.random.default_rng(5)
+    order, times = {}, []
+    det = ([], [], [], [])
+    for r in range(rounds + 1):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck, st = clocks.proposal_batch_arrays(key_strs, mins)
+        batch = TableVotesArrays(
+            keys=key_strs, dot_src=ones, dot_seq=seqs + r * TABLE_BATCH, clock=ck,
+            rifl_src=ones, rifl_seq=seqs + r * TABLE_BATCH, ops=ops,
+            vote_row=np.repeat(np.arange(TABLE_BATCH, dtype=np.int64), TABLE_N),
+            vote_by=np.tile(pids, TABLE_BATCH), vote_start=np.repeat(st, TABLE_N),
+            vote_end=np.repeat(ck, TABLE_N),
+            det_keys=det[0] or None,
+            det_by=np.asarray(det[1], np.int64) if det[0] else None,
+            det_start=np.asarray(det[2], np.int64) if det[0] else None,
+            det_end=np.asarray(det[3], np.int64) if det[0] else None,
+        )
+        executor.handle_batch_arrays(batch, RunTime())
+        if device != "cpu":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        drained = 0
+        while (res := executor.to_clients()) is not None:
+            order.setdefault(res.key, []).append(res.rifl.sequence)
+            drained += 1
+        assert drained == TABLE_BATCH, f"round {r} drained {drained} of {TABLE_BATCH}"
+        # scalar bumps before the next batch
+        top = np.zeros(TABLE_KEYS, dtype=np.int64)
+        np.maximum.at(top, key_ids, ck)
+        votes = Votes()
+        for i, k in enumerate(bump_rng.choice(TABLE_KEYS, 64, replace=False).tolist()):
+            cmd = Command.from_single(Rifl(2, r * 64 + i + 1), 0, f"t{k}", KVOp.put(""))
+            clocks.detached(cmd, int(top[k]) + 3, votes)
+        det = ([], [], [], [])
+        for key, ranges in votes:
+            for vote in ranges:
+                for p in pids.tolist():
+                    det[0].append(key)
+                    det[1].append(p)
+                    det[2].append(vote.start)
+                    det[3].append(vote.end)
+    counters = {**executor.device_counters(), **clocks.device_counters()}
+    return order, times[1:], counters
+
+
+def newt_sim(device, n=5, f=2):
+    """Newt through the simulator at ``tests/harness.py``'s shape (two keys
+    per command, 50% conflict, message reordering, seed 0) on the
+    votes-table plane; returns per-key orders, latency histograms, digests
+    and the runner."""
+    from fantoch_tpu_torch.client import ConflictRateKeyGen, Workload
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch import protocol
+    from fantoch_tpu_torch.sim import Runner
+
+    config = Config(
+        n, f, newt_detached_send_interval_ms=100, batched_table_executor=True,
+        device_table_plane=True, execution_digests=True,
+        executor_monitor_execution_order=True, gc_interval_ms=100,
+        executor_executed_notification_interval_ms=100,
+    )
+    planet = Planet.new("gcp")
+    workload = Workload(
+        shard_count=1, key_gen=ConflictRateKeyGen(50), keys_per_command=2,
+        commands_per_client=10, payload_size=1,
+    )
+    regions = sorted(planet.regions())[:n]
+    runner = Runner(
+        protocol.Newt, planet, config, workload, 3,
+        process_regions=list(regions), client_regions=list(regions), seed=0,
+        device=device,
+    )
+    runner.reorder_messages()
+    _metrics, monitors, latencies = runner.run(extra_sim_time_ms=10_000)
+    orders = {
+        pid: {k: [(r.source, r.sequence) for r in m.get_order(k)] for k in sorted(m.keys())}
+        for pid, m in monitors.items()
+    }
+    hists = {str(r): (c, list(h.values())) for r, (c, h) in latencies.items()}
+    digests = {pid: e.digest().summary() for pid, (_p, e, _q) in runner._simulation.processes()}
+    return orders, hists, digests, runner
+
+
+def phase6(torch, T, K):
+    """The Newt path on the card; returns the table kernels' launches."""
+    T.reset_launch_counts()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    order, times, counters = newt_steady_rounds(CARD)
+    steady_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim_got = newt_sim(CARD)
+    sim_cuda_s = time.perf_counter() - t0
+    launches = dict(T.LAUNCHES)
+    sort_launches = K.LAUNCHES["lex_sort"]
+    t0 = time.perf_counter()
+    cpu_order, cpu_times, _ = newt_steady_rounds("cpu")
+    steady_cpu_s = time.perf_counter() - t0
+    rounds = len(times) + 1
+    seqs = sorted(q for qs in order.values() for q in qs)
+    assert seqs == list(range(1, rounds * TABLE_BATCH + 1)), "not every command once"
+    assert order == cpu_order, "per-key drain order differs from the cpu run"
+    assert counters["clock_window_fallbacks"] == 0, counters
+    assert counters["clock_table_resident_uploads"] == 1, counters
+    assert counters["table_plane_resident_uploads"] == 1, counters
+    t0 = time.perf_counter()
+    sim_want = newt_sim("cpu")
+    sim_cpu_s = time.perf_counter() - t0
+    assert sim_got[0] == sim_want[0], "Newt: per-key orders differ from the cpu run"
+    assert sim_got[1] == sim_want[1], "Newt: latency histograms differ from the cpu run"
+    assert sim_got[2] == sim_want[2], "Newt: execution digests differ from the cpu run"
+    sim_counters = [e.device_counters() for _p, (_x, e, _q)
+                    in sim_got[3]._simulation.processes()]
+    assert all(c["table_plane_dispatches"] > 0 for c in sim_counters)
+    not_run = [name for name, count in launches.items() if count == 0]
+    assert not not_run, f"table kernels of the Newt path never launched: {not_run}"
+    assert sort_launches > 0
+    p50 = float(np.median(times))
+    log(f"phase 6: {rounds} steady rounds of {TABLE_BATCH} commands on cuda, every "
+        f"command drained once in the cpu run's per-key order: median timed round "
+        f"{p50:.3f} ms ({TABLE_BATCH / p50 * 1e3:.1f} commands/s; cpu "
+        f"{float(np.median(cpu_times)):.3f} ms); counters {counters}")
+    log(f"phase 6: Newt through Runner(device='cuda') equal to Runner(device='cpu') "
+        f"in per-key orders, latency histograms and digests; sim wall cuda "
+        f"{sim_cuda_s:.3f} s, cpu {sim_cpu_s:.3f} s; launches {launches}, "
+        f"lex_sort {sort_launches}")
+    log(json.dumps({"newt_path": {
+        "commands_per_round": TABLE_BATCH, "timed_rounds": len(times),
+        "round_ms": times, "median_round_ms": p50,
+        "commands_per_s": TABLE_BATCH / p50 * 1e3, "cpu_round_ms": cpu_times,
+        "steady_wall_s": steady_s, "steady_cpu_wall_s": steady_cpu_s,
+        "counters": counters, "sim_cuda_wall_s": sim_cuda_s,
+        "sim_cpu_wall_s": sim_cpu_s,
+        "sim_table_dispatches": sum(c["table_plane_dispatches"] for c in sim_counters),
+        "launches": launches, "lex_sort_launches": sort_launches,
+    }}))
+    return launches
+
+
 def main():
     import torch
 
@@ -836,6 +1245,8 @@ def main():
     from fantoch_tpu_torch.executor.graph.executor import GraphAddBatch, GraphExecutor
     from fantoch_tpu_torch.ops import _build
     from fantoch_tpu_torch.ops import graph_plane_kernels as K
+    from fantoch_tpu_torch.ops import table_kernels as T
+    from fantoch_tpu_torch.ops import table_ops
     from fantoch_tpu_torch.ops.frontier import DeviceFrontier
 
     t0 = time.perf_counter()
@@ -878,6 +1289,11 @@ def main():
         path = general if name in K.GENERAL_KERNELS else keyed
         record["launches"] = path[name]
         record["launches_by_path"] = {"keyed": keyed[name], "general": general[name]}
+    table_records = timed("phase 5", phase5, torch, T, table_ops)
+    table_launches = timed("phase 6", phase6, torch, T, K)
+    for name, record in table_records.items():
+        record["launches"] = table_launches[name]
+    records.update(table_records)
     log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": list(records.values())}))
     log(card)

@@ -1,10 +1,10 @@
-"""System configuration and the EPaxos/Atlas quorum-size formulas.
+"""System configuration and the EPaxos/Atlas/Newt quorum-size formulas.
 
 The port of fantoch_tpu/core/config.py, cut to the fields the ported
-modules read (the graph executor, EPaxos/Atlas, the clients and the
-simulator); each keeps its name, default and check so a reader finds its
-counterpart.  The other knobs (Newt, Caesar, FPaxos, serving, WAL and
-overload) come with the slices that read them.
+modules read (the graph and table executors, EPaxos/Atlas/Newt, the
+clients and the simulator); each keeps its name, default and check so a
+reader finds its counterpart.  The other knobs (Caesar, FPaxos, serving,
+WAL and overload) come with the slices that read them.
 """
 
 from __future__ import annotations
@@ -46,6 +46,23 @@ class Config:
     # order committed commands with the batched resolver
     # (executor/graph/batched.py) instead of the host Tarjan walk
     batched_graph_executor: bool = False
+    # batch the Newt/Tempo table path: array-backed key clocks with
+    # batched proposals (protocol/common/table_batched.py) and one
+    # vectorized stability pass per executor batch (executor/table.py)
+    batched_table_executor: bool = False
+    # device-resident votes-table plane: the TableExecutor keeps the
+    # (key_bucket x process) vote-frontier matrix on the card across
+    # batches and runs vote coalescing + frontier update + stability as
+    # one commit dispatch per batch (executor/table_plane.py over
+    # ops/table_ops.fused_votes_commit).  Requires clocks below 2^31 (no
+    # real-time-micros clock bumps)
+    device_table_plane: bool = False
+    # frontier-matrix element count (keys x n) at which the TableExecutor
+    # host path routes stability to the kernel instead of the numpy
+    # partition.  None = the built-in default (1 << 20), overridable via
+    # the FANTOCH_TABLE_KERNEL_THRESHOLD env var; an explicit value here
+    # beats both
+    table_kernel_threshold: Optional[int] = None
     # device-resident graph plane for EPaxos/Atlas: the batched graph
     # executor keeps its dependency backlog (src/seq/key columns plus the
     # dep-slot matrix) on the card across feeds
@@ -83,6 +100,13 @@ class Config:
     # garbage-collection interval; None disables GC (the simulator
     # requires it)
     gc_interval_ms: Optional[int] = None
+    # Newt (Tempo) knobs
+    newt_tiny_quorums: bool = False
+    newt_clock_bump_interval_ms: Optional[int] = None
+    newt_detached_send_interval_ms: Optional[int] = None
+    # skip sending MCollectAck to the coordinator when the process is in the
+    # fast quorum and the coordinator will ack anyway
+    skip_fast_ack: bool = False
     # adaptive ingest batching (run/ingest.py): the deadline budget (ms)
     # a queued submission may wait for its round to fill.  None = the
     # FANTOCH_INGEST_DEADLINE_MS env var, else no batching; 0 releases
@@ -147,6 +171,14 @@ class Config:
                 f"plane_shadow_rate = {self.plane_shadow_rate} must be "
                 "in [0, 1]"
             )
+        if self.device_table_plane and self.newt_clock_bump_interval_ms is not None:
+            # real-time clock bumps vote wall-clock micros, which overflow
+            # the plane's 31-bit device-clock window (ops/table_ops.py)
+            raise ValueError(
+                "device_table_plane is incompatible with "
+                "newt_clock_bump_interval_ms (real-time micros clocks "
+                "exceed the 31-bit device window)"
+            )
 
     # --- quorum sizes (protocol facts; fantoch/src/config.rs:252-317) ---
 
@@ -162,6 +194,21 @@ class Config:
         """
         f = self.n // 2
         return (f + (f + 1) // 2, f + 1)
+
+    def newt_quorum_sizes(self) -> Tuple[int, int, int]:
+        """(fast_quorum_size, write_quorum_size, stability_threshold).
+
+        Stability threshold is ``n - fast_quorum_size + f``: it plus the
+        minimum number of processes where clocks are computed
+        (fast_quorum_size - f + 1) must exceed n.  With tiny quorums the fast
+        quorum is 2f (clocks from f+1 processes), giving threshold n - f.
+        """
+        minority = self.n // 2
+        if self.newt_tiny_quorums:
+            fast, threshold = 2 * self.f, self.n - self.f
+        else:
+            fast, threshold = minority + self.f, minority + 1
+        return (fast, self.f + 1, threshold)
 
     def with_(self, **kwargs) -> "Config":
         """Functional update helper."""

@@ -7,9 +7,10 @@ in order, each block's threads real OS threads meeting at a barrier for
 ``__syncthreads``; atomics are ``std::atomic_ref``; warp collectives are
 emulated with block barriers) and compiled with ``g++`` into
 ``fantoch_tpu_torch/build/emu/``.  Inside ``with emulated():`` every kernel
-wrapper of ``ops/graph_plane_kernels.py`` takes its CUDA route on CPU
-tensors and launches the emulated kernels, so a wrapper can be held
-against its plain version — ``chip_smoke.Checker`` does it per call:
+wrapper of ``ops/graph_plane_kernels.py`` and ``ops/table_kernels.py``
+takes its CUDA route on CPU tensors and launches the emulated kernels, so
+a wrapper can be held against its plain version — ``chip_smoke.Checker``
+does it per call:
 
     from fantoch_tpu_torch.csrc.emu.emulate import emulated
     with emulated():
@@ -72,7 +73,10 @@ def emulated():
     from fantoch_tpu_torch.ops import _build
     from fantoch_tpu_torch.ops import graph_plane_kernels as K
 
-    libs = {name: build(name) for name in ("graph_plane_step", "graph_general")}
+    libs = {
+        name: build(name)
+        for name in ("graph_plane_step", "graph_general", "table_plane")
+    }
     saved = (K._on_card, K._stream, _build.load)
     K._on_card = lambda tensor: True
     K._stream = lambda device: 0

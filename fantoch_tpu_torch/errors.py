@@ -142,4 +142,5 @@ class ClockOverflowError(ValueError):
     """A clock or vote endpoint exceeds the plane's 31-bit device window.
 
     (The JAX package defines it in ``executor/table_plane.py``; the port
-    keeps it here until the table plane is ported.)"""
+    keeps it here, shared by the graph and table planes, and
+    ``executor/table_plane.py`` re-exports it.)"""

@@ -81,6 +81,12 @@ class Executor(ABC, Generic[Info]):
         device plane."""
         return None
 
+    def device_planes(self) -> tuple:
+        """The device-resident planes this executor drives (empty when
+        none) — the seam the simulator uses to seed each plane's fault
+        detector from the sim seed."""
+        return ()
+
     def snapshot(self) -> bytes:
         """Durable image of the executor state (ordering structures,
         KVStore, emit frontier).  Device-resident planes pickle their

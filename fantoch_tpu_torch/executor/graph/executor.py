@@ -204,6 +204,10 @@ class GraphExecutor(Executor):
             },
         }
 
+    def device_planes(self):
+        plane = getattr(self.graph, "_plane", None)
+        return (plane,) if plane is not None else ()
+
     def to_clients(self) -> Optional[ExecutorResult]:
         return self._to_clients.popleft() if self._to_clients else None
 

@@ -100,6 +100,12 @@ _SIGNATURES = {
     "gg_affine_round": ("graph_general", "p" * 15 + "iii"),
     "gg_peel_round": ("graph_general", "p" * 11 + "ii"),
     "gg_peel_compact": ("graph_general", "p" * 19 + "iiiii"),
+    # the votes-table plane's launchers (wrappers in ops/table_kernels.py)
+    "tp_clock_proposal": ("table_plane", "p" * 7 + "i"),
+    "tp_clock_bump": ("table_plane", "ppp" + "i"),
+    "tp_votes_gid": ("table_plane", "pppp" + "iii"),
+    "tp_vote_runs": ("table_plane", "p" * 14 + "ii"),
+    "tp_stable_rows": ("table_plane", "p" * 9 + "i" * 6),
 }
 _lib_handles: Dict[str, ctypes.CDLL] = {}
 

@@ -10,11 +10,12 @@ from fantoch_tpu_torch.protocol.base import (
 from fantoch_tpu_torch.protocol.gc import GCTrack
 from fantoch_tpu_torch.protocol.info import CommandsInfo
 
-# the ported protocols (Basic, Newt, FPaxos and Caesar come with later
-# slices: ROADMAP.md Queue A)
+# the ported protocols (Basic, FPaxos and Caesar come with later slices:
+# ROADMAP.md Queue A)
 _LAZY = {
     "EPaxos": "fantoch_tpu_torch.protocol.graph_protocol",
     "Atlas": "fantoch_tpu_torch.protocol.graph_protocol",
+    "Newt": "fantoch_tpu_torch.protocol.newt",
 }
 
 

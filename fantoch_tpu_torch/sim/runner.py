@@ -172,7 +172,7 @@ class Runner:
         # drive submissions (closed loop submits on completion otherwise)
         self._open_loop_rate = open_loop_rate_per_s
         self._protocol_cls = protocol_cls
-        # the card every executor's graph plane lives on
+        # the card every executor's device plane (graph or table) lives on
         self._device = device
         self._planet = planet
         self._config = config
@@ -339,11 +339,16 @@ class Runner:
                     )
 
     def _arm_device_faults(self, executor, process_id: ProcessId) -> None:
-        """The FaultPlan's device faults (sim/device_faults.py) would be
-        injected into this executor's device planes here.  The port's
-        plane has no injector hook yet, so a plan that carries device
-        faults raises; every other run leaves the planes untouched (their
-        fault detector is armed from the Config when they are built)."""
+        """Seed the fault detector of this executor's device planes from
+        the sim seed (no-op when it drives none), so same-seed runs shadow
+        -check the same dispatches as the reference's.  The FaultPlan's
+        device faults (sim/device_faults.py) would be injected here too;
+        the port's planes have no injector hook yet, so a plan that
+        carries device faults raises."""
+        for plane in executor.device_planes():
+            plane.configure_faults(
+                self._config, seed=self._seed, process_id=process_id
+            )
         if self._nemesis is not None and self._nemesis.plan.device_faults:
             raise NotImplementedError(
                 "device-fault injection (sim/device_faults.py into the "
@@ -987,7 +992,7 @@ class Runner:
         completion, virtual ms — the goodput denominator, same
         reconstruction as run/harness.run_overload_phase), the pooled
         sorted µs latency list, and the device fault counters folded
-        across every process's graph plane (failures detected)."""
+        across every process's device planes (failures detected)."""
         completed = 0
         latencies: List[int] = []
         first_start: Optional[float] = None
@@ -1006,8 +1011,8 @@ class Runner:
         latencies.sort()
         device: Dict[str, float] = {"failures": 0}
         for _pid, (_process, executor, _pending) in self._simulation.processes():
-            counters = executor.device_counters() or {}
-            device["failures"] += counters.get("graph_plane_failures", 0)
+            for plane in executor.device_planes():
+                device["failures"] += plane.fault_counters()["failures"]
         span_ms = (last_end - first_start) if first_start is not None else 0.0
         return {
             "completed": completed,
