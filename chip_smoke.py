@@ -905,16 +905,56 @@ def table_library_call(torch, name, args):
     return None
 
 
-def table_moved_bytes(name, args, out):
-    """Each input read once, each output written once; the state a wrapper
-    updates in place (prior, frontier) counts as an output too."""
-    read = sum(t.numel() * t.element_size() for t in tensors_of(args))
-    written = sum(t.numel() * t.element_size() for t in tensors_of(out))
-    round_mode = name == "stable_rows" and len(args) > 2 and args[2] is not None
-    if name in ("clock_proposal", "clock_bump", "vote_runs") or round_mode:
-        state = args[0]
-        written += state.numel() * state.element_size()
-    return read + written
+def table_moved_bytes(torch, name, args, out):
+    """The bytes a table wrapper's function must move: each input read once
+    and each output written once, where of the resident state (prior,
+    frontier) only the cells this call's data touches count, read and
+    written: the distinct keys of a proposal or a bump, the distinct run
+    cells of a commit (the slots that are no run share ``frontier[0, 0]``),
+    and in the table-round mode the touched keys' prior cells and voter
+    lanes."""
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    if name == "clock_proposal":
+        prior, key, min_clock = args
+        cells = torch.unique(key).numel()
+        return nbytes(key, min_clock, *out) + 2 * cells * prior.element_size()
+    if name == "clock_bump":
+        prior, idx, clock = args
+        cells = torch.unique(idx).numel()
+        return nbytes(idx, clock) + 2 * cells * prior.element_size()
+    if name == "vote_runs":
+        frontier, columns = args[0], args[1:]
+        run_key, run_by = out[0], out[1]
+        cells = torch.unique(run_key.long() * frontier.shape[1] + run_by.long()).numel()
+        return nbytes(*columns, *out) + 2 * cells * frontier.element_size()
+    frontier = args[0]
+    if len(args) < 3 or args[2] is None:
+        return nbytes(frontier, out)
+    key, clock, prior_old, _new_prior, voters = args[2]
+    touched = torch.unique(key).numel()
+    return (nbytes(frontier, key, clock, *out)
+            + 2 * touched * prior_old.element_size()
+            + touched * voters * frontier.element_size())
+
+
+def fused_chain_inputs(torch, dev):
+    """The keys and minimum clocks of ``bench.py``'s fused table rounds:
+    S = 8 rounds of B = 2^17 commands on 4,096 keys (seed 19)."""
+    rng = np.random.default_rng(19)
+    keys = rng.integers(0, TABLE_KEYS, (FUSED_CHAIN, FUSED_BATCH)).astype(np.int32)
+    mins = torch.zeros((FUSED_CHAIN, FUSED_BATCH), dtype=torch.int32, device=dev)
+    return torch.tensor(keys, device=dev), mins
+
+
+def fused_chain(torch, table_ops, keys, mins, threshold):
+    """``fused_table_rounds`` over ``keys``/``mins`` from a fresh table on
+    their device."""
+    prior = torch.zeros(TABLE_KCAP, dtype=torch.int32, device=keys.device)
+    frontier = torch.zeros((TABLE_KCAP, TABLE_N), dtype=torch.int32, device=keys.device)
+    return table_ops.fused_table_rounds(prior, frontier, keys, mins,
+                                        threshold=threshold, voters=TABLE_N)
 
 
 def phase5(torch, T, table_ops):
@@ -954,10 +994,7 @@ def phase5(torch, T, table_ops):
         torch.tensor(rng.integers(0, TABLE_KCAP - 1, bump_m).astype(np.int32)),
         torch.tensor(rng.integers(0, 200, bump_m).astype(np.int32)),
     ])
-    fused_rng = np.random.default_rng(19)  # bench.py's fused-round seed
-    keys_np = fused_rng.integers(0, TABLE_KEYS, (FUSED_CHAIN, FUSED_BATCH)).astype(np.int32)
-    round_keys = torch.tensor(keys_np, device=dev)
-    round_mins = torch.zeros((FUSED_CHAIN, FUSED_BATCH), dtype=torch.int32, device=dev)
+    round_keys, round_mins = fused_chain_inputs(torch, dev)
     prior0 = torch.zeros(TABLE_KCAP, dtype=torch.int32, device=dev)
     # the inputs of stable_rows' round mode on the first round
     r_prior = prior0.clone()
@@ -1001,7 +1038,7 @@ def phase5(torch, T, table_ops):
         library_ms = None
         if table_library_call(torch, name, args) is not None:
             library_ms = time_ms(lambda *a: table_library_call(torch, name, a), args, {})
-        nbytes = table_moved_bytes(name, args, got)
+        nbytes = table_moved_bytes(torch, name, args, got)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         row = {"use": use, "shape": describe(args), "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "library_ms": library_ms}
@@ -1027,17 +1064,13 @@ def phase5(torch, T, table_ops):
         prior, frontier = prior0.clone(), zeros3.clone()
         table_ops.fused_table_round(prior, frontier, round_keys[0], round_mins[0],
                                     threshold=threshold, voters=TABLE_N)
-        prior, frontier = prior0.clone(), zeros3.clone()
         t0 = time.perf_counter()
-        chain = table_ops.fused_table_rounds(prior, frontier, round_keys, round_mins,
-                                             threshold=threshold, voters=TABLE_N)
+        chain = fused_chain(torch, table_ops, round_keys, round_mins, threshold)
         torch.cuda.synchronize()
         chain_s = time.perf_counter() - t0
     finally:
         checker.uninstall()
-    want = table_ops.fused_table_rounds(
-        prior0.cpu(), zeros3.cpu(), round_keys.cpu(), round_mins.cpu(),
-        threshold=threshold, voters=TABLE_N)
+    want = fused_chain(torch, table_ops, round_keys.cpu(), round_mins.cpu(), threshold)
     for i, (g, w) in enumerate(zip(chain, want)):
         assert torch.equal(g.cpu(), w), f"fused_table_rounds output {i} differs from CPU"
     executable = chain[4]
@@ -1166,18 +1199,46 @@ def newt_sim(device, n=5, f=2):
     return orders, hists, digests, runner
 
 
-def phase6(torch, T, K):
-    """The Newt path on the card; returns the table kernels' launches."""
-    T.reset_launch_counts()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    order, times, counters = newt_steady_rounds(CARD)
-    steady_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sim_got = newt_sim(CARD)
-    sim_cuda_s = time.perf_counter() - t0
-    launches = dict(T.LAUNCHES)
-    sort_launches = K.LAUNCHES["lex_sort"]
+# the paths of phase 6, each driven with the counts set to 0 just before
+# it and read just after it; the kernels each path must launch; and the
+# path whose count is a kernel's ``launches`` (the Newt simulator for the
+# commit kernels, the steady rounds for the batched proposal's, which the
+# simulator's scalar proposals never reach)
+TABLE_PATHS = {
+    "steady": ("clock_proposal", "clock_bump", "vote_runs", "stable_rows"),
+    "sim": ("vote_runs", "stable_rows"),
+    "fused_rounds": ("clock_proposal", "stable_rows"),
+}
+TABLE_MAIN_PATH = {"clock_proposal": "steady", "clock_bump": "steady",
+                   "vote_runs": "sim", "stable_rows": "sim"}
+
+
+def phase6(torch, T, K, table_ops):
+    """The Newt paths on the card; returns each table kernel's launches by
+    path."""
+    by_path = {}
+
+    def counted(path, fn, *args):
+        T.reset_launch_counts()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_path[path] = {**T.LAUNCHES, "lex_sort": K.LAUNCHES["lex_sort"]}
+        missing = [name for name in TABLE_PATHS[path] + ("lex_sort",)
+                   if by_path[path][name] == 0]
+        assert not missing, f"kernels of the {path} path never launched: {missing}"
+        return out, wall
+
+    (order, times, counters), steady_s = counted("steady", newt_steady_rounds, CARD)
+    sim_got, sim_cuda_s = counted("sim", newt_sim, CARD)
+    from fantoch_tpu_torch.core import Config
+
+    _fast, _write, threshold = Config(TABLE_N, 1).newt_quorum_sizes()
+    keys, mins = fused_chain_inputs(torch, torch.device(CARD))
+    chain, chain_s = counted("fused_rounds", fused_chain, torch, table_ops, keys, mins,
+                             threshold)
     t0 = time.perf_counter()
     cpu_order, cpu_times, _ = newt_steady_rounds("cpu")
     steady_cpu_s = time.perf_counter() - t0
@@ -1197,9 +1258,9 @@ def phase6(torch, T, K):
     sim_counters = [e.device_counters() for _p, (_x, e, _q)
                     in sim_got[3]._simulation.processes()]
     assert all(c["table_plane_dispatches"] > 0 for c in sim_counters)
-    not_run = [name for name, count in launches.items() if count == 0]
-    assert not not_run, f"table kernels of the Newt path never launched: {not_run}"
-    assert sort_launches > 0
+    want = fused_chain(torch, table_ops, keys.cpu(), mins.cpu(), threshold)
+    for i, (g, w) in enumerate(zip(chain, want)):
+        assert torch.equal(g.cpu(), w), f"fused_table_rounds output {i} differs from CPU"
     p50 = float(np.median(times))
     log(f"phase 6: {rounds} steady rounds of {TABLE_BATCH} commands on cuda, every "
         f"command drained once in the cpu run's per-key order: median timed round "
@@ -1207,8 +1268,9 @@ def phase6(torch, T, K):
         f"{float(np.median(cpu_times)):.3f} ms); counters {counters}")
     log(f"phase 6: Newt through Runner(device='cuda') equal to Runner(device='cpu') "
         f"in per-key orders, latency histograms and digests; sim wall cuda "
-        f"{sim_cuda_s:.3f} s, cpu {sim_cpu_s:.3f} s; launches {launches}, "
-        f"lex_sort {sort_launches}")
+        f"{sim_cuda_s:.3f} s, cpu {sim_cpu_s:.3f} s; the S = {FUSED_CHAIN} "
+        f"fused_table_rounds chain unchecked on cuda equal to cpu in "
+        f"{chain_s * 1e3:.3f} ms; launches by path {by_path}")
     log(json.dumps({"newt_path": {
         "commands_per_round": TABLE_BATCH, "timed_rounds": len(times),
         "round_ms": times, "median_round_ms": p50,
@@ -1217,9 +1279,9 @@ def phase6(torch, T, K):
         "counters": counters, "sim_cuda_wall_s": sim_cuda_s,
         "sim_cpu_wall_s": sim_cpu_s,
         "sim_table_dispatches": sum(c["table_plane_dispatches"] for c in sim_counters),
-        "launches": launches, "lex_sort_launches": sort_launches,
+        "fused_rounds_ms": chain_s * 1e3, "launches_by_path": by_path,
     }}))
-    return launches
+    return by_path
 
 
 def main():
@@ -1290,9 +1352,11 @@ def main():
         record["launches"] = path[name]
         record["launches_by_path"] = {"keyed": keyed[name], "general": general[name]}
     table_records = timed("phase 5", phase5, torch, T, table_ops)
-    table_launches = timed("phase 6", phase6, torch, T, K)
+    table_paths = timed("phase 6", phase6, torch, T, K, table_ops)
     for name, record in table_records.items():
-        record["launches"] = table_launches[name]
+        record["launches"] = table_paths[TABLE_MAIN_PATH[name]][name]
+        record["launches_path"] = TABLE_MAIN_PATH[name]
+        record["launches_by_path"] = {path: table_paths[path][name] for path in TABLE_PATHS}
     records.update(table_records)
     log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": list(records.values())}))

@@ -375,12 +375,6 @@ class TableExecutor(Executor):
             # arm the fault detector (deadline + shadow-check) from config;
             # the simulator re-seeds it on top (Executor.device_planes)
             self._plane.configure_faults(config, process_id=process_id)
-        # opt-in array drain (the record_order_arrays move from the graph
-        # executor): stable rows emit as (rifl_src, rifl_seq) columns and
-        # skip KVStore execution + ExecutorResult materialization — for
-        # array-native consumers and ordering benches.  Off by default.
-        self.record_order_arrays = False
-        self._order_arrays: List[Tuple["np.ndarray", "np.ndarray"]] = []
 
     def _as_arrays_batches(self, infos):
         """Normalize a mixed info stream into TableVotesArrays batches,
@@ -604,16 +598,9 @@ class TableExecutor(Executor):
                     np.searchsorted(batch.clock[rows], stable_k, side="right")
                 )
                 if cut:
-                    if self.record_order_arrays:
-                        sel = rows[:cut]
-                        self._order_arrays.append(
-                            (batch.rifl_src[sel], batch.rifl_seq[sel])
-                        )
-                    else:
-                        self._emit_stable_rows(
-                            key, rows[:cut].tolist(), ops_all,
-                            src_list, seq_list,
-                        )
+                    self._emit_stable_rows(
+                        key, rows[:cut].tolist(), ops_all, src_list, seq_list,
+                    )
                 tail = rows[cut:]
                 if len(tail):
                     if table is None:  # plane path materializes lazily
@@ -713,12 +700,12 @@ class TableExecutor(Executor):
         )
         return stable_all[buckets]
 
-    def _stable_clocks(self, frontiers, force_kernel: bool = False) -> "np.ndarray":
+    def _stable_clocks(self, frontiers) -> "np.ndarray":
         import numpy as np
 
         k, n = frontiers.shape
         col = n - self._stability_threshold
-        if force_kernel or k * n >= self._kernel_threshold:
+        if k * n >= self._kernel_threshold:
             base = int(frontiers.min())
             rebased = frontiers - base  # order statistic is shift-invariant
             if int(rebased.max()) < (1 << 31):
@@ -821,14 +808,6 @@ class TableExecutor(Executor):
         )
 
     def _execute(self, key: Key, to_execute: List[Tuple[Rifl, Tuple[KVOp, ...]]]) -> None:
-        if self.record_order_arrays:
-            import numpy as np
-
-            m = len(to_execute)
-            src = np.fromiter((r.source for r, _ in to_execute), np.int64, m)
-            seq = np.fromiter((r.sequence for r, _ in to_execute), np.int64, m)
-            self._order_arrays.append((src, seq))
-            return
         tracer = self.tracer
         if tracer.enabled:
             # "ready" = the timestamp became stable this batch
@@ -876,24 +855,6 @@ class TableExecutor(Executor):
 
     def device_planes(self):
         return (self._plane,) if self._plane is not None else ()
-
-    def take_order_arrays(self) -> Tuple["np.ndarray", "np.ndarray"]:
-        """Concatenated (rifl_src, rifl_seq) execution-order columns since
-        the last take; requires ``record_order_arrays`` (same contract as
-        BatchedDependencyGraph.take_order_arrays — ordering only, no
-        KVStore side effects)."""
-        assert self.record_order_arrays
-        import numpy as np
-
-        if not self._order_arrays:
-            return np.empty(0, np.int64), np.empty(0, np.int64)
-        chunks, self._order_arrays = self._order_arrays, []
-        if len(chunks) == 1:
-            return chunks[0]
-        return (
-            np.concatenate([c[0] for c in chunks]),
-            np.concatenate([c[1] for c in chunks]),
-        )
 
     def to_clients(self) -> Optional[ExecutorResult]:
         return self._to_clients.popleft() if self._to_clients else None

@@ -113,17 +113,10 @@ def shift_table(table: torch.Tensor, shift) -> torch.Tensor:
     return torch.clamp_min(table - int(shift), 0).to(torch.int32)
 
 
-def segmented_running_max(seg_id: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """Running max of ``values`` within segments of equal ``seg_id``
-    (segments contiguous), 1-D, on CPU tensors.  On the card the scan runs
-    inside the ``clock_proposal`` and ``vote_runs`` kernels and has no
-    entry point of its own, so CUDA tensors are refused."""
-    if values.is_cuda:
-        raise ValueError(
-            "segmented_running_max runs on the CPU; on the card the scan runs "
-            "inside clock_proposal and vote_runs"
-        )
-    return T.seg_running_max_plain(seg_id, values)
+# Running max of values within segments of equal seg_id (segments
+# contiguous), 1-D: plain PyTorch on any device, as the reference's is plain
+# XLA.  The kernels scan inside clock_proposal and vote_runs.
+segmented_running_max = T.seg_running_max_plain
 
 
 def _proposal_core(prior, key, min_clock):

@@ -200,6 +200,11 @@ class Protocol(ABC):
         start per-dot recovery consensus for them — including dots whose
         payload never reached any live process (recovered as noops)."""
 
+    def set_device(self, device) -> None:
+        """Runner hook: the card the protocol's own device state lives on
+        (the runner's ``device``).  Protocols without such state ignore
+        it."""
+
     def set_tracer(self, tracer) -> None:
         """Runner hook: install the lifecycle tracer
         (fantoch_tpu/observability).  Default wires it into the shared

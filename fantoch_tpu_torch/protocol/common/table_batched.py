@@ -24,7 +24,8 @@ is taken (``clock_window_fallbacks``).
 
 Device: the clock table lives on ``device`` (default ``cuda``), resolved
 when the first batch builds the table; without CUDA and without an
-explicit device that build raises.  The scalar paths never touch it.
+explicit device that build raises.  The scalar paths never touch it.  The
+simulator hands Newt its own device (``Protocol.set_device``).
 """
 
 from __future__ import annotations

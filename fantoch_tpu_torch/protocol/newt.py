@@ -349,6 +349,11 @@ class Newt(PartialCommitMixin, RecoveryMixin, SyncMixin, CommitGCMixin, Protocol
             "detached votes are never sent and timestamp stability stalls"
         )
 
+    def set_device(self, device) -> None:
+        # the batched clocks build their resident table on this card
+        if self.bp.config.batched_table_executor:
+            self.key_clocks._device = device
+
     def periodic_events(self):
         events = list(self.gc_periodic_events())
         if self.bp.config.newt_clock_bump_interval_ms is not None:

@@ -279,6 +279,7 @@ class Runner:
             executor = protocol_cls.Executor(
                 process.id, process.shard_id, config, device=device
             )
+            process.set_device(device)
             process.set_tracer(self._tracer)
             executor.set_tracer(self._tracer)
             self._arm_device_faults(executor, process.id)

@@ -152,7 +152,9 @@ def test_newt_sim_matches_jax(jax_ref):
         assert verdict.ok, f"{case}: {verdict.describe()}"
         total = n * CLIENTS_PER_PROCESS * COMMANDS_PER_CLIENT
         assert all(len(set().union(*o.values())) == total for o in orders.values()), case
-        for _pid, (_p, executor, _q) in runner._simulation.processes():
+        for _pid, (process, executor, _q) in runner._simulation.processes():
+            # the runner's device reaches the protocol's batched clocks too
+            assert process.key_clocks._device == "cpu", case
             counters = executor.device_counters()
             assert counters["table_plane_dispatches"] > 0, (case, counters)
             assert counters["table_plane_failures"] == 0, (case, counters)
