@@ -71,7 +71,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    command drains once, in the same per-key order as the same rounds on
    ``cpu``; then Newt through ``Runner(device="cuda")`` equal to
    ``Runner(device="cpu")`` at n = 5, f = 2; every table kernel launched
-   on this path and the 31-bit-window fallback was taken 0 times.
+   on this path and the 31-bit-window fallback was taken 0 times;
+7. the predecessors-plane kernel (``csrc/pred_plane.cu``) against its
+   plain version on the card, exactly, every dispatch of three
+   ``DevicePredPlane``s held by the Checker: ``bench.py``'s
+   ``bench_pred_path`` generator (one uniform key per command, up to three
+   same-key lower-clock predecessors, the cross-feed residual seam) at its
+   own defaults (feeds of 4,096 on 512 keys: the one-CTA variant), at the
+   table path's round (feeds of 100,000 on 4,096 keys: the grid-wide
+   variant) and in a full window of 2^20 slots filled by 4 feeds of 2^18;
+   each shape's last dispatch timed beside the plain version and its byte
+   bound, with its sweeps;
+8. the Caesar path on the card: 2 warm and 3 timed steady feeds of
+   100,000 commands through ``DevicePredPlane(device="cuda").add_arrays``,
+   each key in the host ``PredecessorsGraph`` twin's order (commands/s and
+   the plane's ``kernel_ms``); then Caesar through
+   ``Runner(device="cuda")`` with ``device_pred_plane=True`` equal to
+   ``Runner(device="cpu")`` at n = 5, f = 2, each path with the launch
+   counts set to 0 just before it and read just after it.
 
 Each phase reports its wall time.  The last lines are the
 ``{"kernels": [...]}`` record, the card line and
@@ -1284,6 +1301,324 @@ def phase6(torch, T, K, table_ops):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# the predecessors plane (phases 7 and 8)
+# ---------------------------------------------------------------------------
+
+PRED_SOURCE = "fantoch_tpu_torch/csrc/pred_plane.cu"
+PRED_REPLACES = "fantoch_tpu/ops/pallas_resolve.py:264"
+PRED_WIDTH = 3  # bench.py bench_pred_path: up to 3 same-key predecessors
+# (use, batch, keys, feeds, slot capacity or None for the plane's growth):
+# bench_pred_path's own defaults (the one-CTA variant), the table path's
+# round on its key count (the steady shape, grid-wide), and the full
+# window of 2^20 slots filled by 4 feeds of 2^18
+PRED_SHAPES = (
+    ("small window", 4096, 512, 3, None),
+    ("steady", TABLE_BATCH, TABLE_KEYS, 3, None),
+    ("full window", 1 << 18, TABLE_KEYS, 4, BIG),
+)
+PRED_MAIN_USE = "steady"
+PRED_WARM, PRED_TIMED = 2, 3
+
+
+def pred_workload(batch, keys, feeds, width=PRED_WIDTH, seed=17):
+    """``bench.py``'s ``bench_pred_path`` generator, vectorized: command i
+    (src 1 + i % 3, seq i // 3 + 1, clock i + 1) on one uniform key of
+    ``keys``, depending on the up to ``width`` commands before it on that
+    key; cut into feeds of ``batch`` in commit order, each feed's first
+    command swapped with the next feed's last (the cross-feed residual
+    seam: its same-key successors wait on a MISSING cell until it
+    commits).  Returns ``PredExecutionArrays`` feeds whose commands are
+    the command indices, and the key of every command."""
+    from fantoch_tpu_torch.executor.pred import PredExecutionArrays
+
+    rng = np.random.default_rng(seed)
+    total = batch * feeds
+    i = np.arange(total, dtype=np.int64)
+    src, seq = 1 + i % 3, i // 3 + 1
+    key = rng.integers(0, keys, total)
+    order = np.lexsort((i, key))
+    head = np.r_[True, key[order][1:] != key[order][:-1]]
+    rank = i - np.maximum.accumulate(np.where(head, i, 0))
+    deps = np.full((total, width), -1, dtype=np.int64)
+    for k in range(1, width + 1):
+        ok = rank >= k
+        deps[order[ok], k - 1] = order[i[ok] - k]
+    cuts = [list(range(b * batch, (b + 1) * batch)) for b in range(feeds)]
+    for b in range(feeds - 1):
+        cuts[b][0], cuts[b + 1][-1] = cuts[b + 1][-1], cuts[b][0]
+    out = []
+    for cut in cuts:
+        idx = np.asarray(cut, dtype=np.int64)
+        rows, cols = np.nonzero(deps[idx] >= 0)
+        dep = deps[idx][rows, cols]
+        out.append(PredExecutionArrays(
+            dot_src=src[idx], dot_seq=seq[idx], clock_seq=idx + 1, clock_src=src[idx],
+            cmds=idx.tolist(), dep_row=rows.astype(np.int64), dep_src=src[dep],
+            dep_seq=seq[dep],
+        ))
+    return out, key
+
+
+def pred_moved_bytes(torch, args, out):
+    """The bytes a window step must move: the feed read once; the installed
+    rows and patched cells written; the pending rows' dep cells and the
+    clock, src and occupancy of the rows they and their targets touch
+    read once; ``executed`` read and its newly set cells written;
+    ``newly`` written.  Only the state cells this step touches count."""
+    deps, clock, src, occ, executed = args[:5]
+    u_row, p_row, p_col = args[5], args[9], args[10]
+    cap, width = deps.shape
+    feed = sum(t.numel() * t.element_size() for t in args[5:])
+    rows = u_row[(u_row >= 0) & (u_row < cap)].long()
+    cells = ((p_row >= 0) & (p_row < cap) & (p_col >= 0) & (p_col < width)).sum()
+    installed = rows.numel() * (4 * width + 4 + 4 + 1 + 1) + int(cells) * 4
+    # the pending rows after the install, with the installed rows' deps
+    new_occ, new_exec, new_deps = occ.clone(), executed.clone(), deps.clone()
+    new_occ[rows], new_exec[rows] = True, False
+    new_deps[rows] = args[6][(u_row >= 0) & (u_row < cap)]
+    pending = new_occ & ~new_exec
+    targets = new_deps[pending]
+    targets = targets[targets >= 0].clamp(max=cap - 1).long()
+    touched = torch.zeros(cap, dtype=torch.bool, device=deps.device)
+    touched[pending] = True
+    touched[targets] = True
+    newly = out[5]
+    return (feed + installed + int(pending.sum()) * 4 * width
+            + int(touched.sum()) * (4 + 4 + 1) + cap + int(newly.sum()) + cap)
+
+
+def pred_plane_run(P, device, batch, keys, feeds, capacity, record=None):
+    """One plane on ``device`` fed ``pred_workload(batch, keys, feeds)``
+    through ``add_arrays``; returns the plane, the per-key drain order and
+    the wall ms of each feed.  ``record`` (a list) receives, for each
+    dispatch, clones of the step's arguments and its sweep count."""
+    import torch
+
+    from fantoch_tpu_torch.core import Config
+    from fantoch_tpu_torch.executor.pred_plane import DevicePredPlane
+
+    arrays, key = pred_workload(batch, keys, feeds)
+    kwargs = {"slot_capacity": capacity} if capacity else {}
+    plane = DevicePredPlane(1, Config(3, 1), device=device, **kwargs)
+    if record is not None:
+        wrapper = P.pred_plane_step
+
+        def recorded(*args):
+            saved = clone_args(args)
+            out = wrapper(*args)
+            record.append((saved, P.last_sweeps()))
+            return out
+
+        P.pred_plane_step = recorded
+    order, times = {}, []
+    try:
+        for batch_arrays in arrays:
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plane.add_arrays(batch_arrays, None)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            while (c := plane.command_to_execute()) is not None:
+                order.setdefault(int(key[c]), []).append(c)
+    finally:
+        if record is not None:
+            P.pred_plane_step = wrapper
+    return plane, order, times
+
+
+def check_pred_order(order, total):
+    """Every command once, each key in commit (clock) order."""
+    assert sum(len(v) for v in order.values()) == total, "not every command once"
+    for k, cmds in order.items():
+        assert cmds == sorted(cmds), f"key {k} out of clock order"
+
+
+def phase7(torch, P):
+    """The pred kernels against their plain version on the card, every
+    dispatch of three planes held by the Checker; each shape's last
+    dispatch timed."""
+    checker = Checker(P)
+    checker.install()
+    records, uses = {}, []
+    try:
+        for use, batch, keys, feeds, capacity in PRED_SHAPES:
+            calls = []
+            before = dict(P.VARIANT_LAUNCHES)
+            plane, order, wall = pred_plane_run(P, CARD, batch, keys, feeds, capacity,
+                                                record=calls)
+            check_pred_order(order, batch * feeds)
+            variants = {v: P.VARIANT_LAUNCHES[v] - before[v] for v in before}
+            args, _ = calls[-1]
+            kernel, plain = checker.real["pred_plane_step"], P.pred_plane_step_plain
+            ms = time_ms(kernel, args, {})
+            got = kernel(*clone_args(args))
+            sweeps = P.last_sweeps()
+            plain_ms = time_ms(plain, args, {})
+            nbytes = pred_moved_bytes(torch, args, got)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            cap, width = args[0].shape
+            row = {
+                "use": f"pred_plane_step, {use}, C={cap} W={width} B={batch} keys={keys}",
+                "variant": "one CTA" if variants["one_cta"] else "grid-wide",
+                "variants": variants, "shape": describe(args), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": nbytes,
+                "library_ms": None, "sweeps": sweeps,
+                "sweeps_by_dispatch": [s for _a, s in calls],
+                "newly": int(got[5].sum()), "dispatches": plane.dispatches,
+                "grows": plane.grows, "compactions": plane.stats["compactions"],
+                "feed_wall_ms": wall,
+            }
+            assert (row["variant"] == "one CTA") == (use == "small window"), row
+            log(json.dumps({"phase7_kernel": row}))
+            uses.append(row)
+            if use == PRED_MAIN_USE:
+                records["pred_plane_step"] = {
+                    "name": "pred_plane_step", "route": "cuda", "source": PRED_SOURCE,
+                    "replaces": PRED_REPLACES, "launches": 0, "max_abs_err": 0.0,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": None, "shape": row["shape"],
+                    "sweeps": sweeps,
+                }
+    finally:
+        checker.uninstall()
+    records["pred_plane_step"]["max_abs_err"] = checker.err["pred_plane_step"]
+    records["pred_plane_step"]["uses"] = uses
+    log(f"phase 7: every pred_plane_step call equal to its plain version "
+        f"(checked calls {checker.count}); sweeps of the timed dispatches "
+        f"{[u['sweeps'] for u in uses]}")
+    return records
+
+
+def pred_steady_rounds(P, device):
+    """The steady rounds: a plane on ``device`` takes ``PRED_WARM`` warm and
+    ``PRED_TIMED`` timed feeds of the steady shape; the host
+    ``PredecessorsGraph`` twin takes the same commands.  Returns the
+    plane's per-key order, the timed feeds' wall ms, the plane and the
+    twin's per-key order."""
+    from fantoch_tpu_torch.core import Config
+    from fantoch_tpu_torch.executor.pred import PredecessorsGraph, _unpack_arrays
+
+    _use, batch, keys, _feeds, _cap = PRED_SHAPES[1]
+    feeds = PRED_WARM + PRED_TIMED
+    plane, order, times = pred_plane_run(P, device, batch, keys, feeds, None)
+    arrays, key = pred_workload(batch, keys, feeds)
+    twin = PredecessorsGraph(1, Config(3, 1))
+    twin_order = {}
+    for batch_arrays in arrays:
+        infos, _noops = _unpack_arrays(batch_arrays)
+        for info in infos:
+            twin.add(info.dot, info.cmd, info.clock, info.deps, None)
+        while (c := twin.command_to_execute()) is not None:
+            twin_order.setdefault(int(key[c]), []).append(c)
+    return order, times[PRED_WARM:], plane, twin_order
+
+
+def caesar_sim(device, n=5, f=2, seed=2):
+    """Caesar through the simulator at ``tests/harness.py``'s shape (two
+    keys per command, 50% conflict, message reordering) on the pred plane,
+    n = 5, f = 2 with seed 2 (tests/test_caesar.py's row); returns per-key
+    orders, latency histograms, digests and the runner."""
+    from fantoch_tpu_torch.client import ConflictRateKeyGen, Workload
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch import protocol
+    from fantoch_tpu_torch.sim import Runner
+
+    config = Config(
+        n, f, caesar_wait_condition=True, device_pred_plane=True,
+        execution_digests=True, executor_monitor_execution_order=True,
+        gc_interval_ms=100, executor_executed_notification_interval_ms=100,
+    )
+    planet = Planet.new("gcp")
+    workload = Workload(
+        shard_count=1, key_gen=ConflictRateKeyGen(50), keys_per_command=2,
+        commands_per_client=10, payload_size=1,
+    )
+    regions = sorted(planet.regions())[:n]
+    runner = Runner(
+        protocol.Caesar, planet, config, workload, 3,
+        process_regions=list(regions), client_regions=list(regions), seed=seed,
+        device=device,
+    )
+    runner.reorder_messages()
+    _metrics, monitors, latencies = runner.run(extra_sim_time_ms=10_000)
+    orders = {
+        pid: {k: [(r.source, r.sequence) for r in m.get_order(k)] for k in sorted(m.keys())}
+        for pid, m in monitors.items()
+    }
+    hists = {str(r): (c, list(h.values())) for r, (c, h) in latencies.items()}
+    digests = {pid: e.digest().summary() for pid, (_p, e, _q) in runner._simulation.processes()}
+    return orders, hists, digests, runner
+
+
+# the paths of phase 8, each driven with the counts set to 0 just before it
+# and read just after it; a pred kernel's ``launches`` is its count on the
+# Caesar simulator's path
+PRED_PATHS = ("steady", "sim")
+PRED_MAIN_PATH = "sim"
+
+
+def phase8(torch, P):
+    """The Caesar paths on the card; returns the pred kernel's launches by
+    path (and by variant)."""
+    by_path = {}
+
+    def counted(path, fn, *args):
+        P.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_path[path] = {**P.LAUNCHES, "variants": dict(P.VARIANT_LAUNCHES)}
+        assert P.LAUNCHES["pred_plane_step"] > 0, f"the {path} path never launched"
+        return out, wall
+
+    (order, times, plane, twin_order), steady_s = counted(
+        "steady", pred_steady_rounds, P, CARD)
+    _use, batch, _keys, _feeds, _cap = PRED_SHAPES[1]
+    check_pred_order(order, batch * (PRED_WARM + PRED_TIMED))
+    assert order == twin_order, "per-key orders differ from the host PredecessorsGraph"
+    assert plane.health_name() == "healthy", plane.health_name()
+    sim_got, sim_cuda_s = counted("sim", caesar_sim, CARD)
+    t0 = time.perf_counter()
+    sim_want = caesar_sim("cpu")
+    sim_cpu_s = time.perf_counter() - t0
+    assert sim_got[0] == sim_want[0], "Caesar: per-key orders differ from the cpu run"
+    assert sim_got[1] == sim_want[1], "Caesar: latency histograms differ from the cpu run"
+    assert sim_got[2] == sim_want[2], "Caesar: execution digests differ from the cpu run"
+    sim_counters = [e.device_counters() for _p, (_x, e, _q)
+                    in sim_got[3]._simulation.processes()]
+    assert all(c["pred_plane_dispatches"] > 0 for c in sim_counters), sim_counters
+    assert all(c["pred_plane_failures"] == 0 for c in sim_counters), sim_counters
+    p50 = float(np.median(times))
+    counters = {
+        "dispatches": plane.dispatches, "grows": plane.grows,
+        "compactions": plane.stats["compactions"],
+        "resident_uploads": plane.resident_uploads, "slot_capacity": plane._cap,
+        "width": plane._width, "kernel_ms": plane.stats["kernel_ms"],
+    }
+    log(f"phase 8: {PRED_WARM} warm and {PRED_TIMED} timed steady rounds of {batch} "
+        f"commands on cuda, every command once in the host twin's per-key order: "
+        f"median timed round {p50:.3f} ms ({batch / p50 * 1e3:.1f} commands/s); "
+        f"plane {counters}")
+    log(f"phase 8: Caesar through Runner(device='cuda') equal to Runner(device='cpu') "
+        f"in per-key orders, latency histograms and digests; sim wall cuda "
+        f"{sim_cuda_s:.3f} s, cpu {sim_cpu_s:.3f} s; launches by path {by_path}")
+    log(json.dumps({"caesar_path": {
+        "commands_per_round": batch, "timed_rounds": len(times), "round_ms": times,
+        "median_round_ms": p50, "commands_per_s": batch / p50 * 1e3,
+        "steady_wall_s": steady_s, "plane": counters,
+        "sim_cuda_wall_s": sim_cuda_s, "sim_cpu_wall_s": sim_cpu_s,
+        "sim_cuda_cpu_ratio": sim_cuda_s / sim_cpu_s,
+        "sim_pred_dispatches": sum(c["pred_plane_dispatches"] for c in sim_counters),
+        "sim_pred_kernel_ms": sum(c["pred_plane_kernel_ms"] for c in sim_counters),
+        "launches_by_path": by_path,
+    }}))
+    return by_path
+
+
 def main():
     import torch
 
@@ -1307,6 +1642,7 @@ def main():
     from fantoch_tpu_torch.executor.graph.executor import GraphAddBatch, GraphExecutor
     from fantoch_tpu_torch.ops import _build
     from fantoch_tpu_torch.ops import graph_plane_kernels as K
+    from fantoch_tpu_torch.ops import pred_kernels as P
     from fantoch_tpu_torch.ops import table_kernels as T
     from fantoch_tpu_torch.ops import table_ops
     from fantoch_tpu_torch.ops.frontier import DeviceFrontier
@@ -1358,6 +1694,16 @@ def main():
         record["launches_path"] = TABLE_MAIN_PATH[name]
         record["launches_by_path"] = {path: table_paths[path][name] for path in TABLE_PATHS}
     records.update(table_records)
+    pred_records = timed("phase 7", phase7, torch, P)
+    pred_paths = timed("phase 8", phase8, torch, P)
+    for name, record in pred_records.items():
+        record["launches"] = pred_paths[PRED_MAIN_PATH][name]
+        record["launches_path"] = PRED_MAIN_PATH
+        record["launches_by_path"] = {path: pred_paths[path][name] for path in PRED_PATHS}
+        record["variant_launches_by_path"] = {
+            path: pred_paths[path]["variants"] for path in PRED_PATHS
+        }
+    records.update(pred_records)
     log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": list(records.values())}))
     log(card)

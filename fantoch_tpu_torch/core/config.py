@@ -1,10 +1,11 @@
-"""System configuration and the EPaxos/Atlas/Newt quorum-size formulas.
+"""System configuration and the EPaxos/Atlas/Newt/Caesar quorum-size formulas.
 
 The port of fantoch_tpu/core/config.py, cut to the fields the ported
-modules read (the graph and table executors, EPaxos/Atlas/Newt, the
-clients and the simulator); each keeps its name, default and check so a
-reader finds its counterpart.  The other knobs (Caesar, FPaxos, serving,
-WAL and overload) come with the slices that read them.
+modules read (the graph, table and predecessors executors,
+EPaxos/Atlas/Newt/Caesar, the clients and the simulator); each keeps its
+name, default and check so a reader finds its counterpart.  The other
+knobs (FPaxos, serving, WAL and overload) come with the slices that read
+them.
 """
 
 from __future__ import annotations
@@ -63,6 +64,21 @@ class Config:
     # the FANTOCH_TABLE_KERNEL_THRESHOLD env var; an explicit value here
     # beats both
     table_kernel_threshold: Optional[int] = None
+    # batch Caesar's predecessor executor: two-phase countdown resolution
+    # as one resolve per batch (ops/pred_resolve.resolve_pred at the
+    # executor/pred.py seam)
+    batched_pred_executor: bool = False
+    # device-resident predecessors plane for Caesar: the
+    # PredecessorsExecutor keeps the whole pending window (sparse
+    # predecessor sets as an int32[C, W] slot matrix + clock columns) on
+    # the card across batches, updated in place, one dispatch per feed;
+    # missing-blocked rows stay resident and wake when their deps commit
+    # (executor/pred_plane.py over ops/pred_resolve.resolve_pred_plane_step).
+    # Caesar additionally routes commits through a column builder (one
+    # PredExecutionArrays drain per to_executors sweep).  Requires
+    # timestamp sequences below 2^31 (guarded with a typed
+    # ClockOverflowError)
+    device_pred_plane: bool = False
     # device-resident graph plane for EPaxos/Atlas: the batched graph
     # executor keeps its dependency backlog (src/seq/key columns plus the
     # dep-slot matrix) on the card across feeds
@@ -104,6 +120,8 @@ class Config:
     newt_tiny_quorums: bool = False
     newt_clock_bump_interval_ms: Optional[int] = None
     newt_detached_send_interval_ms: Optional[int] = None
+    # Caesar knob: wait-condition on (True = the full protocol)
+    caesar_wait_condition: bool = True
     # skip sending MCollectAck to the coordinator when the process is in the
     # fast quorum and the coordinator will ack anyway
     skip_fast_ack: bool = False
@@ -194,6 +212,10 @@ class Config:
         """
         f = self.n // 2
         return (f + (f + 1) // 2, f + 1)
+
+    def caesar_quorum_sizes(self) -> Tuple[int, int]:
+        """(fast, write) = (3n//4 + 1, n//2 + 1)."""
+        return (3 * self.n // 4 + 1, self.n // 2 + 1)
 
     def newt_quorum_sizes(self) -> Tuple[int, int, int]:
         """(fast_quorum_size, write_quorum_size, stability_threshold).

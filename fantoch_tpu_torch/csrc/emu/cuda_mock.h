@@ -37,6 +37,15 @@ inline int __reduce_add_sync(unsigned, int v) {
   __syncthreads();
   return s;
 }
+inline int __syncthreads_or(int v) {
+  g_warp_slots[threadIdx.x] = v; __syncthreads();
+  int any = 0;
+  for (unsigned i = 0; i < blockDim.x; ++i) any |= g_warp_slots[i];
+  __syncthreads();
+  return any != 0;
+}
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 template <class T> T atomicAdd(T* p, T v) { return std::atomic_ref<T>(*p).fetch_add(v); }
 template <class T> T atomicOr(T* p, T v) { return std::atomic_ref<T>(*p).fetch_or(v); }
 template <class T> T atomicMax(T* p, T v) {

@@ -7,10 +7,10 @@ in order, each block's threads real OS threads meeting at a barrier for
 ``__syncthreads``; atomics are ``std::atomic_ref``; warp collectives are
 emulated with block barriers) and compiled with ``g++`` into
 ``fantoch_tpu_torch/build/emu/``.  Inside ``with emulated():`` every kernel
-wrapper of ``ops/graph_plane_kernels.py`` and ``ops/table_kernels.py``
-takes its CUDA route on CPU tensors and launches the emulated kernels, so
-a wrapper can be held against its plain version — ``chip_smoke.Checker``
-does it per call:
+wrapper of ``ops/graph_plane_kernels.py``, ``ops/table_kernels.py`` and
+``ops/pred_kernels.py`` takes its CUDA route on CPU tensors and launches
+the emulated kernels, so a wrapper can be held against its plain version
+— ``chip_smoke.Checker`` does it per call:
 
     from fantoch_tpu_torch.csrc.emu.emulate import emulated
     with emulated():
@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import hashlib
+import os
 import re
 import subprocess
 from pathlib import Path
@@ -54,16 +56,28 @@ def translate(source: str) -> str:
 
 
 def build(name: str) -> Path:
-    """Compile the emulation of ``csrc/<name>.cu``; returns the library."""
+    """Compile the emulation of ``csrc/<name>.cu`` unless the library of
+    the same translation and mock exists; returns the library.  The
+    library is named after their content hash and written under a
+    per-process name, then renamed into place, so processes that build at
+    once (test workers) never load a half-written or stale library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cpp = BUILD_DIR / f"{name}.cpp"
-    lib = BUILD_DIR / f"lib{name}.so"
-    cpp.write_text(translate((CSRC_DIR / f"{name}.cu").read_text()))
+    text = translate((CSRC_DIR / f"{name}.cu").read_text())
+    mock = (EMU_DIR / "cuda_mock.h").read_bytes()
+    digest = hashlib.sha1(text.encode() + mock).hexdigest()[:12]
+    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    if lib.exists():
+        return lib
+    cpp = BUILD_DIR / f"{name}-{digest}.{os.getpid()}.cpp"
+    tmp = BUILD_DIR / f"lib{name}-{digest}.{os.getpid()}.tmp.so"
+    cpp.write_text(text)
     subprocess.run(
         ["g++", "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-         "-I", str(EMU_DIR), "-o", str(lib), str(cpp)],
+         "-I", str(EMU_DIR), "-o", str(tmp), str(cpp)],
         check=True,
     )
+    os.replace(tmp, lib)
+    os.replace(cpp, BUILD_DIR / f"{name}.cpp")
     return lib
 
 
@@ -75,7 +89,7 @@ def emulated():
 
     libs = {
         name: build(name)
-        for name in ("graph_plane_step", "graph_general", "table_plane")
+        for name in ("graph_plane_step", "graph_general", "table_plane", "pred_plane")
     }
     saved = (K._on_card, K._stream, _build.load)
     K._on_card = lambda tensor: True

@@ -106,6 +106,11 @@ _SIGNATURES = {
     "tp_votes_gid": ("table_plane", "pppp" + "iii"),
     "tp_vote_runs": ("table_plane", "p" * 14 + "ii"),
     "tp_stable_rows": ("table_plane", "p" * 9 + "i" * 6),
+    # the predecessors plane's launchers (wrapper in ops/pred_kernels.py)
+    "pp_one_cta": ("pred_plane", "p" * 14 + "iiii"),
+    "pp_grid_prepare": ("pred_plane", "p" * 14 + "iiii"),
+    "pp_grid_sweeps": ("pred_plane", "ppp" + "iii"),
+    "pp_grid_finish": ("pred_plane", "ppp" + "i"),
 }
 _lib_handles: Dict[str, ctypes.CDLL] = {}
 

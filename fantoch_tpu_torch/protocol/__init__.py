@@ -10,12 +10,13 @@ from fantoch_tpu_torch.protocol.base import (
 from fantoch_tpu_torch.protocol.gc import GCTrack
 from fantoch_tpu_torch.protocol.info import CommandsInfo
 
-# the ported protocols (Basic, FPaxos and Caesar come with later slices:
+# the ported protocols (Basic and FPaxos come with a later slice:
 # ROADMAP.md Queue A)
 _LAZY = {
     "EPaxos": "fantoch_tpu_torch.protocol.graph_protocol",
     "Atlas": "fantoch_tpu_torch.protocol.graph_protocol",
     "Newt": "fantoch_tpu_torch.protocol.newt",
+    "Caesar": "fantoch_tpu_torch.protocol.caesar",
 }
 
 

@@ -1,8 +1,8 @@
 """The simulator seeds every device plane's shadow sampler from its seed.
 
 ``Runner(..., seed=7)`` with ``Config.plane_shadow_rate=0.5`` arms every
-process's device planes — the graph plane of EPaxos and the votes-table
-plane of Newt — and seeds their shadow-check sampler with the sim seed
+process's device planes — the graph plane of EPaxos, the votes-table
+plane of Newt and the predecessors plane of Caesar — and seeds their shadow-check sampler with the sim seed
 (the draw is ``random.Random(f"{seed}:{plane}:{dispatch}")``), so a
 same-seed run shadow-checks the same dispatches in both packages.  The JAX
 package does it in ``sim/runner.py`` through ``Executor.device_planes()``;
@@ -106,10 +106,11 @@ def test_planes_seeded_from_the_sim_seed(jax_ref):
         ("EPaxos", {"batched_graph_executor": True, "device_graph_plane": True}),
         ("Newt", {"batched_table_executor": True, "device_table_plane": True,
                   "newt_detached_send_interval_ms": 100}),
+        ("Caesar", {"device_pred_plane": True}),
     )
+    kinds = {"EPaxos": "graph", "Newt": "table", "Caesar": "pred"}
     for name, knobs in protocols:
-        want = {(pid, kind): (SEED, pid, 0.5) for pid in (1, 2, 3)
-                for kind in (["graph"] if name == "EPaxos" else ["table"])}
+        want = {(pid, kinds[name]): (SEED, pid, 0.5) for pid in (1, 2, 3)}
         for pkg, pkgs in (("jax", (jcore, jclient, jprotocol, jsim)),
                           ("port", (tcore, tclient, tprotocol, tsim))):
             run = runner(*pkgs, name, knobs)

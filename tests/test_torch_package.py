@@ -4,13 +4,13 @@
   anything of ``fantoch_tpu`` (an AST scan plus a fresh interpreter that
   imports every port module, the simulator, EPaxos/Atlas and the clients
   among them).
-* No silent CPU route: without CUDA, building the plane or the executor
-  without ``device=`` raises, and a wrapper handed CUDA tensors launches
-  its kernel or raises — it never reaches its plain version.  An armed
-  plane whose dispatch is late or disagrees with its shadow twin raises
-  to the caller, emits nothing from that round and refuses every later
-  dispatch: no other route serves the work.  The kernel build targets
-  ``sm_90a`` into a directory ``.gitignore`` lists.
+* No silent CPU route: without CUDA, building a graph or pred plane or its
+  executor without ``device=`` raises, and a wrapper handed CUDA tensors
+  launches its kernel or raises — it never reaches its plain version.  An
+  armed plane (graph or pred) whose dispatch is late or disagrees with its
+  shadow twin raises to the caller, emits nothing from that round and
+  refuses every later dispatch: no other route serves the work.  The
+  kernel build targets ``sm_90a`` into a directory ``.gitignore`` lists.
 
 Two collected items on purpose (see test_torch_graph_resolve.py).
 """
@@ -30,9 +30,14 @@ from fantoch_tpu_torch.errors import DeviceCorruptionError, DeviceFailedError
 from fantoch_tpu_torch.executor.graph.batched import BatchedDependencyGraph
 from fantoch_tpu_torch.executor.graph import graph_plane
 from fantoch_tpu_torch.executor.graph.executor import GraphExecutor
+from fantoch_tpu_torch.executor import pred_plane
+from fantoch_tpu_torch.executor.pred import PredecessorsExecutionInfo, PredecessorsExecutor
 from fantoch_tpu_torch.ops import _build
 from fantoch_tpu_torch.ops import graph_plane_kernels as K
 from fantoch_tpu_torch.ops import graph_resolve
+from fantoch_tpu_torch.ops import pred_kernels as PK
+from fantoch_tpu_torch.ops import pred_resolve
+from fantoch_tpu_torch.protocol.common.pred_clocks import Clock
 from fantoch_tpu_torch.protocol.common.graph_deps import Dependency
 
 torch.set_num_threads(1)
@@ -40,6 +45,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "fantoch_tpu_torch"
 PLANE_CFG = Config(3, 1, batched_graph_executor=True, device_graph_plane=True)
+PRED_CFG = Config(3, 1, device_pred_plane=True)
 
 
 def _forbidden(name):
@@ -66,14 +72,14 @@ def test_port_imports_no_jax_and_no_reference_package():
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py")
     )
-    for entry in ("sim.runner", "protocol.graph_protocol", "client"):
+    for entry in ("sim.runner", "protocol.graph_protocol", "protocol.caesar", "client"):
         assert f"fantoch_tpu_torch.{entry}" in modules, entry
     script = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'fantoch_tpu')]\n"
         "assert not bad, bad\n"
-        "from fantoch_tpu_torch.protocol import Atlas, EPaxos\n"
+        "from fantoch_tpu_torch.protocol import Atlas, Caesar, EPaxos\n"
         "from fantoch_tpu_torch.sim import Runner\n"
         "from fantoch_tpu_torch.core import Planet\n"
         "assert Planet.new('gcp').regions()\n"
@@ -150,6 +156,53 @@ def _armed_plane_fails_to_the_caller(monkeypatch):
         feed(3)
 
 
+def _armed_pred_plane_fails_to_the_caller(monkeypatch):
+    # the pred plane's step calls, counted by device
+    steps = []
+    real = pred_resolve.resolve_pred_plane_step
+
+    def counted(*args):
+        steps.append(args[0].device.type)
+        return real(*args)
+
+    monkeypatch.setattr(pred_plane, "resolve_pred_plane_step", counted)
+
+    def info(seq, deps=()):
+        cmd = Command.from_keys(Rifl(1, seq), 0, {"a": (KVOp.put(""),)})
+        return PredecessorsExecutionInfo(Dot(1, seq), cmd, Clock(seq, 1), set(deps))
+
+    # a late dispatch raises; nothing of it executes; the plane refuses
+    # later feeds without dispatching and refuses a snapshot
+    ex = PredecessorsExecutor(
+        1, 0, PRED_CFG.with_(device_dispatch_timeout_ms=1e-9), device="cpu"
+    )
+    with pytest.raises(DeviceFailedError) as info_:
+        ex.handle_batch([info(1)], None)
+    assert info_.value.kind == "timeout" and steps == ["cpu"], steps
+    plane = ex._graph
+    assert plane.health_name() == "failed" and plane.fault_counters()["failures"] == 1
+    assert ex.to_clients() is None and plane.pending_count == 1
+    with pytest.raises(DeviceFailedError) as info_:
+        ex.handle_batch([info(2)], None)
+    assert info_.value.kind == "failed" and steps == ["cpu"], steps
+    with pytest.raises(DeviceFailedError):
+        pickle.dumps(plane)
+
+    # a flipped resident cell: the shadow check names it, nothing of the
+    # dispatch executes, and the twin replayed once per dispatch
+    steps.clear()
+    ex = PredecessorsExecutor(1, 0, PRED_CFG.with_(plane_shadow_rate=1.0), device="cpu")
+    ex.handle_batch([info(1)], None)
+    assert ex.to_clients() is not None
+    plane = ex._graph
+    plane._resident[2][0] ^= 1  # the src column of row 0
+    with pytest.raises(DeviceCorruptionError) as info_:
+        ex.handle_batch([info(2, [Dot(1, 1)])], None)
+    assert (info_.value.array_index, info_.value.row) == (2, 0), str(info_.value)
+    assert ex.to_clients() is None and plane.health_name() == "failed"
+    assert len(steps) == 4, steps
+
+
 def test_no_silent_cpu_route(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     # no device given and no CUDA: the plane, the graph and the executor raise
@@ -158,6 +211,15 @@ def test_no_silent_cpu_route(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GraphExecutor(1, 0, PLANE_CFG)
     GraphExecutor(1, 0, PLANE_CFG, device="cpu")  # an explicit CPU is fine
+    # the same for the pred plane and the batched pred resolve; the host
+    # predecessors graph needs no device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pred_plane.DevicePredPlane(1, PRED_CFG)
+    for cfg in (PRED_CFG, Config(3, 1, batched_pred_executor=True)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PredecessorsExecutor(1, 0, cfg)
+        PredecessorsExecutor(1, 0, cfg, device="cpu")
+    PredecessorsExecutor(1, 0, Config(3, 1))
 
     # a multi-key command rides the general mode; routes not ported yet
     # raise instead of guessing
@@ -206,14 +268,18 @@ def test_no_silent_cpu_route(monkeypatch):
         assert not out.newly.any() and not out.stuck.any()
 
     _armed_plane_fails_to_the_caller(monkeypatch)
+    _armed_pred_plane_fails_to_the_caller(monkeypatch)
 
     # tensors that claim to live on the card never reach a plain version
-    for name in dir(K):
-        if name.endswith("_plain"):
-            def refuse(*_a, _name=name, **_k):
-                raise _PlainReached(_name)
-            monkeypatch.setattr(K, name, refuse)
+    for module in (K, PK):
+        for name in dir(module):
+            if name.endswith("_plain"):
+                def refuse(*_a, _name=name, **_k):
+                    raise _PlainReached(_name)
+                monkeypatch.setattr(module, name, refuse)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    pred_state = [state[0], state[1], state[2], state[4], state[5]]
+    pred_feed = [feed[0], feed[1], feed[2], feed[3], feed[5], feed[6], feed[7]]
     calls = [
         lambda: graph_resolve.resolve_graph_plane_step(*state, *feed, mode="keyed"),
         lambda: graph_resolve.resolve_graph_plane_step(*state, *feed, mode="general"),
@@ -227,6 +293,8 @@ def test_no_silent_cpu_route(monkeypatch):
         lambda: K.pointer_doubling(state[1]),
         lambda: K.group_scan(state[1], state[2]),
         lambda: K.plane_epilogue(state[4], state[5]),
+        lambda: pred_resolve.resolve_pred_plane_step(*pred_state, *pred_feed),
+        lambda: PK.pred_plane_step(*pred_state, *pred_feed),
     ]
     for call in calls:
         with pytest.raises(Exception) as info:
