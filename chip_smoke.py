@@ -303,6 +303,44 @@ def time_ms(fn, args, kwargs, reps=10):
     return float(np.median(times))
 
 
+LOOP_LAUNCHES = 100
+
+
+def time_loop_ms(fn, args, kwargs, reps=LOOP_LAUNCHES):
+    """Mean CUDA-event time of ``reps`` back-to-back calls of ``fn``, each
+    on its own clone of ``args`` made before the timing, after two warm-up
+    calls: one event pair around the run, divided by its count."""
+    import torch
+
+    runs = [clone_args(args) for _ in range(reps + 2)]
+    fn(*runs[0], **kwargs)
+    fn(*runs[1], **kwargs)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for r in runs[2:]:
+        fn(*r, **kwargs)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sort_library(torch, args, kwargs):
+    """The one PyTorch call that computes a ``lex_sort`` use, where there is
+    one (a yardstick, used nowhere in the port): ``torch.sort(stable=True)``
+    of a single key that is not inverted (for the packed final sort, without
+    the gather through ``through``); None for several keys."""
+    keys = args[0]
+    invert = args[1] if len(args) > 1 else kwargs.get("invert", ())
+    if len(keys) != 1 or any(invert):
+        return None
+    name = "torch.sort(stable=True)"
+    if kwargs.get("through") is not None:
+        name += ", without the gather through `through`"
+    return name, (lambda k: torch.sort(k, stable=True)), (keys[0],)
+
+
 def moved_bytes(name, args, out):
     """Bytes the function must move: each input read once, each output
     written once (in-place state rows counted where they are written)."""
@@ -340,21 +378,27 @@ def kernel_records(torch, K, checker, names, source, phase, extra_uses=()):
         ms = time_ms(kernel, args, kwargs)
         plain_ms = time_ms(plain, args, kwargs)
         library_ms = None
-        if name == "lex_sort" and len(args[0]) == 1 and args[0][0].dtype == torch.int32:
-            library_ms = time_ms(
-                lambda k: torch.sort(k, stable=True), (args[0][0],), {}
-            )
+        loops = {}
+        if name == "lex_sort":
+            # the redesigned sort: both timings, the library call's too
+            loops["ms_loop"] = time_loop_ms(kernel, args, kwargs)
+            library = sort_library(torch, args, kwargs)
+            loops["library"] = library[0] if library else "none"
+            loops["library_ms_loop"] = None
+            if library:
+                library_ms = time_ms(library[1], library[2], {})
+                loops["library_ms_loop"] = time_loop_ms(library[1], library[2], {})
         nbytes = moved_bytes(name, args, out)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         log(json.dumps({
             f"{phase}_kernel": use, "launches": checker.count[name],
             "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
-            "bound_ms": bound_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "library_ms": library_ms, **loops,
             "shape": describe(args),
         }))
         uses.setdefault(name, []).append({
             "use": use, "shape": describe(args), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "library_ms": library_ms, **loops,
         })
         if use != main_use.get(name, name):
             continue
@@ -370,6 +414,7 @@ def kernel_records(torch, K, checker, names, source, phase, extra_uses=()):
             "bound_ms": bound_ms,
             "bound_by": "bytes",
             "library_ms": library_ms,
+            **loops,
             "shape": describe(args),
         }
     for name, listed in uses.items():
@@ -440,7 +485,70 @@ def phase1(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
     keyed = [name for name in K.LAUNCHES if name not in K.GENERAL_KERNELS]
     records = kernel_records(torch, K, checker, keyed, SOURCE, "phase1")
     del records["uses"]
+    edge_err = sort_edge_cases(torch, K)
+    records["lex_sort"]["max_abs_err"] = max(records["lex_sort"]["max_abs_err"], edge_err)
     return records
+
+
+def sort_edge_cases(torch, K):
+    """``lex_sort`` against ``lex_sort_plain`` on the card, exactly, at the
+    full size and at the edges: keys at INT_MIN, -1, 0 and INT_MAX;
+    all-equal int32 and bool keys; sorted and reverse-sorted columns;
+    n = 1, 2 and sizes that are no power of two (3,000 in one block,
+    1,000,003 over many tiles); 2, 4 and 6 keys (bool keys inverted); a
+    packed key through a permutation.  Returns the largest error."""
+    rng = np.random.default_rng(SEED + 5)
+    dev = torch.device(CARD)
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, dtype=np.int32), device=dev)
+
+    def flags(p, size=BIG):
+        return torch.tensor(rng.random(size) < p, device=dev)
+
+    edges = np.array([-(1 << 31), -1, 0, (1 << 31) - 1], dtype=np.int32)
+    n = BIG
+    cases = (
+        ("INT_MIN, -1, 0, INT_MAX", [i32(rng.choice(edges, n))], (), None),
+        ("all equal int32", [i32(np.full(n, 7))], (), None),
+        ("all equal bool", [torch.ones(n, dtype=torch.bool, device=dev)], (), None),
+        ("inverted bool", [flags(0.3)], (True,), None),
+        ("sorted", [i32(np.arange(n) - n // 2)], (), None),
+        ("reverse-sorted", [i32(n // 2 - np.arange(n))], (), None),
+        ("n = 1", [i32([5])], (), None),
+        ("n = 2", [i32([5, -5])], (), None),
+        ("n = 3,000", [i32(rng.integers(-(1 << 31), 1 << 31, 3000))], (), None),
+        ("n = 1,000,003", [i32(rng.integers(-(1 << 31), 1 << 31, 1_000_003))], (), None),
+        ("2 keys", [i32(rng.integers(0, 4096, n)), i32(rng.integers(-50, 50, n))], (),
+         None),
+        ("4 keys", [i32(rng.choice(edges, n)), i32(rng.integers(0, n, n)),
+                    i32(rng.integers(1, 6, n)), i32(rng.integers(0, n, n))], (), None),
+        ("6 keys, invert (False, True)",
+         [flags(0.5), flags(0.3)] + [i32(rng.integers(0, 9, n)) for _ in range(4)],
+         (False, True), None),
+        ("packed, through", [i32(rng.integers(0, 1 << 31, n))], (),
+         i32(rng.permutation(n))),
+    )
+    worst = 0.0
+    for name, keys, invert, through in cases:
+        got = K.lex_sort(keys, invert, through=through)
+        want = K.lex_sort_plain(keys, invert, through=through)
+        err = max_abs_err(got, want, f"lex_sort, {name}")
+        assert err == 0.0, f"lex_sort, {name}: kernel differs from its plain version"
+        worst = max(worst, err)
+    log(f"phase 1: lex_sort equal to lex_sort_plain at the edges ({len(cases)} cases: "
+        f"{', '.join(c[0] for c in cases)})")
+    # the two paths on either side of the one-block limit, 1 and 2 keys
+    sides = {}
+    for size in (K.RADIX_SMALL_N, K.RADIX_SMALL_N + 1):
+        for ncols in (1, 2):
+            keys = [i32(rng.integers(0, 1 << 20, size)) for _ in range(ncols)]
+            sides[f"{ncols} key(s), n = {size}"] = {
+                "ms": time_ms(K.lex_sort, (keys,), {}),
+                "ms_loop": time_loop_ms(K.lex_sort, (keys,), {}),
+            }
+    log(json.dumps({"lex_sort_one_block_limit": sides}))
+    return worst
 
 
 def drive(executor, cols, cmds, RunTime, GraphAddBatch):
@@ -922,6 +1030,54 @@ def table_library_call(torch, name, args):
     return None
 
 
+# the table wrappers timed both ways (the redesigned stable_rows and the
+# callers of the redesigned lex_sort)
+LOOP_TIMED = ("stable_rows", "vote_runs", "clock_proposal")
+
+
+def table_sort_uses(torch, dev, commit, prop):
+    """The sorts inside ``vote_runs`` and ``clock_proposal`` on their phase 5
+    inputs, each held against ``lex_sort_plain`` exactly and timed both ways
+    beside its bound and the one PyTorch call that computes it:
+    ``torch.sort(stable=True)`` of the key for the proposal's, and of the
+    int64 column ``(gid << 32) | (vstart ^ 0x80000000)`` (built before the
+    timing) for the commit's (gid, vstart).  Returns the rows for the
+    ``lex_sort`` record's uses."""
+    from fantoch_tpu_torch.ops import graph_plane_kernels as K
+
+    vkey, vby, vstart, _vend, valid = commit
+    gid = torch.where(valid, vkey * TABLE_N + vby, TABLE_KCAP * TABLE_N).to(torch.int32)
+    packed = (gid.long() << 32) | ((vstart.long() & 0xFFFFFFFF) ^ 0x80000000)
+    key = prop[1]
+    sorts = (
+        (f"lex_sort, 2 keys (vote_runs' gid, vstart), V={TABLE_VCAP}", [gid, vstart],
+         "torch.sort(stable=True) of (gid << 32) | (vstart ^ 0x80000000)", packed),
+        (f"lex_sort, 1 key (clock_proposal), B={FUSED_BATCH}", [key],
+         "torch.sort(stable=True)", key),
+    )
+    rows = []
+    for use, keys, library, column in sorts:
+        got = K.lex_sort(keys)
+        err = max_abs_err(got, K.lex_sort_plain(keys), use)
+        assert err == 0.0, f"{use}: kernel differs from its plain version"
+        indices = torch.sort(column, stable=True).indices
+        assert torch.equal(indices.to(torch.int32), got), f"{use}: the yardstick differs"
+        nbytes = sum(k.numel() * k.element_size() for k in keys) + got.numel() * 4
+        row = {
+            "use": use, "shape": describe(keys),
+            "ms": time_ms(K.lex_sort, (keys,), {}),
+            "ms_loop": time_loop_ms(K.lex_sort, (keys,), {}),
+            "plain_ms": time_ms(K.lex_sort_plain, (keys,), {}),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "library": library,
+            "library_ms": time_ms(lambda c: torch.sort(c, stable=True), (column,), {}),
+            "library_ms_loop": time_loop_ms(
+                lambda c: torch.sort(c, stable=True), (column,), {}),
+        }
+        log(json.dumps({"phase5_kernel": use, **row}))
+        rows.append(row)
+    return rows
+
+
 def table_moved_bytes(torch, name, args, out):
     """The bytes a table wrapper's function must move: each input read once
     and each output written once, where of the resident state (prior,
@@ -1053,24 +1209,33 @@ def phase5(torch, T, table_ops):
         ms = time_ms(kernel, args, {})
         plain_ms = time_ms(plain, args, {})
         library_ms = None
-        if table_library_call(torch, name, args) is not None:
+        library = table_library_call(torch, name, args) is not None
+        if library:
             library_ms = time_ms(lambda *a: table_library_call(torch, name, a), args, {})
+        loops = {}
+        if name in LOOP_TIMED:
+            loops["ms_loop"] = time_loop_ms(kernel, args, {})
+            loops["library_ms_loop"] = None
+            if library:
+                loops["library_ms_loop"] = time_loop_ms(
+                    lambda *a: table_library_call(torch, name, a), args, {})
         nbytes = table_moved_bytes(torch, name, args, got)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         row = {"use": use, "shape": describe(args), "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "library_ms": library_ms}
+               "bound_ms": bound_ms, "library_ms": library_ms, **loops}
         log(json.dumps({"phase5_kernel": use, "ms": ms, "plain_ms": plain_ms,
                         "bytes": nbytes, "bound_ms": bound_ms,
-                        "library_ms": library_ms, "shape": describe(args)}))
+                        "library_ms": library_ms, **loops, "shape": describe(args)}))
         if name not in records:
             records[name] = {
                 "name": name, "route": "cuda", "source": TABLE_SOURCE,
                 "replaces": TABLE_REPLACES[name], "launches": 0, "max_abs_err": 0.0,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "bytes", "library_ms": library_ms, "shape": row["shape"],
-                "uses": [],
+                "bound_by": "bytes", "library_ms": library_ms, **loops,
+                "shape": row["shape"], "uses": [],
             }
         records[name]["uses"].append(row)
+    records["uses"] = table_sort_uses(torch, dev, commit, prop)
 
     # the composed entry points, every wrapper call checked on the card
     checker = Checker(T)
@@ -1619,6 +1784,30 @@ def phase8(torch, P):
     return by_path
 
 
+# the kernels redesigned since the first slices, named in phase 0
+REDESIGNED = ("k_radix_", "k_stable_select")
+
+
+def ptxas_kernels(text):
+    """{kernel: (registers, stack frame bytes)} from ``-Xptxas -v`` output."""
+    found, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (_Z(\d+)\w+)", line)
+        if m:
+            length = int(m.group(2))
+            current = m.group(1)[2 + len(m.group(2)):][:length]
+            found[current] = [None, None]
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and current:
+            found[current][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            found[current][0] = int(m.group(1))
+            current = None
+    return {k: tuple(v) for k, v in found.items()}
+
+
 def main():
     import torch
 
@@ -1660,6 +1849,11 @@ def main():
         if regs:
             log(f"phase 0: ptxas {name}: {len(regs)} kernels, at most {max(regs)} "
                 f"registers a thread, {spills} bytes of spills")
+        for kernel, (reg, frame) in ptxas_kernels(text).items():
+            if kernel.startswith(REDESIGNED):
+                log(f"phase 0: ptxas {name}: {kernel}: {reg} registers, {frame} bytes "
+                    f"stack frame")
+                assert frame == 0 or not kernel.startswith("k_stable_select"), kernel
 
     walls = {"phase 0": time.perf_counter() - t0}
 
@@ -1688,6 +1882,7 @@ def main():
         record["launches"] = path[name]
         record["launches_by_path"] = {"keyed": keyed[name], "general": general[name]}
     table_records = timed("phase 5", phase5, torch, T, table_ops)
+    records["lex_sort"]["uses"] += table_records.pop("uses")
     table_paths = timed("phase 6", phase6, torch, T, K, table_ops)
     for name, record in table_records.items():
         record["launches"] = table_paths[TABLE_MAIN_PATH[name]][name]

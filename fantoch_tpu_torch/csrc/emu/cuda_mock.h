@@ -9,6 +9,7 @@
 #include <climits>
 #include <algorithm>
 #include <functional>
+#include <memory>
 using std::max; using std::min;
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline thread_local dim3 threadIdx, blockIdx;
@@ -37,6 +38,39 @@ inline int __reduce_add_sync(unsigned, int v) {
   __syncthreads();
   return s;
 }
+// warp collectives of the radix sort: a barrier per warp, slots per lane
+inline thread_local std::barrier<>* t_warp_bar = nullptr;
+inline unsigned g_lane_slots[1024];
+inline unsigned __ballot_sync(unsigned, int pred) {
+  int t = threadIdx.x; g_lane_slots[t] = pred != 0; t_warp_bar->arrive_and_wait();
+  int base = t & ~31; unsigned m = 0;
+  for (int i = base; i < base + 32 && i < (int)blockDim.x; ++i)
+    if (g_lane_slots[i]) m |= 1u << (i - base);
+  t_warp_bar->arrive_and_wait();
+  return m;
+}
+inline int __shfl_sync(unsigned, int v, int src) {
+  int t = threadIdx.x; g_lane_slots[t] = (unsigned)v; t_warp_bar->arrive_and_wait();
+  int r = (int)g_lane_slots[(t & ~31) + (src & 31)];
+  t_warp_bar->arrive_and_wait();
+  return r;
+}
+inline int __shfl_up_sync(unsigned, int v, unsigned delta) {
+  int t = threadIdx.x; g_lane_slots[t] = (unsigned)v; t_warp_bar->arrive_and_wait();
+  int r = (t & 31) >= (int)delta ? (int)g_lane_slots[t - delta] : v;
+  t_warp_bar->arrive_and_wait();
+  return r;
+}
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  int t = threadIdx.x; g_lane_slots[t] = v; t_warp_bar->arrive_and_wait();
+  int base = t & ~31; unsigned r = 0;
+  for (int i = base; i < base + 32 && i < (int)blockDim.x; ++i) r |= g_lane_slots[i];
+  t_warp_bar->arrive_and_wait();
+  return r;
+}
+inline void __syncwarp(unsigned = 0xffffffffu) { t_warp_bar->arrive_and_wait(); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __syncthreads_or(int v) {
   g_warp_slots[threadIdx.x] = v; __syncthreads();
   int any = 0;
@@ -69,11 +103,15 @@ template <class F, class... A> void mock_launch(F f, A... args) {
   g_dyn_smem.assign(g_smem_bytes + 16, 0);
   std::barrier<> bar(block);
   g_bar = &bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+  for (unsigned w = 0; w * 32 < block; ++w)
+    warp_bars.emplace_back(new std::barrier<>(std::min(32u, block - w * 32)));
   std::vector<std::thread> ts;
   ts.reserve(block);
   for (unsigned t = 0; t < block; ++t) {
     ts.emplace_back([&, t]() {
       threadIdx = dim3(t);
+      t_warp_bar = warp_bars[t / 32].get();
       for (unsigned b = 0; b < grid; ++b) {
         blockIdx = dim3(b);
         f(args...);

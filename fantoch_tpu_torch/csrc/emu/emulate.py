@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` is translated to C++ over ``cuda_mock.h`` (every
 ``k<<<grid, block, smem, stream>>>(...)`` becomes a loop over the blocks
 in order, each block's threads real OS threads meeting at a barrier for
 ``__syncthreads``; atomics are ``std::atomic_ref``; warp collectives are
-emulated with block barriers) and compiled with ``g++`` into
+emulated with barriers: ``__reduce_add_sync`` and ``__syncthreads_or`` on
+the block's, ballots, shuffles, ``__reduce_or_sync`` and ``__syncwarp`` on
+one per warp) and compiled with ``g++`` into
 ``fantoch_tpu_torch/build/emu/``.  Inside ``with emulated():`` every kernel
 wrapper of ``ops/graph_plane_kernels.py``, ``ops/table_kernels.py`` and
 ``ops/pred_kernels.py`` takes its CUDA route on CPU tensors and launches

@@ -26,7 +26,6 @@
 
 #define EW_BLOCK 256     // elementwise kernels
 #define SCAN_BLOCK 1024  // block scans (all threads take part)
-#define SORT_CHUNK 2048  // bitonic elements per block in shared memory
 
 #define CHECK_LAUNCH()                         \
   do {                                         \
@@ -165,123 +164,486 @@ extern "C" int gp_prologue(int32_t* deps, int32_t* key, int32_t* src, int32_t* s
 }
 
 // ---------------------------------------------------------------------------
-// 2. stable lexicographic sort: one LSD pass per key, bitonic over u64 words
+// 2. stable lexicographic sort: an LSD radix sort of (key digit, position)
 // ---------------------------------------------------------------------------
+// Columns go from the last key to the first.  A column's first digit pass
+// reads its key through the running permutation (the previous column's
+// result; the identity for the first column), so its values are the
+// original positions; every later pass moves 4-byte (key, value) pairs.
+// int32 keys are biased (^ 0x80000000) to sort as signed and take four
+// 8-bit passes; a bool key (kind 1) or an inverted bool key (kind 2) takes
+// one 1-bit pass.  A pass is stable by construction, so the original index
+// is the last key without being stored.  It replaces the first version's
+// bitonic network over padded (key << 32 | position) words, 55 launches at
+// 2^20 each moving the whole 8 MB array; at the port's sizes its launches,
+// not its bytes, bound it (the byte bound of one key at 2^20 is 0.0025 ms).
+//
+// One digit pass over n > RADIX_SMALL_N elements is three launches: a
+// per-tile digit histogram, the exclusive scan of the digit-major
+// [bins x tiles] counts (one warp per digit, plus each digit's total),
+// and the stable scatter.  In the scatter each warp ranks its 32 x
+// RADIX_ITEMS consecutive elements inside their digit (the lanes holding
+// the same digit by ballots, the lower ones among them, and the warp's
+// running count of the digit in shared memory); one shuffle scan over the
+// digits gives the tile's digit starts and the array's; the tile is
+// sorted into shared memory and written out in order, so consecutive
+// threads store consecutive words of a digit's run.  No block waits on
+// another block.
+//
+// A digit that every key of a column shares moves nothing: the first
+// pass's histogram also ORs the column's keys and their complements into
+// two device words, and the column's later passes whose digit is constant
+// return at once (the last one copies its input to the column's result),
+// the passes after them reading from where the last moving pass wrote.
+// Most keys are far below 2^24 (positions, key ids, process ids), so this
+// skips one to three of an int32 column's four passes without a host read.
+//
+// Up to RADIX_SMALL_N elements one block holds the whole array in shared
+// memory and runs every pass of every column in one launch.
 
-// kind 0: int32 key (signed order); 1: bool key; 2: inverted bool key
-__global__ void k_sort_make(const void* key, int kind, const int32_t* perm,
-                            unsigned long long* vals, int n, int npad) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= npad) return;
-  if (i >= n) {
-    vals[i] = ~0ull;  // padding sorts last
+#define RADIX_THREADS 256
+#define RADIX_WARPS (RADIX_THREADS / 32)
+#define RADIX_ITEMS 8  // a tile is RADIX_THREADS x RADIX_ITEMS elements
+#define RADIX_TILE (RADIX_THREADS * RADIX_ITEMS)
+#define RADIX_BINS 256
+#define RADIX_SMALL_ITEMS 16
+#define RADIX_SMALL_N (RADIX_THREADS * RADIX_SMALL_ITEMS)
+#define SCAN_SEG 256  // tile counts a scanning warp holds at a time
+#define SCAN_SKEWED (SCAN_SEG + SCAN_SEG / 32)
+#define LEX_MAX_KEYS 8
+#define FULL_MASK 0xffffffffu
+static_assert(RADIX_THREADS == RADIX_BINS, "a radix block's thread d owns digit d");
+
+// the columns of one sort, most significant first; kind 0 int32, 1 bool,
+// 2 inverted bool
+struct LexKeys {
+  const void* col[LEX_MAX_KEYS];
+  int kind[LEX_MAX_KEYS];
+};
+
+// a pass's input: a key column read through perm (first pass of a column;
+// perm null for the identity) or the previous pass's (keys, vals)
+struct RadixSrc {
+  const void* col;
+  int kind;
+  const int32_t* perm;
+  const uint32_t* keys;
+  const int32_t* vals;
+};
+
+// one digit pass of one column over n > RADIX_SMALL_N elements
+struct RadixPass {
+  const void* col;  // the column, read through perm
+  int kind;
+  const int32_t* perm;  // null: the identity
+  uint32_t* keys0;  // the (key, value) buffers between passes
+  int32_t* vals0;
+  uint32_t* keys1;
+  int32_t* vals1;
+  int32_t* out;               // the column's result
+  const int32_t* through;     // applied to the last column's result
+  unsigned* varying;          // [2]: OR of the column's keys, of their complements
+  int pass, passes, bits;
+};
+
+__device__ __forceinline__ bool pass_moves(const RadixPass& P, int q) {
+  unsigned vary = P.varying[0] & P.varying[1];
+  return ((vary >> (q * 8)) & ((1u << P.bits) - 1u)) != 0;
+}
+
+// the passes before this one that moved elements
+__device__ __forceinline__ int moved_before(const RadixPass& P) {
+  int m = 0;
+  for (int q = 0; q < P.pass; ++q) m += pass_moves(P, q) ? 1 : 0;
+  return m;
+}
+
+// where this pass reads: the column, or the buffer the last moving pass wrote
+__device__ __forceinline__ RadixSrc pass_input(const RadixPass& P, int moved) {
+  RadixSrc s = {P.col, P.kind, P.perm, nullptr, nullptr};
+  if (moved > 0) {
+    s.keys = (moved & 1) ? P.keys0 : P.keys1;
+    s.vals = (moved & 1) ? P.vals0 : P.vals1;
+  }
+  return s;
+}
+
+// column c of the kernel parameter by compile-time indices (a parameter
+// indexed at run time would be copied to a stack frame)
+__device__ __forceinline__ void lex_column(const LexKeys& keys, int c, const void*& col,
+                                           int& kind) {
+#pragma unroll
+  for (int i = 0; i < LEX_MAX_KEYS; ++i) {
+    if (i == c) {
+      col = keys.col[i];
+      kind = keys.kind[i];
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned column_key(const void* col, int kind, int j) {
+  if (kind == 0) return (unsigned)((const int32_t*)col)[j] ^ 0x80000000u;
+  unsigned b = ((const uint8_t*)col)[j] ? 1u : 0u;
+  return kind == 2 ? 1u - b : b;
+}
+
+__device__ __forceinline__ void load_pair(const RadixSrc& s, long i, unsigned& key,
+                                          int& val) {
+  if (s.keys) {
+    key = s.keys[i];
+    val = s.vals[i];
     return;
   }
-  int j = perm ? perm[i] : i;
-  unsigned k;
-  if (kind == 0) {
-    k = (unsigned)((const int32_t*)key)[j] ^ 0x80000000u;
-  } else {
-    unsigned b = ((const uint8_t*)key)[j] ? 1u : 0u;
-    k = kind == 2 ? 1u - b : b;
-  }
-  vals[i] = ((unsigned long long)k << 32) | (unsigned)i;
+  int j = s.perm ? s.perm[i] : (int)i;
+  key = column_key(s.col, s.kind, j);
+  val = j;
 }
 
-__device__ __forceinline__ void cmp_swap(unsigned long long* a, unsigned long long* b,
-                                         bool asc) {
-  unsigned long long x = *a, y = *b;
-  if ((x > y) == asc && x != y) {
-    *a = y;
-    *b = x;
+// Rank ITEMS elements a thread (element it of the warp's run sits at
+// it * 32 + lane) inside their digit, in order: the lanes holding the same
+// digit (one ballot a digit bit: cheaper on sm_90 than __match_any_sync),
+// the leader (the lowest of them) taking their count from the warp's
+// running count of the digit (a shared atomic) and passing the old count
+// on (a shuffle), and the lower lanes among them.
+// whist[warp * RADIX_BINS + d] ends as the warp's count of digit d (zeroed
+// by the caller).  Elements past the end of the array are a suffix of the
+// order, so what they add reaches no element that is written.
+template <int ITEMS>
+__device__ __forceinline__ void rank_items(const unsigned (&key)[ITEMS], int shift,
+                                           unsigned mask, int* whist, int (&rank)[ITEMS]) {
+  int lane = threadIdx.x & 31;
+  int* h = whist + (threadIdx.x >> 5) * RADIX_BINS;
+  unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    unsigned d = (key[it] >> shift) & mask;
+    unsigned peers = FULL_MASK;
+    for (int b = 0; (mask >> b) & 1u; ++b) {
+      unsigned bit = (d >> b) & 1u;
+      unsigned set = __ballot_sync(FULL_MASK, bit);
+      peers &= bit ? set : ~set;
+    }
+    int leader = __ffs(peers) - 1;
+    int before = 0;
+    if (lane == leader) before = atomicAdd(&h[d], __popc(peers));
+    before = __shfl_sync(FULL_MASK, before, leader);
+    rank[it] = before + __popc(peers & lower);
   }
 }
 
-// sort every chunk in shared memory (all merge levels k <= chunk), with the
-// direction of the global bitonic network
-__global__ void k_bitonic_local(unsigned long long* v, int chunk) {
-  extern __shared__ unsigned long long sh[];
-  long base = (long)blockIdx.x * chunk;
-  for (int t = threadIdx.x; t < chunk; t += blockDim.x) sh[t] = v[base + t];
+// exclusive sums of a and of b over a RADIX_THREADS block (warp shuffles,
+// then the warp totals); every thread must call it.  sh: 2 * RADIX_WARPS
+__device__ __forceinline__ void block_excl_sum2(int a, int b, int& ea, int& eb, int* sh) {
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int ia = a, ib = b;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    int ya = __shfl_up_sync(FULL_MASK, ia, off);
+    int yb = __shfl_up_sync(FULL_MASK, ib, off);
+    if (lane >= off) {
+      ia += ya;
+      ib += yb;
+    }
+  }
+  if (lane == 31) {
+    sh[warp] = ia;
+    sh[RADIX_WARPS + warp] = ib;
+  }
   __syncthreads();
-  for (int k = 2; k <= chunk; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < chunk / 2; t += blockDim.x) {
-        int i = 2 * j * (t / j) + (t % j);
-        cmp_swap(&sh[i], &sh[i + j], ((base + i) & k) == 0);
+  ea = ia - a;
+  eb = ib - b;
+  for (int w = 0; w < warp; ++w) {
+    ea += sh[w];
+    eb += sh[RADIX_WARPS + w];
+  }
+  __syncthreads();
+}
+
+// per tile: the count of each digit (per-warp shared histograms, summed),
+// written digit-major counts[d * tiles + t]; the first pass of a column
+// also ORs its keys and their complements into P.varying (zeroed by the
+// launcher)
+__global__ void k_radix_hist(RadixPass P, int32_t* counts, int tiles, int n) {
+  __shared__ int whist[RADIX_WARPS * RADIX_BINS];
+  __shared__ unsigned vary[2];
+  if (P.pass > 0 && !pass_moves(P, P.pass)) return;
+  RadixSrc s = pass_input(P, moved_before(P));
+  int nb = 1 << P.bits, shift = P.pass * 8;
+  for (int t = threadIdx.x; t < RADIX_WARPS * RADIX_BINS; t += blockDim.x) whist[t] = 0;
+  if (threadIdx.x < 2) vary[threadIdx.x] = 0;
+  __syncthreads();
+  int* h = whist + (threadIdx.x >> 5) * RADIX_BINS;
+  long base = (long)blockIdx.x * RADIX_TILE + (threadIdx.x >> 5) * 32 * RADIX_ITEMS +
+              (threadIdx.x & 31);
+  unsigned any = 0, any_not = 0;
+#pragma unroll
+  for (int it = 0; it < RADIX_ITEMS; ++it) {
+    long i = base + it * 32;
+    if (i < n) {
+      unsigned key;
+      int val;
+      load_pair(s, i, key, val);
+      atomicAdd(&h[(key >> shift) & (unsigned)(nb - 1)], 1);
+      any |= key;
+      any_not |= ~key;
+    }
+  }
+  if (P.pass == 0) {
+    any = __reduce_or_sync(FULL_MASK, any);
+    any_not = __reduce_or_sync(FULL_MASK, any_not);
+    if ((threadIdx.x & 31) == 0) {
+      atomicOr(&vary[0], any);
+      atomicOr(&vary[1], any_not);
+    }
+  }
+  __syncthreads();
+  if (P.pass == 0 && threadIdx.x < 2) atomicOr(&P.varying[threadIdx.x], vary[threadIdx.x]);
+  for (int d = threadIdx.x; d < nb; d += blockDim.x) {
+    int c = 0;
+    for (int w = 0; w < RADIX_WARPS; ++w) c += whist[w * RADIX_BINS + d];
+    counts[(long)d * tiles + blockIdx.x] = c;
+  }
+}
+
+// One warp per digit: the exclusive scan of its tiles' counts, in place,
+// and the digit's total.  The row passes through shared memory SCAN_SEG
+// counts at a time, loaded and stored coalesced (skewed by one word every
+// 32, so that the lanes' runs hit distinct banks); each lane sums a run of
+// consecutive counts, the lanes' sums are scanned by shuffles, and each
+// lane rewrites its run.
+__global__ void k_radix_scan(RadixPass P, int32_t* counts, int32_t* totals, int tiles) {
+  __shared__ int seg[RADIX_WARPS * SCAN_SKEWED];
+  int d = blockIdx.x * RADIX_WARPS + (threadIdx.x >> 5);
+  if (!pass_moves(P, P.pass) || d >= (1 << P.bits)) return;  // whole warps
+  int lane = threadIdx.x & 31;
+  int* sh = seg + (threadIdx.x >> 5) * SCAN_SKEWED;
+  int32_t* row = counts + (long)d * tiles;
+  int carry = 0;
+  for (int base = 0; base < tiles; base += SCAN_SEG) {
+    int len = tiles - base < SCAN_SEG ? tiles - base : SCAN_SEG;
+    for (int t = lane; t < len; t += 32) sh[t + (t >> 5)] = row[base + t];
+    __syncwarp();
+    int per = (len + 31) >> 5;
+    int lo = lane * per, hi = lo + per < len ? lo + per : len;
+    int sum = 0;
+    for (int t = lo; t < hi; ++t) sum += sh[t + (t >> 5)];
+    int inc = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      int y = __shfl_up_sync(FULL_MASK, inc, off);
+      if (lane >= off) inc += y;
+    }
+    int run = carry + inc - sum;
+    for (int t = lo; t < hi; ++t) {
+      int c = sh[t + (t >> 5)];
+      sh[t + (t >> 5)] = run;
+      run += c;
+    }
+    carry += __shfl_sync(FULL_MASK, inc, 31);
+    __syncwarp();
+    for (int t = lane; t < len; t += 32) row[base + t] = sh[t + (t >> 5)];
+    __syncwarp();
+  }
+  if (lane == 0) totals[d] = carry;
+}
+
+// After rank_items: thread d turns the warps' counts of digit d into each
+// warp's first position for it inside the block's sorted elements, and
+// returns the block's count of d (0 past nb).  `excess` elements past the
+// end of the array were counted as digit 0.
+__device__ __forceinline__ int digit_counts(int* whist, int nb, int excess) {
+  int d = threadIdx.x, cnt = 0;
+  if (d < nb) {
+    for (int w = 0; w < RADIX_WARPS; ++w) {
+      int c = whist[w * RADIX_BINS + d];
+      whist[w * RADIX_BINS + d] = cnt;
+      cnt += c;
+    }
+  }
+  return d == 0 ? cnt - excess : cnt;
+}
+
+// the stable scatter of one tile; the last pass of a column writes only
+// the values (through P.through when given), and copies them when its
+// digit is constant
+__global__ void k_radix_scatter(RadixPass P, const int32_t* counts, const int32_t* totals,
+                                int tiles, int n) {
+  __shared__ int whist[RADIX_WARPS * RADIX_BINS];
+  __shared__ int delta[RADIX_BINS];  // a digit's output position less its tile one
+  __shared__ int sh[2 * RADIX_WARPS];
+  __shared__ unsigned skey[RADIX_TILE];
+  __shared__ int sval[RADIX_TILE];
+  bool last = P.pass == P.passes - 1;
+  int moved = moved_before(P);
+  RadixSrc s = pass_input(P, moved);
+  long tile0 = (long)blockIdx.x * RADIX_TILE;
+  int tile_n = n - tile0 < RADIX_TILE ? (int)(n - tile0) : RADIX_TILE;
+  if (!pass_moves(P, P.pass)) {
+    if (!last) return;
+    for (int i = threadIdx.x; i < tile_n; i += blockDim.x) {
+      unsigned key;
+      int val;
+      load_pair(s, tile0 + i, key, val);
+      P.out[tile0 + i] = P.through ? P.through[val] : val;
+    }
+    return;
+  }
+  uint32_t* keys_out = last ? nullptr : ((moved & 1) ? P.keys1 : P.keys0);
+  int32_t* vals_out = last ? P.out : ((moved & 1) ? P.vals1 : P.vals0);
+  const int32_t* through = last ? P.through : nullptr;
+  int nb = 1 << P.bits, shift = P.pass * 8;
+  unsigned mask = (unsigned)(nb - 1);
+  for (int t = threadIdx.x; t < RADIX_WARPS * RADIX_BINS; t += blockDim.x) whist[t] = 0;
+  // thread d's digit total and this tile's offset in it, read with the keys
+  int d = threadIdx.x;
+  int total = d < nb ? totals[d] : 0;
+  int offset = d < nb ? counts[(long)d * tiles + blockIdx.x] : 0;
+  int lane = threadIdx.x & 31;
+  int first = (threadIdx.x >> 5) * 32 * RADIX_ITEMS + lane;  // in the tile
+  unsigned key[RADIX_ITEMS];
+  int val[RADIX_ITEMS], rank[RADIX_ITEMS];
+#pragma unroll
+  for (int it = 0; it < RADIX_ITEMS; ++it) {
+    key[it] = 0;
+    val[it] = 0;
+    if (first + it * 32 < tile_n) load_pair(s, tile0 + first + it * 32, key[it], val[it]);
+  }
+  __syncthreads();
+  rank_items<RADIX_ITEMS>(key, shift, mask, whist, rank);
+  __syncthreads();
+  int cnt = digit_counts(whist, nb, RADIX_TILE - tile_n);
+  int start, digit_start;
+  block_excl_sum2(cnt, total, start, digit_start, sh);
+  if (d < nb) {
+    delta[d] = digit_start + offset - start;
+    for (int w = 0; w < RADIX_WARPS; ++w) whist[w * RADIX_BINS + d] += start;
+  }
+  __syncthreads();
+  const int* h = whist + (threadIdx.x >> 5) * RADIX_BINS;
+#pragma unroll
+  for (int it = 0; it < RADIX_ITEMS; ++it) {
+    if (first + it * 32 >= tile_n) continue;
+    int at = h[(key[it] >> shift) & mask] + rank[it];
+    skey[at] = key[it];
+    sval[at] = val[it];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < tile_n; i += blockDim.x) {
+    unsigned k = skey[i];
+    int dst = delta[(k >> shift) & mask] + i;
+    if (keys_out) keys_out[dst] = k;
+    vals_out[dst] = through ? through[sval[i]] : sval[i];
+  }
+}
+
+// n <= RADIX_SMALL_N: every pass of every column in one block, the
+// permutation and the keys in shared memory
+__global__ void k_radix_small(LexKeys keys, int ncols, const int32_t* through,
+                              int32_t* out, int n) {
+  __shared__ unsigned skey[RADIX_SMALL_N];
+  __shared__ int sval[RADIX_SMALL_N];
+  __shared__ int whist[RADIX_WARPS * RADIX_BINS];
+  __shared__ int sh[2 * RADIX_WARPS];
+  int lane = threadIdx.x & 31;
+  int base = (threadIdx.x >> 5) * 32 * RADIX_SMALL_ITEMS + lane;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) sval[i] = i;
+  __syncthreads();
+  for (int c = ncols - 1; c >= 0; --c) {
+    const void* col = nullptr;
+    int kind = 0;
+    lex_column(keys, c, col, kind);
+    int passes = kind == 0 ? 4 : 1, bits = kind == 0 ? 8 : 1, nb = 1 << bits;
+    for (int p = 0; p < passes; ++p) {
+      int shift = p * 8;
+      unsigned key[RADIX_SMALL_ITEMS];
+      int val[RADIX_SMALL_ITEMS], rank[RADIX_SMALL_ITEMS];
+#pragma unroll
+      for (int it = 0; it < RADIX_SMALL_ITEMS; ++it) {
+        int i = base + it * 32;
+        key[it] = 0;
+        val[it] = 0;
+        if (i < n) {
+          val[it] = sval[i];
+          key[it] = p == 0 ? column_key(col, kind, val[it]) : skey[i];
+        }
+      }
+      for (int t = threadIdx.x; t < RADIX_WARPS * RADIX_BINS; t += blockDim.x) whist[t] = 0;
+      __syncthreads();
+      rank_items<RADIX_SMALL_ITEMS>(key, shift, (unsigned)(nb - 1), whist, rank);
+      __syncthreads();
+      // the slots past n hold key 0: digit 0 counted them too, after
+      // every valid element, so no rank above moved
+      int d = threadIdx.x;
+      int cnt = digit_counts(whist, nb, RADIX_SMALL_N - n);
+      int start, unused;
+      block_excl_sum2(cnt, 0, start, unused, sh);
+      if (d < nb)
+        for (int w = 0; w < RADIX_WARPS; ++w) whist[w * RADIX_BINS + d] += start;
+      __syncthreads();
+      const int* h = whist + (threadIdx.x >> 5) * RADIX_BINS;
+      unsigned mask = (unsigned)(nb - 1);
+#pragma unroll
+      for (int it = 0; it < RADIX_SMALL_ITEMS; ++it) {
+        if (base + it * 32 >= n) continue;
+        int dst = h[(key[it] >> shift) & mask] + rank[it];
+        skey[dst] = key[it];
+        sval[dst] = val[it];
       }
       __syncthreads();
     }
   }
-  for (int t = threadIdx.x; t < chunk; t += blockDim.x) v[base + t] = sh[t];
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    out[i] = through ? through[sval[i]] : sval[i];
 }
 
-// one compare-exchange step of merge level k at a stride j >= chunk
-__global__ void k_bitonic_global(unsigned long long* v, int j, int k, int npad) {
-  long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= npad / 2) return;
-  long i = 2L * j * (t / j) + (t % j);
-  cmp_swap(&v[i], &v[i + j], (i & k) == 0);
-}
-
-// the strides j < chunk of merge level k, in shared memory
-__global__ void k_bitonic_merge(unsigned long long* v, int chunk, int k) {
-  extern __shared__ unsigned long long sh[];
-  long base = (long)blockIdx.x * chunk;
-  for (int t = threadIdx.x; t < chunk; t += blockDim.x) sh[t] = v[base + t];
-  __syncthreads();
-  for (int j = chunk >> 1; j > 0; j >>= 1) {
-    for (int t = threadIdx.x; t < chunk / 2; t += blockDim.x) {
-      int i = 2 * j * (t / j) + (t % j);
-      cmp_swap(&sh[i], &sh[i + j], ((base + i) & k) == 0);
-    }
-    __syncthreads();
+// out[i] = through[perm[i]] (through optional), perm the stable
+// lexicographic argsort of the ncols columns (col0 most significant, the
+// index last).  scratch: 6n + RADIX_BINS * (tiles + 1) + 2 * LEX_MAX_KEYS
+// ints for n > RADIX_SMALL_N (two permutations, two (key, value) buffers,
+// the counts, the digit totals and the columns' varying bits), unused
+// otherwise.
+extern "C" int gp_lex_sort(const void* col0, const void* col1, const void* col2,
+                           const void* col3, const void* col4, const void* col5,
+                           const void* col6, const void* col7, const int32_t* through,
+                           int32_t* out, int32_t* scratch, int kind0, int kind1,
+                           int kind2, int kind3, int kind4, int kind5, int kind6,
+                           int kind7, int ncols, int n, cudaStream_t stream) {
+  if (n <= 0 || ncols < 1 || ncols > LEX_MAX_KEYS) return n <= 0 ? 0 : -1;
+  LexKeys keys = {{col0, col1, col2, col3, col4, col5, col6, col7},
+                  {kind0, kind1, kind2, kind3, kind4, kind5, kind6, kind7}};
+  if (n <= RADIX_SMALL_N) {
+    k_radix_small<<<1, RADIX_THREADS, 0, stream>>>(keys, ncols, through, out, n);
+    CHECK_LAUNCH();
+    return (int)cudaGetLastError();
   }
-  for (int t = threadIdx.x; t < chunk; t += blockDim.x) v[base + t] = sh[t];
-}
-
-__global__ void k_sort_apply(const unsigned long long* vals, const int32_t* perm,
-                             const int32_t* through, int32_t* out, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int pos = (int)(unsigned)(vals[i] & 0xffffffffull);
-  int j = perm ? perm[pos] : pos;
-  out[i] = through ? through[j] : j;
-}
-
-static int bitonic_sort(unsigned long long* v, int npad, cudaStream_t stream) {
-  if (npad < 2) return 0;
-  int chunk = npad < SORT_CHUNK ? npad : SORT_CHUNK;
-  int threads = chunk / 2;
-  size_t shmem = (size_t)chunk * sizeof(unsigned long long);
-  k_bitonic_local<<<npad / chunk, threads, shmem, stream>>>(v, chunk);
-  CHECK_LAUNCH();
-  for (int k = chunk * 2; k <= npad; k <<= 1) {
-    for (int j = k >> 1; j >= chunk; j >>= 1) {
-      k_bitonic_global<<<grid_for(npad / 2, EW_BLOCK), EW_BLOCK, 0, stream>>>(v, j, k,
-                                                                               npad);
+  int tiles = (int)grid_for(n, RADIX_TILE);
+  long ln = n;
+  int32_t* perm_buf[2] = {scratch, scratch + ln};
+  int32_t* counts = scratch + 6 * ln;
+  int32_t* totals = counts + (long)RADIX_BINS * tiles;
+  unsigned* varying = (unsigned*)(totals + RADIX_BINS);
+  cudaError_t err = cudaMemsetAsync(varying, 0, 2 * LEX_MAX_KEYS * sizeof(unsigned), stream);
+  if (err != cudaSuccess) return (int)err;
+  const int32_t* perm = nullptr;
+  for (int c = ncols - 1, j = 0; c >= 0; --c, ++j) {
+    int kind = keys.kind[c];
+    RadixPass P = {keys.col[c], kind, perm,
+                   (uint32_t*)(scratch + 2 * ln), scratch + 3 * ln,
+                   (uint32_t*)(scratch + 4 * ln), scratch + 5 * ln,
+                   c == 0 ? out : perm_buf[j & 1], c == 0 ? through : nullptr,
+                   varying + 2 * c, 0, kind == 0 ? 4 : 1, kind == 0 ? 8 : 1};
+    for (int p = 0; p < P.passes; ++p) {
+      P.pass = p;
+      k_radix_hist<<<tiles, RADIX_THREADS, 0, stream>>>(P, counts, tiles, n);
+      CHECK_LAUNCH();
+      k_radix_scan<<<grid_for(1 << P.bits, RADIX_WARPS), RADIX_THREADS, 0, stream>>>(
+          P, counts, totals, tiles);
+      CHECK_LAUNCH();
+      k_radix_scatter<<<tiles, RADIX_THREADS, 0, stream>>>(P, counts, totals, tiles, n);
       CHECK_LAUNCH();
     }
-    k_bitonic_merge<<<npad / chunk, threads, shmem, stream>>>(v, chunk, k);
-    CHECK_LAUNCH();
+    perm = P.out;
   }
-  return 0;
-}
-
-// one LSD pass: out[i] = through[perm[sorted position i]] (through, perm
-// optional); stable because each word carries its position
-extern "C" int gp_sort_pass(const void* key, int kind, const int32_t* perm,
-                            unsigned long long* vals, const int32_t* through,
-                            int32_t* out, int n, int npad, cudaStream_t stream) {
-  if (n <= 0) return 0;
-  k_sort_make<<<grid_for(npad, EW_BLOCK), EW_BLOCK, 0, stream>>>(key, kind, perm, vals,
-                                                                 n, npad);
-  CHECK_LAUNCH();
-  int err = bitonic_sort(vals, npad, stream);
-  if (err) return err;
-  k_sort_apply<<<grid_for(n, EW_BLOCK), EW_BLOCK, 0, stream>>>(vals, perm, through, out,
-                                                               n);
-  CHECK_LAUNCH();
   return (int)cudaGetLastError();
 }
 

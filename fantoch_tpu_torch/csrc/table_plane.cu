@@ -26,7 +26,7 @@
 
 #define EW_BLOCK 256     // elementwise kernels
 #define SCAN_BLOCK 1024  // block scans (all threads take part)
-#define MAX_VOTERS 16    // stable_rows sorts a frontier row in registers
+#define MAX_VOTERS 16    // stable_rows ranks a frontier row in registers
 
 #define CHECK_LAUNCH()                         \
   do {                                         \
@@ -471,31 +471,53 @@ __global__ void k_dense_lanes(int32_t* frontier, const int32_t* prior_old,
   }
 }
 
-// one thread per key: its n <= MAX_VOTERS frontier cells insertion-sorted
-// in registers, then the cell at sorted index c
-__global__ void k_stable_rows(const int32_t* frontier, int32_t* stable, int K, int n,
-                              int c) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  const int32_t* row = frontier + (long)k * n;
-  int v[MAX_VOTERS];
+// The cell at sorted index c of each of a block's EW_BLOCK rows.  The
+// rows' N cells load into shared memory coalesced (consecutive threads on
+// consecutive words), each row at an odd stride so that the threads'
+// reads of their rows hit distinct banks; then one thread a row ranks its
+// cells (the cells below, plus the equal cells before) with every index
+// known at compile time, so they stay in registers, and keeps the cell of
+// rank c.  The ranks are a permutation of 0..N-1, as a stable sort's.
+template <int N>
+__device__ __forceinline__ void stable_select(const int32_t* frontier, int32_t* stable,
+                                              int K, int c, int* sh) {
+  constexpr int STRIDE = N | 1;
+  int row0 = blockIdx.x * EW_BLOCK;
+  int rows = K - row0 < EW_BLOCK ? K - row0 : EW_BLOCK;
+  const int32_t* src = frontier + (long)row0 * N;
+  for (int t = threadIdx.x; t < rows * N; t += blockDim.x)
+    sh[(t / N) * STRIDE + t % N] = src[t];
+  __syncthreads();
+  if ((int)threadIdx.x >= rows) return;
+  int v[N];
 #pragma unroll
-  for (int i = 0; i < MAX_VOTERS; ++i) {
-    if (i < n) {
-      int x = row[i];
-      int j = i;
-      while (j > 0 && v[j - 1] > x) {
-        v[j] = v[j - 1];
-        --j;
-      }
-      v[j] = x;
-    }
-  }
+  for (int i = 0; i < N; ++i) v[i] = sh[threadIdx.x * STRIDE + i];
   int out = v[0];
 #pragma unroll
-  for (int i = 0; i < MAX_VOTERS; ++i)
-    if (i == c) out = v[i];
-  stable[k] = out;
+  for (int i = 0; i < N; ++i) {
+    int r = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) r += v[j] < v[i] || (j < i && v[j] == v[i]);
+    out = r == c ? v[i] : out;
+  }
+  stable[row0 + threadIdx.x] = out;
+}
+
+#define STABLE_CASE(N)                                \
+  case N:                                             \
+    stable_select<N>(frontier, stable, K, c, sh);     \
+    break;
+
+// stable[k] = the (c + 1)-th smallest of frontier[k, 0..n), n <= MAX_VOTERS
+__global__ void k_stable_select(const int32_t* frontier, int32_t* stable, int K, int n,
+                                int c) {
+  __shared__ int sh[EW_BLOCK * (MAX_VOTERS | 1)];
+  switch (n) {
+    STABLE_CASE(1) STABLE_CASE(2) STABLE_CASE(3) STABLE_CASE(4)
+    STABLE_CASE(5) STABLE_CASE(6) STABLE_CASE(7) STABLE_CASE(8)
+    STABLE_CASE(9) STABLE_CASE(10) STABLE_CASE(11) STABLE_CASE(12)
+    STABLE_CASE(13) STABLE_CASE(14) STABLE_CASE(15) STABLE_CASE(16)
+  }
 }
 
 __global__ void k_dense_exec(const int32_t* key, const int32_t* clock,
@@ -504,31 +526,38 @@ __global__ void k_dense_exec(const int32_t* key, const int32_t* clock,
   if (b < B) executable[b] = clock[b] <= stable[key[b]];
 }
 
-// round == 0: stable only.  round == 1: the dense vote update of the table
-// round first (touched zeroed and gaps set to 0 by the caller), then the
-// stable clocks, then executable.
+// the stable clocks alone: one launch
+extern "C" int tp_stable_only(const int32_t* frontier, int32_t* stable, int K, int n,
+                              int c, cudaStream_t stream) {
+  if (K <= 0) return 0;
+  k_stable_select<<<grid_for(K, EW_BLOCK), EW_BLOCK, 0, stream>>>(frontier, stable, K, n,
+                                                                  c);
+  CHECK_LAUNCH();
+  return (int)cudaGetLastError();
+}
+
+// the table round: the dense vote update (touched zeroed and gaps set to 0
+// by the caller), then the stable clocks, then executable
 extern "C" int tp_stable_rows(int32_t* frontier, int32_t* stable, const int32_t* key,
                               const int32_t* clock, const int32_t* prior_old,
                               const int32_t* new_prior, uint8_t* touched,
                               uint8_t* executable, int32_t* gaps, int K, int n, int c,
-                              int B, int voters, int round, cudaStream_t stream) {
-  if (round) {
-    if (B > 0) {
-      k_dense_touch<<<grid_for(B, EW_BLOCK), EW_BLOCK, 0, stream>>>(key, touched, B);
-      CHECK_LAUNCH();
-    }
-    if ((long)K * n > 0) {
-      k_dense_lanes<<<grid_for((long)K * n, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-          frontier, prior_old, new_prior, touched, gaps, K, n, voters);
-      CHECK_LAUNCH();
-    }
-  }
-  if (K > 0) {
-    k_stable_rows<<<grid_for(K, EW_BLOCK), EW_BLOCK, 0, stream>>>(frontier, stable, K, n,
-                                                                  c);
+                              int B, int voters, cudaStream_t stream) {
+  if (B > 0) {
+    k_dense_touch<<<grid_for(B, EW_BLOCK), EW_BLOCK, 0, stream>>>(key, touched, B);
     CHECK_LAUNCH();
   }
-  if (round && B > 0) {
+  if ((long)K * n > 0) {
+    k_dense_lanes<<<grid_for((long)K * n, EW_BLOCK), EW_BLOCK, 0, stream>>>(
+        frontier, prior_old, new_prior, touched, gaps, K, n, voters);
+    CHECK_LAUNCH();
+  }
+  if (K > 0) {
+    k_stable_select<<<grid_for(K, EW_BLOCK), EW_BLOCK, 0, stream>>>(frontier, stable, K,
+                                                                    n, c);
+    CHECK_LAUNCH();
+  }
+  if (B > 0) {
     k_dense_exec<<<grid_for(B, EW_BLOCK), EW_BLOCK, 0, stream>>>(key, clock, stable,
                                                                  executable, B);
     CHECK_LAUNCH();

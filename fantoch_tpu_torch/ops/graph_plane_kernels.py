@@ -89,7 +89,7 @@ def num_doubling_steps(batch: int) -> int:
 # cudaError_t
 _SIGNATURES = {
     "gp_prologue": ("graph_plane_step", "p" * 19 + "i" * 6),
-    "gp_sort_pass": ("graph_plane_step", "pipppp" + "ii"),
+    "gp_lex_sort": ("graph_plane_step", "p" * 11 + "i" * 10),
     "gp_link_scan": ("graph_plane_step", "p" * 8 + "i"),
     "gp_residual_view": ("graph_plane_step", "p" * 13 + "iii"),
     "gp_group_scan": ("graph_plane_step", "pppp" + "i"),
@@ -105,7 +105,8 @@ _SIGNATURES = {
     "tp_clock_bump": ("table_plane", "ppp" + "i"),
     "tp_votes_gid": ("table_plane", "pppp" + "iii"),
     "tp_vote_runs": ("table_plane", "p" * 14 + "ii"),
-    "tp_stable_rows": ("table_plane", "p" * 9 + "i" * 6),
+    "tp_stable_only": ("table_plane", "pp" + "iii"),
+    "tp_stable_rows": ("table_plane", "p" * 9 + "i" * 5),
     # the predecessors plane's launchers (wrapper in ops/pred_kernels.py)
     "pp_one_cta": ("pred_plane", "p" * 14 + "iiii"),
     "pp_grid_prepare": ("pred_plane", "p" * 14 + "iiii"),
@@ -138,8 +139,11 @@ def _on_card(tensor: torch.Tensor) -> bool:
 
 
 def _stream(device: torch.device) -> int:
-    """The handle of the current CUDA stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of the current CUDA stream on ``device``: the raw handle
+    PyTorch's generated kernels launch on (``torch.cuda.current_stream``
+    would build a Stream object a call, most of a small launch's host
+    time)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _launch(fn: str, device: torch.device, *args) -> None:
@@ -288,13 +292,30 @@ def graph_prologue(
 # 2. stable lexicographic sort over up to 8 int32/bool columns
 # ---------------------------------------------------------------------------
 # Bound: bytes — each key column read once and the permutation written
-# once.  Design: LSD passes from the last key to the first; each pass sorts
-# 64-bit words ``(biased key << 32) | position`` with a bitonic network over
-# a power-of-two padding, so the position makes every pass stable and the
-# original index is the last key.  Strides below 2048 run in shared memory
-# (one launch per merge level), larger strides one global launch each.  A
-# bitonic network does O(n log^2 n) compare-exchanges against a radix
-# sort's O(n) passes; it is the simple, right first version.
+# once.  Design: an LSD radix sort of (key digit, position) pairs, columns
+# from the last key to the first, replacing the first version's bitonic
+# network (55 launches over padded 64-bit words at 2^20, each moving the
+# whole array).
+# A column's first digit pass reads its key through the running
+# permutation; int32 keys are biased to sort as signed and take four 8-bit
+# passes, a bool key one 1-bit pass.  A pass is stable by construction, so
+# the index is the last key without being stored, and nothing is padded.
+# Above ``RADIX_SMALL_N`` elements a pass is three launches (tile
+# histograms, the digit-major scan of the counts, the stable scatter: warp
+# ballots rank a tile, which is sorted in shared memory and written out in
+# order), so 1 int32 key is 12 launches moving ~20 bytes an element a
+# pass; the first pass of a column also ORs its keys, and the later passes
+# whose digit every key shares return at once (no host read), which skips
+# one to three passes of the small keys most columns hold.  Up to
+# ``RADIX_SMALL_N`` elements one block sorts every column in shared memory
+# in one launch.  No block waits on another.
+
+# mirror csrc/graph_plane_step.cu
+RADIX_TILE = 2048
+RADIX_BINS = 256
+RADIX_SMALL_N = 4096
+LEX_MAX_KEYS = 8
+_LEX_KIND = {torch.int32: 0, torch.bool: 1}
 
 
 def lex_sort_plain(
@@ -325,32 +346,29 @@ def lex_sort(
 ) -> torch.Tensor:
     if not _on_card(keys[0]):
         return lex_sort_plain(keys, invert, through)
-    assert 1 <= len(keys) <= 8, "lex_sort takes 1..8 key columns"
+    if not 1 <= len(keys) <= LEX_MAX_KEYS:
+        raise ValueError(f"lex_sort takes 1..{LEX_MAX_KEYS} key columns")
     n = keys[0].numel()
     device = keys[0].device
-    flips = list(invert) + [False] * (len(keys) - len(invert))
-    for k in keys:
-        if k.dtype not in (torch.int32, torch.bool):
+    kinds = []
+    for i, k in enumerate(keys):
+        if k.dtype not in _LEX_KIND:
             raise ValueError(f"lex_sort keys must be int32 or bool, got {k.dtype}")
         _check(k, k.dtype, "sort key", n)
+        flip = i < len(invert) and invert[i]
+        kinds.append(_LEX_KIND[k.dtype] + (1 if flip and k.dtype == torch.bool else 0))
     if through is not None:
         _check(through, torch.int32, "through", n)
-    npad = 2
-    while npad < n:
-        npad *= 2
-    vals = torch.empty(npad, dtype=torch.int64, device=device)
     out = _i32(n, device)
-    bufs = (_i32(n, device), _i32(n, device)) if len(keys) > 1 else ()
-    perm = None
-    for i, (k, flip) in enumerate(zip(reversed(list(keys)), reversed(flips))):
-        last = i == len(keys) - 1
-        kind = 0 if k.dtype == torch.int32 else (2 if flip else 1)
-        dest = out if last else bufs[i % 2]
-        _launch(
-            "gp_sort_pass", device, k, kind, perm, vals,
-            through if last else None, dest, n, npad,
-        )
-        perm = dest
+    scratch = None
+    if n > RADIX_SMALL_N:
+        tiles = -(-n // RADIX_TILE)
+        scratch = _i32(6 * n + RADIX_BINS * (tiles + 1) + 2 * LEX_MAX_KEYS, device)
+    pad = LEX_MAX_KEYS - len(keys)
+    _launch(
+        "gp_lex_sort", device, *keys, *([None] * pad), through, out, scratch,
+        *kinds, *([0] * pad), len(keys), n,
+    )
     LAUNCHES["lex_sort"] += 1
     return out
 

@@ -36,7 +36,7 @@ import torch
 from fantoch_tpu_torch.ops import graph_plane_kernels as K
 
 INT32_MIN = -(1 << 31)
-# stable_rows sorts a key's frontier row in registers
+# stable_rows ranks a key's frontier row in registers
 MAX_VOTERS = 16
 
 LAUNCHES: Dict[str, int] = {
@@ -250,13 +250,18 @@ def vote_runs(frontier, vkey, vby, vstart, vend, valid):
 # ---------------------------------------------------------------------------
 # Bound: bytes — the int32[K, n] frontier read once and stable[K] written
 # (the round mode reads prior_old/new_prior, key and clock once more and
-# writes the frontier and executable).  Design: one thread per key sorts
-# its n <= 16 cells in registers (insertion sort) and takes index
-# n - threshold.  The round mode first scatters ``touched`` from key, then
-# one thread per (key, process) lane advances contiguous voters (frontier
-# >= the OLD prior) to new_prior and counts the others as gaps — a warp
-# sum, a block sum and one atomicAdd per block — and finally one thread per
-# command sets executable = clock <= stable[key].
+# writes the frontier and executable).  Design: a block loads its 256 rows'
+# cells into shared memory coalesced, each row at an odd stride (no bank
+# conflicts), then one thread a row takes the cell of rank n - threshold,
+# ranking by a count unrolled for each n in 1..MAX_VOTERS (the cells below
+# plus the equal cells before), so every index is known at compile time
+# and nothing goes to local memory.  The stable-only mode is one
+# allocation and one launch (``tp_stable_only``).  The round mode first
+# scatters ``touched`` from key, then one thread per (key, process) lane
+# advances contiguous voters (frontier >= the OLD prior) to new_prior and
+# counts the others as gaps — a warp sum, a block sum and one atomicAdd
+# per block — then selects as above, and finally one thread per command
+# sets executable = clock <= stable[key].
 
 
 def _check_threshold(n: int, threshold: int) -> int:
@@ -295,29 +300,27 @@ def stable_rows(frontier, threshold: int, round=None):
     n_keys, n = frontier.shape
     col = _check_threshold(n, threshold)
     if n > MAX_VOTERS:
-        raise ValueError(f"stable_rows sorts at most {MAX_VOTERS} voters (n = {n})")
+        raise ValueError(f"stable_rows ranks at most {MAX_VOTERS} voters (n = {n})")
     device = frontier.device
     K._check(frontier, torch.int32, "frontier")
     stable = K._i32(n_keys, device)
-    key = clock = prior_old = new_prior = touched = executable = gaps = None
-    batch = voters = 0
-    if round is not None:
-        key, clock, prior_old, new_prior, voters = round
-        batch = key.numel()
-        K._check(key, torch.int32, "key", batch)
-        K._check(clock, torch.int32, "clock", batch)
-        K._check(prior_old, torch.int32, "prior_old", n_keys)
-        K._check(new_prior, torch.int32, "new_prior", n_keys)
-        touched = torch.zeros(n_keys, dtype=torch.bool, device=device)
-        executable = K._b(batch, device)
-        gaps = K._i32(1, device, 0)
+    if round is None:
+        K._launch("tp_stable_only", device, frontier, stable, n_keys, n, col)
+        LAUNCHES["stable_rows"] += 1
+        return stable
+    key, clock, prior_old, new_prior, voters = round
+    batch = key.numel()
+    K._check(key, torch.int32, "key", batch)
+    K._check(clock, torch.int32, "clock", batch)
+    K._check(prior_old, torch.int32, "prior_old", n_keys)
+    K._check(new_prior, torch.int32, "new_prior", n_keys)
+    touched = torch.zeros(n_keys, dtype=torch.bool, device=device)
+    executable = K._b(batch, device)
+    gaps = K._i32(1, device, 0)
     K._launch(
         "tp_stable_rows", device, frontier, stable, key, clock, prior_old,
-        new_prior, touched, executable, gaps, n_keys, n, col, batch,
-        int(voters), int(round is not None),
+        new_prior, touched, executable, gaps, n_keys, n, col, batch, int(voters),
     )
     LAUNCHES["stable_rows"] += 1
-    if round is None:
-        return stable
     return stable, executable, gaps.reshape(())
 
