@@ -39,17 +39,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    composition on CPU tensors), and mode ``general_resident`` at full
    width (C = 2^20 x W = 4): 2^20 commands of ``bench.py``'s general
    generator (seed 7, 4 keys per command from 4096) as 4 feeds of 2^18,
-   shuffled around the feed edges as in phase 1; each kernel is timed
-   beside its plain version and its byte bound, with the affine and peel
-   round counts;
+   shuffled around the feed edges as in phase 1; then ``resolve_general``
+   itself on 2^16 rows, above the affine loop's one-CTA gate, so the loop
+   runs as a cooperative launch; each kernel is timed beside its plain
+   version and its byte bound (the loops as one call and as the mean of
+   100, with their rounds), with the rounds per resolve and per stage
+   (the loop kernels' own device counts) and the host reads inside each
+   step;
 4. the general path end to end: ``GraphExecutor`` on ``cuda`` takes the
    2^20 multi-key commands as ``GraphAddBatch`` feeds of 250k, shuffled
    around the feed edges (every command once, each key in dependency
-   order; commands/s and p50 dispatch by mode), then EPaxos and Atlas
+   order; commands/s, the p50 and range of the dispatch time and the host
+   reads inside each step, by mode), then EPaxos and Atlas
    (n = 5, f = 2, two keys per command, 50% conflict) through
    ``sim.runner.Runner(device="cuda")`` must equal the same seed's
    ``Runner(device="cpu")`` run in per-key orders and latency histograms;
-   every general kernel must have launched in this phase;
+   every general kernel must have launched in this phase, the affine loop
+   once a resolve and the peel stage once a stage;
 5. the votes-table kernels (``csrc/table_plane.cu``) against their plain
    versions on the card, exactly, flags and counts included, each timed
    beside its plain version, its byte bound and the one PyTorch call that
@@ -118,6 +124,7 @@ REPLACES = "fantoch_tpu/ops/pallas_resolve.py:334"
 GENERAL_C = 4096  # mode general's largest window: the kernel-size gate
 GENERAL_WIDTH = 4
 GENERAL_FEED = 1024
+COOP_B = 1 << 16  # resolve_general above the one-CTA gate: the cooperative loop
 
 
 def log(msg):
@@ -236,14 +243,16 @@ class Checker:
         for name, fn in self.real.items():
             setattr(self.K, name, fn)
 
-    @staticmethod
-    def variant(name, args, kwargs):
+    def variant(self, name, args, kwargs):
         """The call's use: the sort serves five, told apart by its keys;
-        the affine round's final fold, the peel compaction's init and
-        publish and the stable clocks' table round are uses of their
-        wrappers too."""
-        if name == "affine_round" and kwargs.get("final"):
-            return "affine_round, final fold"
+        the affine loop's cooperative form (above the one-CTA gate), the
+        peel compaction's init and publish and the stable clocks' table
+        round are uses of their wrappers too (and the mutual collapse of a
+        resolve above that gate)."""
+        if name == "affine_loop" and args[0].shape[0] > self.K.AFFINE_CTA_ROWS:
+            return "affine_loop, cooperative"
+        if name == "mutual_collapse" and args[0].shape[0] > self.K.AFFINE_CTA_ROWS:
+            return "mutual_collapse, above the one-CTA gate"
         if name == "graph_prologue" and kwargs.get("general"):
             return "graph_prologue, general fold"
         if name == "peel_compact" and kwargs["mode"] != "compact":
@@ -274,8 +283,11 @@ class Checker:
             self.err[name] = max(self.err[name], err)
             self.count[name] += 1
             assert err == 0.0, f"{name}: kernel differs from its plain version"
-            # the first call at the largest row count, for each use
+            # the first call at the largest row count, for each use (for a
+            # loop kernel, of the most rows times rounds run)
             size = tensors_of(args)[0].shape[0]
+            if name in getattr(self.K, "LOOP_KERNELS", ()):
+                size *= int(got[-1].item())
             use = self.variant(name, args, kwargs)
             if use not in self.calls or size > self.calls[use][0]:
                 self.calls[use] = (size, saved, kwargs, got)
@@ -352,6 +364,20 @@ def moved_bytes(name, args, out):
         written += u_row.numel() * row_bytes + p_row.numel() * 4 + e_row.numel()
     if name == "plane_epilogue":
         written += args[1].numel()  # executed |= newly
+    if name == "affine_loop":
+        # a round reads the tgt/add/floor/missing state and the leader and
+        # member columns and writes the state; the fold reads tgt, floor,
+        # missing and leader and writes resolved/rank/stuck
+        tgt, _add, missing, leader, member_count = args[:5]
+        state = 3 * tgt.numel() * 4 + missing.numel()
+        cols = leader.numel() * 4 + member_count.numel() * 4
+        fold = 2 * tgt.numel() * 4 + missing.numel() + leader.numel() * 4
+        outs = sum(t.numel() * t.element_size() for t in out[:3])
+        return int(out[3].item()) * (2 * state + cols) + fold + outs
+    if name == "peel_stage":
+        # a round reads the stage's state and writes it
+        state = sum(t.numel() * t.element_size() for t in args[:5])
+        return int(out[5].item()) * 2 * state
     return read + written
 
 
@@ -379,6 +405,18 @@ def kernel_records(torch, K, checker, names, source, phase, extra_uses=()):
         plain_ms = time_ms(plain, args, kwargs)
         library_ms = None
         loops = {}
+        if name in K.LOOP_KERNELS:
+            # the loops: both timings, and the rounds of the timed call
+            loops["ms_loop"] = time_loop_ms(kernel, args, kwargs)
+            loops["rounds"] = int(out[-1].item())
+            loops["ms_per_round"] = ms / loops["rounds"] if loops["rounds"] else None
+        if use == "affine_loop":
+            # the same call in the cooperative form, the gate lowered
+            gate, K.AFFINE_CTA_ROWS = K.AFFINE_CTA_ROWS, 0
+            try:
+                loops["ms_cooperative_form"] = time_ms(kernel, args, kwargs)
+            finally:
+                K.AFFINE_CTA_ROWS = gate
         if name == "lex_sort":
             # the redesigned sort: both timings, the library call's too
             loops["ms_loop"] = time_loop_ms(kernel, args, kwargs)
@@ -728,14 +766,53 @@ def check_key_order(executed_seq, keys, n):
     assert np.all(pos[rr[1:]][same] > pos[rr[:-1]][same]), "a key left its order"
 
 
+class HostReads:
+    """Counts the host reads of card tensors (``item()``/``tolist()``, each a
+    sync with the card; a tensor is on the card where the kernel wrappers'
+    own test says so) that code of the module ``module`` makes while
+    installed; the Checker's own comparisons are not counted."""
+
+    def __init__(self, torch, K, module):
+        self.torch, self.K, self.module, self.n = torch, K, module, 0
+
+    def install(self):
+        Tensor = self.torch.Tensor
+        for name in ("item", "tolist"):
+            fn = getattr(Tensor, name)
+
+            def call(t, *args, _fn=fn, **kwargs):
+                caller = sys._getframe(1).f_globals.get("__name__")
+                if caller == self.module and self.K._on_card(t):
+                    self.n += 1
+                return _fn(t, *args, **kwargs)
+
+            setattr(Tensor, name, call)
+
+    def uninstall(self):
+        # the methods live on the C base class: drop the shadowing wrappers
+        del self.torch.Tensor.item, self.torch.Tensor.tolist
+
+
+RESOLVE_MODULE = "fantoch_tpu_torch.ops.graph_resolve"
+
+
 def phase3(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
+    from fantoch_tpu_torch.ops import graph_resolve
+
     checker = Checker(K)
     real_step = gp_module.resolve_graph_plane_step
     twin = {"on": True}
+    calls = {"general": 0, "general_resident": 0, "keyed": 0}
+    reads = HostReads(torch, K, RESOLVE_MODULE)
 
     def checked_step(*args, mode):
+        calls[mode] += 1
         cpu_args = [a.to("cpu", copy=True) for a in args] if twin["on"] else None
-        got = real_step(*args, mode=mode)
+        reads.install()
+        try:
+            got = real_step(*args, mode=mode)
+        finally:
+            reads.uninstall()
         if cpu_args is not None:
             checker.uninstall()
             try:
@@ -787,6 +864,10 @@ def phase3(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
                 DeviceFrontier([1, 2, 3, 4, 5]), Metrics(), slot_capacity=cap,
             )
             oracle_calls.clear()
+            for k in calls:
+                calls[k] = 0
+            reads.n = 0
+            K.reset_launch_counts()
             t0 = time.perf_counter()
             emitted = []
             before = dict(checker.count)
@@ -808,11 +889,27 @@ def phase3(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
             # wrapper calls, each checked against its plain version
             ran = {k: checker.count[k] - before[k] for k in K.LAUNCHES}
             assert plane._cap == cap, (name, plane._cap)
+            # the rounds each loop kernel ran, summed on the card
+            totals = K.round_totals()
+            # stages: every peel_compact call but the init of each resolve
+            stages = ran["peel_compact"] - calls["general_resident"]
+            assert ran["affine_loop"] == ran["mutual_collapse"], (name, ran)
+            assert ran["peel_stage"] == stages, (name, ran, calls)
             rounds[name] = {
                 "dispatches": plane.dispatches,
-                # one final fold per resolve (one mutual collapse each)
-                "affine_rounds": ran["affine_round"] - ran["mutual_collapse"],
-                "peel_rounds": ran["peel_round"],
+                "dispatches_by_mode": dict(calls),
+                "resolves": ran["affine_loop"],
+                "affine_rounds": totals["affine_loop"],
+                "affine_rounds_per_resolve": (
+                    totals["affine_loop"] / ran["affine_loop"] if ran["affine_loop"]
+                    else None),
+                "stages": ran["peel_stage"],
+                "peel_rounds": totals["peel_stage"],
+                "peel_rounds_per_stage": (
+                    totals["peel_stage"] / ran["peel_stage"] if ran["peel_stage"]
+                    else None),
+                "host_reads_in_step": reads.n,
+                "host_reads_per_dispatch": reads.n / max(plane.dispatches, 1),
                 "stuck_oracle_runs": len(oracle_calls),
                 "stuck_rows": int(sum(oracle_calls)),
                 "wall_s": time.perf_counter() - t0,
@@ -823,12 +920,41 @@ def phase3(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
                 f"kernel calls {ran}; stuck-oracle runs {len(oracle_calls)} "
                 f"({sum(oracle_calls)} rows)")
             if mode == "general":
-                for wrapper in ("mutual_collapse", "affine_round"):
+                for wrapper in ("mutual_collapse", "affine_loop"):
                     assert ran[wrapper] > 0, (name, wrapper)
             else:
-                for wrapper in ("peel_round", "peel_compact"):
+                for wrapper in ("peel_stage", "peel_compact"):
                     assert ran[wrapper] > 0, (name, wrapper)
         assert rounds["general, cycle-rich C=4096"]["stuck_oracle_runs"] > 0, rounds
+        # the cooperative form of the affine loop, above the one-CTA gate:
+        # resolve_general itself on 2^16 rows, every wrapper call checked
+        for name, deps in (
+            ("resolve_general, cooperative, rows shuffled B=2^16",
+             general_workload(COOP_B)[1][np.random.default_rng(17).permutation(COOP_B)]),
+            ("resolve_general, cooperative, cycle-rich B=2^16",
+             cycle_rich(COOP_B, GENERAL_FEED)[1]),
+        ):
+            K.reset_launch_counts()
+            before = dict(checker.count)
+            n_bad = int(((deps > np.arange(COOP_B)[:, None]) | (deps == -2)).sum())
+            t = torch.tensor(deps, device=CARD)
+            src = torch.ones(COOP_B, dtype=torch.int32, device=CARD)
+            seq = torch.arange(COOP_B, dtype=torch.int32, device=CARD)
+            got = graph_resolve.resolve_general(t, src, seq, n_bad=n_bad)
+            checker.uninstall()
+            try:
+                want = graph_resolve.resolve_general(t.cpu(), src.cpu(), seq.cpu(),
+                                                     n_bad=n_bad)
+            finally:
+                checker.install()
+            for field, g, w in zip(got._fields, got, want):
+                assert torch.equal(g.cpu(), w), f"{name}: field {field} differs"
+            ran = {k: checker.count[k] - before[k] for k in K.LAUNCHES}
+            assert ran["affine_loop"] == 1 == ran["mutual_collapse"], (name, ran)
+            rounds[name] = {"affine_rounds": K.round_totals()["affine_loop"],
+                            "stuck_rows": int(got.stuck.sum())}
+            log(f"phase 3: {name}: equal to the CPU run, every kernel call equal to "
+                f"its plain version; {rounds[name]}")
     finally:
         checker.uninstall()
         gp_module.resolve_graph_plane_step = real_step
@@ -894,12 +1020,25 @@ def phase4(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
     assert plane._device.type == "cuda"
     real_step = gp_module.resolve_graph_plane_step
     dispatch_ms = {}
+    # dispatches on the card by mode, and the host reads inside each step
+    card_calls = {"general": 0, "general_resident": 0, "keyed": 0}
+    reads = HostReads(torch, K, RESOLVE_MODULE)
+    step_reads = {}
 
     def timed_step(*args, mode):
+        on_card = K._on_card(args[0])
+        card_calls[mode] += on_card
+        reads.n = 0
         t = time.perf_counter()
-        out = real_step(*args, mode=mode)
+        reads.install()
+        try:
+            out = real_step(*args, mode=mode)
+        finally:
+            reads.uninstall()
         torch.cuda.synchronize()
         dispatch_ms.setdefault(mode, []).append((time.perf_counter() - t) * 1e3)
+        if on_card:
+            step_reads.setdefault(mode, []).append(reads.n)
         return out
 
     K.reset_launch_counts()
@@ -918,9 +1057,13 @@ def phase4(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
         check_key_order(results[first], keys, n)
         assert plane.health_name() == "healthy", plane.health_name()
         by_mode = {
-            mode: {"dispatches": len(ms), "p50_dispatch_ms": float(np.median(ms))}
+            mode: {"dispatches": len(ms), "p50_dispatch_ms": float(np.median(ms)),
+                   "min_dispatch_ms": float(min(ms)), "max_dispatch_ms": float(max(ms)),
+                   "host_reads_per_dispatch": float(np.mean(step_reads[mode])),
+                   "max_host_reads": int(max(step_reads[mode]))}
             for mode, ms in dispatch_ms.items()
         }
+        executor_rounds = K.round_totals()
         log(f"phase 4: {n} multi-key commands executed exactly once in per-key "
             f"order through GraphExecutor on cuda: {plane.dispatches} dispatches, "
             f"slot capacity {plane._cap}, {n / wall_s:.1f} commands/s "
@@ -931,6 +1074,8 @@ def phase4(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
             "dispatches": plane.dispatches, "slot_capacity": plane._cap,
             "wall_s": wall_s, "commands_per_s": n / wall_s, "by_mode": by_mode,
             "dispatch_ms": dispatch_ms, "resident_uploads": plane.resident_uploads,
+            "loop_rounds": executor_rounds,
+            "launches": {k: K.LAUNCHES[k] for k in K.GENERAL_KERNELS},
         }}))
         del executor, cmds
         sims = {}
@@ -959,7 +1104,21 @@ def phase4(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
     on_path = list(K.GENERAL_KERNELS) + ["graph_prologue", "lex_sort", "plane_epilogue"]
     not_run = [k for k in on_path if launches[k] == 0]
     assert not not_run, f"kernels of the general path never launched: {not_run}"
-    log(json.dumps({"general_sims": sims, "launches": launches}))
+    # one affine loop a resolve, one peel stage a stage (every peel_compact
+    # launch but the init of each general_resident dispatch)
+    assert launches["affine_loop"] == launches["mutual_collapse"], launches
+    stages = launches["peel_compact"] - card_calls["general_resident"]
+    assert launches["peel_stage"] == stages, (launches, card_calls)
+    totals = K.round_totals()
+    loops = {
+        "card_dispatches_by_mode": card_calls,
+        "affine_rounds": totals["affine_loop"],
+        "affine_rounds_per_resolve": totals["affine_loop"] / launches["affine_loop"],
+        "peel_rounds": totals["peel_stage"],
+        "peel_rounds_per_stage": totals["peel_stage"] / launches["peel_stage"],
+        "host_reads_in_step_by_mode": {m: int(sum(r)) for m, r in step_reads.items()},
+    }
+    log(json.dumps({"general_sims": sims, "launches": launches, "loops": loops}))
     return launches
 
 
@@ -1785,22 +1944,24 @@ def phase8(torch, P):
 
 
 # the kernels redesigned since the first slices, named in phase 0
-REDESIGNED = ("k_radix_", "k_stable_select")
+REDESIGNED = ("k_radix_", "k_stable_select", "k_affine_", "k_peel_stage")
 
 
 def ptxas_kernels(text):
-    """{kernel: (registers, stack frame bytes)} from ``-Xptxas -v`` output."""
+    """{kernel: (registers, stack frame bytes, spill store bytes, spill load
+    bytes)} from ``-Xptxas -v`` output."""
     found, current = {}, None
     for line in text.splitlines():
         m = re.search(r"Function properties for (_Z(\d+)\w+)", line)
         if m:
             length = int(m.group(2))
             current = m.group(1)[2 + len(m.group(2)):][:length]
-            found[current] = [None, None]
+            found[current] = [None, None, None, None]
             continue
-        m = re.search(r"(\d+) bytes stack frame", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and current:
-            found[current][1] = int(m.group(1))
+            found[current][1:] = [int(g) for g in m.groups()]
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
             found[current][0] = int(m.group(1))
@@ -1849,10 +2010,11 @@ def main():
         if regs:
             log(f"phase 0: ptxas {name}: {len(regs)} kernels, at most {max(regs)} "
                 f"registers a thread, {spills} bytes of spills")
-        for kernel, (reg, frame) in ptxas_kernels(text).items():
+        for kernel, (reg, frame, spill_st, spill_ld) in ptxas_kernels(text).items():
             if kernel.startswith(REDESIGNED):
                 log(f"phase 0: ptxas {name}: {kernel}: {reg} registers, {frame} bytes "
-                    f"stack frame")
+                    f"stack frame, {spill_st} bytes spill stores, {spill_ld} bytes "
+                    f"spill loads")
                 assert frame == 0 or not kernel.startswith("k_stable_select"), kernel
 
     walls = {"phase 0": time.perf_counter() - t0}

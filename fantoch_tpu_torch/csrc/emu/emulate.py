@@ -1,18 +1,26 @@
 """Run the port's CUDA sources on the CPU, for rehearsing kernel logic
 where there is no card and no ``nvcc``.
 
-Each ``csrc/<name>.cu`` is translated to C++ over ``cuda_mock.h`` (every
-``k<<<grid, block, smem, stream>>>(...)`` becomes a loop over the blocks
-in order, each block's threads real OS threads meeting at a barrier for
-``__syncthreads``; atomics are ``std::atomic_ref``; warp collectives are
-emulated with barriers: ``__reduce_add_sync`` and ``__syncthreads_or`` on
-the block's, ballots, shuffles, ``__reduce_or_sync`` and ``__syncwarp`` on
-one per warp) and compiled with ``g++`` into
-``fantoch_tpu_torch/build/emu/``.  Inside ``with emulated():`` every kernel
-wrapper of ``ops/graph_plane_kernels.py``, ``ops/table_kernels.py`` and
-``ops/pred_kernels.py`` takes its CUDA route on CPU tensors and launches
-the emulated kernels, so a wrapper can be held against its plain version
-— ``chip_smoke.Checker`` does it per call:
+Each ``csrc/<name>.cu`` is translated to C++ over ``cuda_mock.h`` and
+compiled with ``g++`` into ``fantoch_tpu_torch/build/emu/``.  Every
+``k<<<grid, block, smem, stream>>>(...)`` becomes a loop over the blocks in
+order, each block's threads real OS threads meeting at a barrier for
+``__syncthreads``.  A cooperative launch
+(``cudaLaunchCooperativeKernel((const void*)k, ...)``) starts every block's
+threads at once, each block with its own barrier, collective slots and
+dynamic shared memory, and ``cooperative_groups::this_grid().sync()`` is a
+barrier over all of them; the card it reports is small (2 SMs holding 2
+blocks each), so a kernel that clamps its grid to the co-resident limit
+crosses a real multi-block barrier with few threads.  A kernel launched
+cooperatively must keep its shared memory dynamic: a static ``__shared__``
+array becomes one C++ static for every block.  Atomics are
+``std::atomic_ref``; warp collectives are emulated with barriers:
+``__reduce_add_sync`` and ``__syncthreads_or`` on the block's, ballots,
+shuffles, ``__reduce_or_sync`` and ``__syncwarp`` on one per warp.  Inside
+``with emulated():`` every kernel wrapper of ``ops/graph_plane_kernels.py``,
+``ops/table_kernels.py`` and ``ops/pred_kernels.py`` takes its CUDA route on
+CPU tensors and launches the emulated kernels, so a wrapper can be held
+against its plain version — ``chip_smoke.Checker`` does it per call:
 
     from fantoch_tpu_torch.csrc.emu.emulate import emulated
     with emulated():
@@ -23,9 +31,10 @@ The switch is the wrappers' own device test and stream handle
 loader; ``torch`` itself is left as it is.
 
 What it cannot show: that ``nvcc`` accepts the source, races between
-blocks (blocks run one after another), memory-ordering faults, and
-anything about speed.  A launch starts one OS thread per thread of the
-block, so keep the shapes small.
+blocks of a launch that is not cooperative (its blocks run one after
+another), memory-ordering faults across SMs, and anything about speed.  A
+launch starts one OS thread per thread of the block (of the grid, when
+cooperative), so keep the shapes small.
 """
 
 from __future__ import annotations
@@ -46,6 +55,12 @@ BUILD_DIR = CSRC_DIR.parent / "build" / "emu"
 def translate(source: str) -> str:
     """C++ over cuda_mock.h for one CUDA source."""
     text = source.replace("#include <cuda_runtime.h>", '#include "cuda_mock.h"')
+    text = text.replace("#include <cooperative_groups.h>", "")
+    text = re.sub(
+        r"cudaLaunchCooperativeKernel\(\(const void\*\)(\w+),",
+        r"mock_launch_cooperative(\1,",
+        text,
+    )
     text = re.sub(
         r"extern __shared__ (\w[\w ]*?) (\w+)\[\];",
         r"\1* \2 = (\1*)mock_dyn_smem();",

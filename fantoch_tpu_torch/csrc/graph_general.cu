@@ -8,26 +8,31 @@
 // wrappers, plain versions and per-stage notes on bounds and design are in
 // fantoch_tpu_torch/ops/graph_plane_kernels.py (stages 9-12).
 //
-// The reference's loops stay on the host: each launcher below is one
-// round (or one fold) and raises a device flag or count that the wrapper's
-// caller reads, so every loop stops at the round the reference stops at.
-// All work is int32/bool and every cross-row reduction is an integer
-// atomic (max/add/or) into zeroed columns, so results are exact in any
-// order.  Every round reads the previous round's arrays and writes fresh
-// ones: the reference's lines each read the whole array the line before
-// wrote.
+// The reference's while_loops run on the device: every affine round of a
+// resolve and its SCC fold are one launch (one CTA up to a size gate, a
+// cooperative launch above it), every peel round of a stage one
+// cooperative launch; each loop stops at the round the reference stops at
+// and writes the rounds it ran to a device int.  All work is int32/bool and
+// every cross-row reduction is an integer atomic (max/add/or) into zeroed
+// columns, so results are exact in any order.  Each round sees the state
+// the round before it left, as the reference's lines each read the whole
+// array the line before wrote.
 //
 // Interface: every launcher is extern "C", takes raw device pointers, ints
 // and a cudaStream_t, launches on that stream, never synchronises and never
 // allocates (the wrapper passes outputs and scratch), and returns
-// cudaGetLastError() after its last launch (or the first failing call).
+// cudaGetLastError() after its last launch (or the first failing call; a
+// refused cooperative launch is such a call).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libgraph_general.so graph_general.cu
 
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
 #include <climits>
+
+namespace cg = cooperative_groups;
 
 #define TERMINAL (-1)
 #define MISSING (-2)
@@ -36,6 +41,9 @@
 
 #define EW_BLOCK 256     // per-row kernels (a power of two: block_sum)
 #define SCAN_BLOCK 1024  // block scans of the compaction
+#define LOOP_CTA 1024    // the one-CTA affine loop's largest block
+#define COMP_NONE INT_MIN  // a composition column's "not composable"
+#define CHUNK 4  // the loops take a row's cells four at a time: loads first
 
 #define CHECK_LAUNCH()                         \
   do {                                         \
@@ -174,222 +182,454 @@ extern "C" int gg_mutual_collapse(const int32_t* deps, int32_t* leader, int32_t*
 }
 
 // ---------------------------------------------------------------------------
-// 10. affine round (graph_resolve.py:1089-1157) and the SCC fold (:1166-1176)
+// the loops' shared pieces: rows walked grid-stride (one block: block-stride),
+// and the barrier between the phases of a round
 // ---------------------------------------------------------------------------
 
-// per row: the SCC aggregates by atomics into zeroed columns, and the
-// row's first live slot (jnp.argmax of the live mask: first True, else 0)
-__global__ void k_aff_agg(const int32_t* tgt, const int32_t* add, const int32_t* floor,
-                          const uint8_t* missing, const int32_t* leader,
-                          int32_t* agg_floor, int32_t* agg_live, int32_t* agg_miss,
-                          int32_t* agg_frozen, int32_t* comp_tgt, int32_t* comp_add,
-                          int B, int W) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= B) return;
-  int n_live = 0, vfloor = 0, first = -1;
-  bool frozen_any = false;
-  for (int w = 0; w < W; ++w) {
-    long c = (long)v * W + w;
-    int t = tgt[c];
-    bool frozen = t == v;  // composed all the way around a cycle
-    bool live = t >= 0 && !frozen;
-    frozen_any = frozen_any || frozen;
-    if (live) {
-      ++n_live;
-      if (first < 0) first = w;
-    }
-    vfloor = max(vfloor, floor[c]);  // floors are >= 0
+#define FOR_ROWS(v, n)                                               \
+  for (long v = (long)blockIdx.x * blockDim.x + threadIdx.x; v < (n); \
+       v += (long)gridDim.x * blockDim.x)
+
+// the grid barrier of a cooperative launch, or the block's barrier
+template <bool COOP>
+__device__ __forceinline__ void loop_sync() {
+  if constexpr (COOP) {
+    cg::this_grid().sync();
+  } else {
+    __syncthreads();
   }
-  long slot = (long)v * W + (first < 0 ? 0 : first);
-  comp_tgt[v] = tgt[slot];
-  comp_add[v] = add[slot];
-  int l = leader[v];
-  if (vfloor > 0) atomicMax(&agg_floor[l], vfloor);
-  if (n_live) atomicAdd(&agg_live[l], n_live);
-  if (missing[v]) atomicOr(&agg_miss[l], 1);
-  if (frozen_any) atomicOr(&agg_frozen[l], 1);
 }
 
-// per row: fold finalized targets, absorb live targets' floors, compose
-// through single-slot singleton targets, saturate at B; raise changed
-__global__ void k_aff_update(const int32_t* tgt, const int32_t* add, const int32_t* floor,
-                             const uint8_t* missing, const int32_t* member_count,
-                             const int32_t* agg_floor, const int32_t* agg_live,
-                             const int32_t* agg_miss, const int32_t* agg_frozen,
-                             const int32_t* comp_tgt, const int32_t* comp_add,
-                             int32_t* ntgt, int32_t* nadd, int32_t* nfloor,
-                             uint8_t* nmissing, int32_t* changed, int B, int W) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  int ch = 0;
-  if (v < B) {
-    bool miss = missing[v], new_miss = miss;
-    for (int w = 0; w < W; ++w) {
-      long c = (long)v * W + w;
-      int t = tgt[c], a = add[c], f = floor[c];
-      int nt = t, na = a, nf = f;
-      if (t >= 0 && t != v) {  // live: not TERMINAL/MISSING/frozen
-        bool t_miss = agg_miss[t] != 0;
-        bool t_final = agg_live[t] == 0 && !t_miss && !agg_frozen[t];
-        int t_vfloor = agg_floor[t];
-        if (t_final) {
-          nf = max(f, a + t_vfloor);
-          nt = TERMINAL;
-        } else if (t_miss) {
-          new_miss = true;
-        } else {
-          nf = max(f, a + t_vfloor);
-          if (agg_live[t] == 1 && member_count[t] == 1 && a < B) {
-            nt = comp_tgt[t];
-            na = a + comp_add[t];
+// a per-round device flag or count read after the barrier that ends the
+// round: volatile, so no block reads its own stale L1 copy
+__device__ __forceinline__ int32_t read_slot(const int32_t* p) {
+  return *(const volatile int32_t*)p;
+}
+
+// the co-resident grid of a cooperative launch of `kernel`: the SM count
+// times the blocks of `block` threads one SM holds, at most `want`; a card
+// without cooperative launches refuses (never a fallback)
+template <class F>
+static int coop_grid(F kernel, int block, size_t smem, long want, int* grid) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  CHECK_CALL(cudaGetDevice(&dev));
+  CHECK_CALL(cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev));
+  if (!coop) return (int)cudaErrorNotSupported;
+  CHECK_CALL(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  CHECK_CALL(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem));
+  long g = (long)sms * per_sm;
+  if (want < g) g = want;
+  if (g < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *grid = (int)g;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// 10. affine loop: every round of resolve_general's while_loop
+//     (graph_resolve.py:1089-1164) and the SCC fold (:1166-1176) in one launch
+// ---------------------------------------------------------------------------
+//
+// A round has three phases, each over every row, with a barrier between
+// them: zero the four leader-indexed aggregate columns; build them (integer
+// atomics, exact in any order) and the composition columns (a row that is
+// its own singleton SCC with one live slot: that slot's target and add);
+// update each row's state.  Every cross-row read of a round is of those
+// columns, which the phase before it wrote, so the [B, W] state is updated
+// in place: a row reads and writes only its own cells, and each round sees
+// the state the round before it left, as the reference's does.  Round 0
+// reads the inputs (floor all 0) and writes every cell of the working
+// copy; later rounds write only the cells that change.  The loop stops
+// after the first round that changed nothing or after max_iters rounds.
+//
+// One CTA (COOP false): aggregates and composition columns in dynamic shared
+// memory (6 * B ints), the changed flag a __syncthreads_or.  Cooperative
+// (COOP true): the columns in global scratch, grid barriers, and the changed
+// flag an atomicOr into slot r % 3 read after the barrier; block 0 zeroes
+// slot (r + 1) % 3 in round r, which every block last read two barriers ago.
+
+template <bool COOP>
+__device__ void affine_loop_body(const int32_t* tgt0, const int32_t* add0,
+                                 const uint8_t* miss0, const int32_t* leader,
+                                 const int32_t* member_count, int32_t* tgt, int32_t* add,
+                                 int32_t* floor, uint8_t* miss, int32_t* cols,
+                                 int32_t* slots, uint8_t* resolved, int32_t* rank,
+                                 uint8_t* stuck, int32_t* rounds, int32_t* total, int B,
+                                 int W, int max_iters) {
+  int32_t* agg_floor = cols;
+  int32_t* agg_live = cols + B;
+  int32_t* agg_miss = cols + 2L * B;
+  int32_t* agg_frozen = cols + 3L * B;
+  int32_t* comp_tgt = cols + 4L * B;
+  int32_t* comp_add = cols + 5L * B;
+  if (COOP && blockIdx.x == 0 && threadIdx.x == 0) slots[0] = 0;
+  int r = 0;
+  while (r < max_iters) {
+    const int32_t* t_in = r ? tgt : tgt0;
+    const int32_t* a_in = r ? add : add0;
+    const uint8_t* m_in = r ? miss : miss0;
+    FOR_ROWS(v, B) {
+      agg_floor[v] = 0;
+      agg_live[v] = 0;
+      agg_miss[v] = 0;
+      agg_frozen[v] = 0;
+    }
+    loop_sync<COOP>();
+    // the SCC aggregates and the composition columns
+    FOR_ROWS(v, B) {
+      int n_live = 0, vfloor = 0, first = -1;
+      bool frozen_any = false;
+      for (int w0 = 0; w0 < W; w0 += CHUNK) {
+        int t[CHUNK], f[CHUNK];
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) {
+          long c = v * W + w0 + k;
+          t[k] = w0 + k < W ? t_in[c] : TERMINAL;
+          f[k] = r && w0 + k < W ? floor[c] : 0;  // floors are >= 0
+        }
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) {
+          bool frozen = t[k] == v;  // composed all the way around a cycle
+          bool live = t[k] >= 0 && !frozen;
+          frozen_any = frozen_any || frozen;
+          if (live) {
+            ++n_live;
+            if (first < 0) first = w0 + k;
           }
+          vfloor = max(vfloor, f[k]);
         }
       }
-      nf = min(nf, B);
-      na = min(na, B);
-      ntgt[c] = nt;
-      nadd[c] = na;
-      nfloor[c] = nf;
-      if (nt != t || nf != f) ch = 1;
+      // a singleton SCC (the only row it leads) with one live slot is
+      // composed through: its target and add, else COMP_NONE
+      if (n_live == 1 && member_count[v] == 1) {
+        comp_tgt[v] = t_in[v * W + first];
+        comp_add[v] = a_in[v * W + first];
+      } else {
+        comp_tgt[v] = COMP_NONE;
+      }
+      int l = leader[v];
+      if (vfloor > 0) atomicMax(&agg_floor[l], vfloor);
+      if (n_live) atomicAdd(&agg_live[l], n_live);
+      if (m_in[v]) atomicOr(&agg_miss[l], 1);
+      if (frozen_any) atomicOr(&agg_frozen[l], 1);
     }
-    nmissing[v] = new_miss;
-    if (new_miss != miss) ch = 1;
+    loop_sync<COOP>();
+    // fold finalized targets, absorb live targets' floors, compose through
+    // single-slot singleton targets, saturate at B
+    int ch = 0;
+    FOR_ROWS(v, B) {
+      bool m0 = m_in[v], nm = m0;
+      for (int w0 = 0; w0 < W; w0 += CHUNK) {
+        int t[CHUNK], a[CHUNK], f[CHUNK];
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) {
+          long c = v * W + w0 + k;
+          bool in = w0 + k < W;
+          t[k] = in ? t_in[c] : TERMINAL;
+          a[k] = in ? a_in[c] : 0;
+          f[k] = r && in ? floor[c] : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) {
+          if (w0 + k >= W) break;
+          long c = v * W + w0 + k;
+          int nt = t[k], na = a[k], nf = f[k];
+          if (t[k] >= 0 && t[k] != v) {  // live: not TERMINAL/MISSING/frozen
+            int u = t[k];
+            bool t_miss = agg_miss[u] != 0;
+            bool t_final = agg_live[u] == 0 && !t_miss && !agg_frozen[u];
+            int t_vfloor = agg_floor[u];
+            if (t_final) {
+              nf = max(f[k], a[k] + t_vfloor);
+              nt = TERMINAL;
+            } else if (t_miss) {
+              nm = true;
+            } else {
+              nf = max(f[k], a[k] + t_vfloor);
+              if (a[k] < B && comp_tgt[u] != COMP_NONE) {
+                nt = comp_tgt[u];
+                na = a[k] + comp_add[u];
+              }
+            }
+          }
+          nf = min(nf, B);
+          na = min(na, B);
+          if (!r || nt != t[k]) tgt[c] = nt;  // after round 0, changed cells only
+          if (!r || na != a[k]) add[c] = na;
+          if (!r || nf != f[k]) floor[c] = nf;
+          if (nt != t[k] || nf != f[k]) ch = 1;
+        }
+      }
+      if (!r || nm != m0) miss[v] = nm;
+      if (nm != m0) ch = 1;
+    }
+    int any = __syncthreads_or(ch);
+    if constexpr (COOP) {
+      if (threadIdx.x == 0) {
+        if (any) atomicOr(&slots[r % 3], 1);
+        if (blockIdx.x == 0) slots[(r + 1) % 3] = 0;
+      }
+      cg::this_grid().sync();
+      any = read_slot(&slots[r % 3]);
+    }
+    ++r;
+    if (!any) break;
   }
-  ch = block_sum(ch);
-  if (threadIdx.x == 0 && ch) atomicOr(changed, 1);
-}
-
-// the SCC fold: scatter-max of final ranks, "any member not final" and
-// "any member missing" per leader (columns zeroed by the launcher)
-__global__ void k_aff_fold_agg(const int32_t* tgt, const int32_t* floor,
-                               const uint8_t* missing, const int32_t* leader,
-                               int32_t* scc_rank, int32_t* scc_notfinal,
-                               int32_t* scc_missing, int B, int W) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= B) return;
-  int n_live = 0, vrank = 0;
-  for (int w = 0; w < W; ++w) {
-    long c = (long)v * W + w;
-    if (tgt[c] >= 0) ++n_live;  // frozen slots count: never final
-    vrank = max(vrank, floor[c]);
+  // the SCC fold: scatter-max of final ranks, "any member not final" and
+  // "any member missing" per leader (the first three columns, zeroed here)
+  const int32_t* t_f = r ? tgt : tgt0;
+  const uint8_t* m_f = r ? miss : miss0;
+  FOR_ROWS(v, B) {
+    agg_floor[v] = 0;
+    agg_live[v] = 0;
+    agg_miss[v] = 0;
   }
-  bool fin = n_live == 0 && !missing[v];
-  int l = leader[v];
-  if (fin && vrank > 0) atomicMax(&scc_rank[l], vrank);
-  if (!fin) atomicOr(&scc_notfinal[l], 1);
-  if (missing[v]) atomicOr(&scc_missing[l], 1);
+  loop_sync<COOP>();
+  FOR_ROWS(v, B) {
+    int n_live = 0, vrank = 0;
+    for (int w = 0; w < W; ++w) {
+      long c = v * W + w;
+      if (t_f[c] >= 0) ++n_live;  // frozen slots count: never final
+      if (r) vrank = max(vrank, floor[c]);
+    }
+    bool fin = n_live == 0 && !m_f[v];
+    int l = leader[v];
+    if (fin && vrank > 0) atomicMax(&agg_floor[l], vrank);
+    if (!fin) atomicOr(&agg_live[l], 1);
+    if (m_f[v]) atomicOr(&agg_miss[l], 1);
+  }
+  loop_sync<COOP>();
+  FOR_ROWS(v, B) {
+    int l = leader[v];
+    bool res = !agg_live[l] && !agg_miss[l];
+    resolved[v] = res;
+    rank[v] = res ? agg_floor[l] : UNRESOLVED_RANK;
+    stuck[v] = !res && !(m_f[v] || agg_miss[l]);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *rounds = r;
+    atomicAdd(total, r);
+  }
 }
 
-__global__ void k_aff_fold_out(const uint8_t* missing, const int32_t* leader,
-                               const int32_t* scc_rank, const int32_t* scc_notfinal,
-                               const int32_t* scc_missing, uint8_t* resolved,
-                               int32_t* rank, uint8_t* stuck, int B) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= B) return;
-  int l = leader[v];
-  bool res = !scc_notfinal[l] && !scc_missing[l];
-  resolved[v] = res;
-  rank[v] = res ? scc_rank[l] : UNRESOLVED_RANK;
-  stuck[v] = !res && !(missing[v] || scc_missing[l]);
+__global__ void k_affine_cta(const int32_t* tgt0, const int32_t* add0,
+                             const uint8_t* miss0, const int32_t* leader,
+                             const int32_t* member_count, int32_t* tgt, int32_t* add,
+                             int32_t* floor, uint8_t* miss, uint8_t* resolved,
+                             int32_t* rank, uint8_t* stuck, int32_t* rounds,
+                             int32_t* total, int B, int W, int max_iters) {
+  extern __shared__ int32_t aff_smem[];
+  affine_loop_body<false>(tgt0, add0, miss0, leader, member_count, tgt, add, floor,
+                          miss, aff_smem, nullptr, resolved, rank, stuck, rounds,
+                          total, B, W, max_iters);
 }
 
-// scratch: 6 * B ints (four aggregate columns, two composition columns);
-// final == 0: one round into ntgt/nadd/nfloor/nmissing and changed;
-// final == 1: the fold into resolved/rank/stuck
-extern "C" int gg_affine_round(const int32_t* tgt, const int32_t* add,
-                               const int32_t* floor, const uint8_t* missing,
-                               const int32_t* leader, const int32_t* member_count,
-                               int32_t* scratch, int32_t* ntgt, int32_t* nadd,
-                               int32_t* nfloor, uint8_t* nmissing, int32_t* changed,
-                               uint8_t* resolved, int32_t* rank, uint8_t* stuck,
-                               int B, int W, int final, cudaStream_t stream) {
+__global__ void k_affine_coop(const int32_t* tgt0, const int32_t* add0,
+                              const uint8_t* miss0, const int32_t* leader,
+                              const int32_t* member_count, int32_t* tgt, int32_t* add,
+                              int32_t* floor, uint8_t* miss, int32_t* cols,
+                              int32_t* slots, uint8_t* resolved, int32_t* rank,
+                              uint8_t* stuck, int32_t* rounds, int32_t* total, int B,
+                              int W, int max_iters) {
+  affine_loop_body<true>(tgt0, add0, miss0, leader, member_count, tgt, add, floor,
+                         miss, cols, slots, resolved, rank, stuck, rounds, total, B, W,
+                         max_iters);
+}
+
+// B <= cta_rows: one CTA of up to LOOP_CTA threads; above, a cooperative
+// launch of `block`-thread blocks.  scratch: 3 * B * W ints (the working
+// tgt/add/floor), then, cooperative only, 6 * B + 3 ints (the columns and
+// the changed slots); miss: B bytes (the working missing flags).  rounds
+// gets the rounds run, and total is raised by them.
+extern "C" int gg_affine_loop(const int32_t* tgt0, const int32_t* add0,
+                              const uint8_t* miss0, const int32_t* leader,
+                              const int32_t* member_count, int32_t* scratch,
+                              uint8_t* miss, uint8_t* resolved, int32_t* rank,
+                              uint8_t* stuck, int32_t* rounds, int32_t* total, int B,
+                              int W, int max_iters, int cta_rows, int block,
+                              cudaStream_t stream) {
   if (B <= 0) return 0;
-  unsigned g = grid_for(B, EW_BLOCK);
-  int32_t* a0 = scratch;
-  int32_t* a1 = scratch + B;
-  int32_t* a2 = scratch + 2L * B;
-  int32_t* a3 = scratch + 3L * B;
-  int32_t* comp_tgt = scratch + 4L * B;
-  int32_t* comp_add = scratch + 5L * B;
-  if (final) {
-    CHECK_CALL(cudaMemsetAsync(scratch, 0, 3 * (size_t)B * sizeof(int32_t), stream));
-    k_aff_fold_agg<<<g, EW_BLOCK, 0, stream>>>(tgt, floor, missing, leader, a0, a1, a2,
-                                               B, W);
-    CHECK_LAUNCH();
-    k_aff_fold_out<<<g, EW_BLOCK, 0, stream>>>(missing, leader, a0, a1, a2, resolved,
-                                               rank, stuck, B);
+  int32_t* tgt = scratch;
+  int32_t* add = scratch + (long)B * W;
+  int32_t* floor = scratch + 2L * B * W;
+  if (B <= cta_rows) {
+    int threads = 32;
+    while (threads < B && threads < LOOP_CTA) threads *= 2;
+    size_t smem = 6 * (size_t)B * sizeof(int32_t);
+    CHECK_CALL(cudaFuncSetAttribute(k_affine_cta,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem));
+    k_affine_cta<<<1, threads, smem, stream>>>(tgt0, add0, miss0, leader, member_count,
+                                              tgt, add, floor, miss, resolved, rank,
+                                              stuck, rounds, total, B, W, max_iters);
     CHECK_LAUNCH();
     return (int)cudaGetLastError();
   }
-  CHECK_CALL(cudaMemsetAsync(scratch, 0, 4 * (size_t)B * sizeof(int32_t), stream));
-  CHECK_CALL(cudaMemsetAsync(changed, 0, sizeof(int32_t), stream));
-  k_aff_agg<<<g, EW_BLOCK, 0, stream>>>(tgt, add, floor, missing, leader, a0, a1, a2,
-                                        a3, comp_tgt, comp_add, B, W);
-  CHECK_LAUNCH();
-  k_aff_update<<<g, EW_BLOCK, 0, stream>>>(tgt, add, floor, missing, member_count, a0,
-                                           a1, a2, a3, comp_tgt, comp_add, ntgt, nadd,
-                                           nfloor, nmissing, changed, B, W);
-  CHECK_LAUNCH();
+  int32_t* cols = scratch + 3L * B * W;
+  int32_t* slots = cols + 6L * B;
+  int grid = 0;
+  int e = coop_grid(k_affine_coop, block, 0, ((long)B + block - 1) / block, &grid);
+  if (e) return e;
+  void* args[] = {&tgt0, &add0,  &miss0,  &leader, &member_count, &tgt,
+                  &add,  &floor, &miss,   &cols,   &slots,        &resolved,
+                  &rank, &stuck, &rounds, &total,  &B,            &W,
+                  &max_iters};
+  CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_affine_coop, dim3(grid),
+                                         dim3(block), args, 0, stream));
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// 11. peel round (graph_resolve.py:536-553)
+// 11. peel stage: every round of _peel_stage's while_loop (graph_resolve.py
+//     :528-566) in one cooperative launch
 // ---------------------------------------------------------------------------
+//
+// A row reads its own target cells, floor and rank, and of other rows only
+// the final and miss flags and, for a target final before the round, its
+// rank.  Rank changes only when a row turns final, so tgt, floor and rank
+// are updated in place (round 0 reads the inputs and writes the outputs);
+// final and miss, packed as one state byte a row, ping-pong between two
+// buffers, so each round reads the flags the round before it left, as the
+// reference's does.  Rows final before a round never change and are skipped
+// past.  After each round a grid barrier, then every block reads the
+// round's changed flag and live count (rows neither final nor missing) from
+// slot r % 3 and takes the same decision: stop on "nothing changed" or,
+// unless run_to_fixpoint, on live <= half.  Before the first round the
+// stage's initial live count, passed in, is tested the same way.  Block 0
+// zeroes slot (r + 1) % 3 in round r; the launcher zeroes all three first.
 
-// stats[0]: changed (any newly final, any miss flipped); stats[1]: rows
-// neither final nor missing after the round (both zeroed by the launcher)
-__global__ void k_peel_round(const int32_t* tgt, const int32_t* floor,
-                             const uint8_t* miss, const uint8_t* fin,
-                             const int32_t* rank, int32_t* ntgt, int32_t* nfloor,
-                             uint8_t* nmiss, uint8_t* nfin, int32_t* nrank,
-                             int32_t* stats, int S, int W) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  int ch = 0, lv = 0;
-  if (v < S) {
-    int lift = 0, open = 0;
-    bool any_miss = false;
-    for (int w = 0; w < W; ++w) {
-      long c = (long)v * W + w;
-      int t = tgt[c], nt = t;
-      if (t >= 0) {
-        if (fin[t]) {  // fold a finalized target into the floor
-          lift = max(lift, rank[t] + 1);
-          nt = TERMINAL;
+#define ST_FIN 1
+#define ST_MISS 2
+
+__device__ __forceinline__ uint8_t peel_state(const uint8_t* st, const uint8_t* fin0,
+                                              const uint8_t* miss0, long v) {
+  if (st) return st[v];
+  return (fin0[v] ? ST_FIN : 0) | (miss0[v] ? ST_MISS : 0);
+}
+
+__global__ void k_peel_stage(const int32_t* tgt0, const int32_t* floor0,
+                             const uint8_t* miss0, const uint8_t* fin0,
+                             const int32_t* rank0, int32_t* tgt, int32_t* floor,
+                             uint8_t* miss, uint8_t* fin, int32_t* rank, uint8_t* st,
+                             int32_t* slots, int32_t* rounds, int32_t* total, int S,
+                             int W, int live0, int fixpoint) {
+  extern __shared__ int32_t peel_smem[];  // the block's live count
+  int half = S / 2 > 1 ? S / 2 : 1;
+  bool run = fixpoint || live0 > half;
+  if (threadIdx.x == 0) peel_smem[0] = 0;
+  __syncthreads();
+  int r = 0;
+  while (run) {
+    const uint8_t* st_in = r ? st + (long)((r + 1) & 1) * S : nullptr;
+    uint8_t* st_out = st + (long)(r & 1) * S;
+    const int32_t* t_in = r ? tgt : tgt0;
+    const int32_t* f_in = r ? floor : floor0;
+    const int32_t* k_in = r ? rank : rank0;
+    int ch = 0, lv = 0;
+    FOR_ROWS(v, S) {
+      uint8_t s0 = peel_state(st_in, fin0, miss0, v);
+      if (s0 & ST_FIN) {  // final rows never change
+        st_out[v] = s0;
+        if (!r) {
+          for (int w = 0; w < W; ++w) tgt[v * W + w] = tgt0[v * W + w];
+          floor[v] = floor0[v];
+          rank[v] = rank0[v];
         }
-        any_miss = any_miss || miss[t];
+        continue;
       }
-      ntgt[c] = nt;
-      if (nt >= 0) ++open;
+      int lift = 0, open = 0;
+      bool any_miss = false;
+      for (int w0 = 0; w0 < W; w0 += CHUNK) {
+        int t[CHUNK], kr[CHUNK];
+        uint8_t s[CHUNK];
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k)
+          t[k] = w0 + k < W ? t_in[v * W + w0 + k] : TERMINAL;
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k)
+          s[k] = t[k] >= 0 ? peel_state(st_in, fin0, miss0, t[k]) : 0;
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) kr[k] = s[k] & ST_FIN ? k_in[t[k]] : 0;
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) {
+          if (w0 + k >= W) break;
+          int nt = t[k];
+          if (s[k] & ST_FIN) {  // fold a finalized target into the floor
+            lift = max(lift, kr[k] + 1);
+            nt = TERMINAL;
+          }
+          any_miss = any_miss || (s[k] & ST_MISS);
+          if (!r || nt != t[k]) tgt[v * W + w0 + k] = nt;
+          if (nt >= 0) ++open;
+        }
+      }
+      int f0 = f_in[v], nf = max(f0, lift);
+      bool m0 = s0 & ST_MISS, nm = m0 || any_miss;
+      bool newly = !nm && open == 0;
+      if (!r || nf != f0) floor[v] = nf;
+      if (!r || newly) rank[v] = newly ? nf : k_in[v];
+      st_out[v] = (newly ? ST_FIN : 0) | (nm ? ST_MISS : 0);
+      if (newly || nm != m0) ch = 1;
+      if (!newly && !nm) ++lv;
     }
-    int nf = max(floor[v], lift);
-    bool m0 = miss[v], nm = m0 || any_miss;
-    bool f0 = fin[v];
-    bool newly = !f0 && !nm && open == 0;
-    nfloor[v] = nf;
-    nmiss[v] = nm;
-    nfin[v] = f0 || newly;
-    nrank[v] = newly ? nf : rank[v];
-    ch = (newly || nm != m0) ? 1 : 0;
-    lv = (!(f0 || newly) && !nm) ? 1 : 0;
+    lv = __reduce_add_sync(0xffffffffu, lv);
+    if ((threadIdx.x & 31) == 0 && lv) atomicAdd(&peel_smem[0], lv);
+    int any = __syncthreads_or(ch);
+    int32_t* slot = slots + 2 * (r % 3);
+    if (threadIdx.x == 0) {
+      if (any) atomicOr(&slot[0], 1);
+      if (peel_smem[0]) atomicAdd(&slot[1], peel_smem[0]);
+      peel_smem[0] = 0;
+      if (blockIdx.x == 0) {
+        slots[2 * ((r + 1) % 3)] = 0;
+        slots[2 * ((r + 1) % 3) + 1] = 0;
+      }
+    }
+    cg::this_grid().sync();
+    int changed = read_slot(&slot[0]);
+    int live = read_slot(&slot[1]);
+    ++r;
+    run = changed && (fixpoint || live > half);
   }
-  ch = block_sum(ch);
-  lv = block_sum(lv);
-  if (threadIdx.x == 0) {
-    if (ch) atomicOr(&stats[0], 1);
-    if (lv) atomicAdd(&stats[1], lv);
+  // the flags out of the last round's state bytes (the inputs after none)
+  const uint8_t* st_last = r ? st + (long)((r + 1) & 1) * S : nullptr;
+  FOR_ROWS(v, S) {
+    if (st_last) {
+      fin[v] = (st_last[v] & ST_FIN) != 0;
+      miss[v] = (st_last[v] & ST_MISS) != 0;
+    } else {
+      for (int w = 0; w < W; ++w) tgt[v * W + w] = tgt0[v * W + w];
+      floor[v] = floor0[v];
+      rank[v] = rank0[v];
+      fin[v] = fin0[v];
+      miss[v] = miss0[v];
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *rounds = r;
+    atomicAdd(total, r);
   }
 }
 
-extern "C" int gg_peel_round(const int32_t* tgt, const int32_t* floor,
-                             const uint8_t* miss, const uint8_t* fin,
-                             const int32_t* rank, int32_t* ntgt, int32_t* nfloor,
-                             uint8_t* nmiss, uint8_t* nfin, int32_t* nrank,
-                             int32_t* stats, int S, int W, cudaStream_t stream) {
-  CHECK_CALL(cudaMemsetAsync(stats, 0, 2 * sizeof(int32_t), stream));
+// st: 2 * S bytes; slots: 6 ints (zeroed here); rounds gets the rounds run,
+// and total is raised by them
+extern "C" int gg_peel_stage(const int32_t* tgt0, const int32_t* floor0,
+                             const uint8_t* miss0, const uint8_t* fin0,
+                             const int32_t* rank0, int32_t* tgt, int32_t* floor,
+                             uint8_t* miss, uint8_t* fin, int32_t* rank, uint8_t* st,
+                             int32_t* slots, int32_t* rounds, int32_t* total, int S,
+                             int W, int live0, int fixpoint, int block,
+                             cudaStream_t stream) {
   if (S <= 0) return 0;
-  k_peel_round<<<grid_for(S, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-      tgt, floor, miss, fin, rank, ntgt, nfloor, nmiss, nfin, nrank, stats, S, W);
-  CHECK_LAUNCH();
+  size_t smem = sizeof(int32_t);
+  int grid = 0;
+  int e = coop_grid(k_peel_stage, block, smem, ((long)S + block - 1) / block, &grid);
+  if (e) return e;
+  CHECK_CALL(cudaMemsetAsync(slots, 0, 6 * sizeof(int32_t), stream));
+  void* args[] = {&tgt0, &floor0, &miss0, &fin0, &rank0, &tgt,   &floor,
+                  &miss, &fin,    &rank,  &st,   &slots, &rounds, &total,
+                  &S,    &W,      &live0, &fixpoint};
+  CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_peel_stage, dim3(grid), dim3(block), args,
+                                         smem, stream));
   return (int)cudaGetLastError();
 }
 

@@ -53,12 +53,15 @@ LAUNCHES: Dict[str, int] = {
     "emit_scatter": 0,
     "plane_epilogue": 0,
     "mutual_collapse": 0,
-    "affine_round": 0,
-    "peel_round": 0,
+    "affine_loop": 0,
+    "peel_stage": 0,
     "peel_compact": 0,
 }
 # the wrappers of the general modes, each in csrc/graph_general.cu
-GENERAL_KERNELS = ("mutual_collapse", "affine_round", "peel_round", "peel_compact")
+GENERAL_KERNELS = ("mutual_collapse", "affine_loop", "peel_stage", "peel_compact")
+# the loop kernels, each raising a device int by the rounds it runs
+LOOP_KERNELS = ("affine_loop", "peel_stage")
+_round_totals: Dict[Tuple[str, str], torch.Tensor] = {}
 # slot sentinel of resolve_general_resident's compaction: a dep whose
 # target was cut at a fixpoint compaction (fantoch_tpu/ops/graph_resolve.py
 # :729); only ever created after the publish gate closed
@@ -66,8 +69,10 @@ FROZEN = -3
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch counts and the loop kernels' round totals."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    _round_totals.clear()
 
 
 def num_doubling_steps(batch: int) -> int:
@@ -97,8 +102,8 @@ _SIGNATURES = {
     "gp_emit_scatter": ("graph_plane_step", "p" * 8 + "iii"),
     "gp_epilogue": ("graph_plane_step", "p" * 5 + "i"),
     "gg_mutual_collapse": ("graph_general", "p" * 8 + "iii"),
-    "gg_affine_round": ("graph_general", "p" * 15 + "iii"),
-    "gg_peel_round": ("graph_general", "p" * 11 + "ii"),
+    "gg_affine_loop": ("graph_general", "p" * 12 + "i" * 5),
+    "gg_peel_stage": ("graph_general", "p" * 14 + "i" * 5),
     "gg_peel_compact": ("graph_general", "p" * 19 + "iiiii"),
     # the votes-table plane's launchers (wrappers in ops/table_kernels.py)
     "tp_clock_proposal": ("table_plane", "p" * 7 + "i"),
@@ -740,26 +745,73 @@ def mutual_collapse(deps):
 
 
 # ---------------------------------------------------------------------------
-# 10. affine round: one iteration of resolve_general's while_loop body
-#     (graph_resolve.py:1089-1157), or the final SCC fold (:1166-1176)
+# 10. affine loop: every round of resolve_general's while_loop
+#     (graph_resolve.py:1089-1164) and the SCC fold (:1166-1176), one launch
+#     a resolve
 # ---------------------------------------------------------------------------
-# Bound: bytes — each round reads and writes the [B, W] tgt/add/floor
-# state once plus random [B]-column gathers at the live targets.  Design:
-# the SCC aggregates (``.at[leader].max/add``) are integer atomicMax /
-# atomicAdd / atomicOr into [B] columns zeroed by cudaMemsetAsync — exact
-# in any order; one launch per row builds them (and each row's first-live
-# slot for composition), a second writes the round's new state into fresh
-# buffers (the reference reads the whole old state) and raises a device
-# ``changed`` flag.  The host reads the flag after every round.  With
-# ``final=True`` the same wrapper folds SCC members onto their leader
-# (scatter-max of ranks, ``.at[leader].min(final)`` as an atomicOr of
-# ``~final`` into zeros) and emits resolved/rank/stuck.
+# Replaces the reference's ``while_loop`` and fold as mode ``general`` of
+# graph_plane_step_pallas (fantoch_tpu/ops/pallas_resolve.py:334) runs
+# them, with no host round-trip inside the loop.  Bound: bytes
+# — a round reads the [B, W] tgt/add/floor state and the [B] columns once
+# and writes the state once (with random [B]-column gathers at the live
+# targets), so the rounds run times those bytes at 3.35 TB/s, plus the
+# fold's.  Design: the whole loop in one launch.  A round is three phases
+# with a barrier between them: zero the four leader-indexed aggregate
+# columns; build them (integer atomicMax/Add/Or, exact in any order) and
+# the composition columns (a singleton SCC's one live slot); update each
+# row.  The update reads other rows only through those columns, so the
+# state is updated in place (a row's cells loaded four at a time before any
+# is stored; after round 0, only the cells that change are written) and
+# each round still sees the whole state the round before it left.  Up to ``AFFINE_CTA_ROWS`` rows (mode ``general``'s
+# window: the plane's structure threshold, 4096 at W = 4) one CTA of up to
+# 1,024 threads runs it, the six columns in dynamic shared memory (96 KB at
+# 4096) and the changed flag a ``__syncthreads_or``.  Above, a cooperative
+# launch clamped to the co-resident grid runs the same rounds with the
+# columns in global scratch, grid barriers, and the changed flag an
+# atomicOr into a slot rotated by round.  Scratch is allocated once a
+# resolve; there is no memset and no host read; the rounds run land in a
+# device int.
+
+# the one-CTA affine loop's gate: its six [B] int32 columns in shared memory
+AFFINE_CTA_ROWS = 4096
+# threads a block of the cooperative launches (a multiple of 32)
+LOOP_BLOCK = 512
+
+
+def _round_total(name: str, device) -> torch.Tensor:
+    """The int32[1] on ``device`` that ``name``'s kernel raises by the rounds
+    it runs."""
+    key = (name, str(device))
+    total = _round_totals.get(key)
+    if total is None:
+        total = _round_totals[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return total
+
+
+def round_totals() -> Dict[str, int]:
+    """Rounds the loop kernels ran since the last ``reset_launch_counts``, by
+    wrapper: a host read, for ``chip_smoke.py`` and the tests only."""
+    out = {name: 0 for name in LOOP_KERNELS}
+    for (name, _device), total in _round_totals.items():
+        out[name] += int(total.item())
+    return out
+
+
+def _loop_block(rows: int) -> int:
+    """Threads a block of a cooperative loop over ``rows`` rows: LOOP_BLOCK,
+    or the least power of two (at least a warp) that holds every row."""
+    if LOOP_BLOCK <= 0 or LOOP_BLOCK % 32:
+        raise ValueError(f"LOOP_BLOCK must be a positive multiple of 32 (got {LOOP_BLOCK})")
+    block = 32
+    while block < rows and block < LOOP_BLOCK:
+        block *= 2
+    return min(block, LOOP_BLOCK)
 
 
 def affine_round_plain(tgt, add, floor, missing, leader, member_count, *, final=False):
-    """One round: returns ``(tgt, add, floor, missing, changed int32[1])``
-    as new tensors.  ``final=True``: returns ``(resolved bool[B], rank
-    int32[B], stuck bool[B])``."""
+    """One round (the loop's body): returns ``(tgt, add, floor, missing,
+    changed int32[1])`` as new tensors.  ``final=True``: the fold, returns
+    ``(resolved bool[B], rank int32[B], stuck bool[B])``."""
     batch = tgt.shape[0]
     device = tgt.device
     lead = leader.long()
@@ -811,54 +863,88 @@ def affine_round_plain(tgt, add, floor, missing, leader, member_count, *, final=
     return new_tgt, new_add, new_floor, new_missing, changed.to(torch.int32).reshape(1)
 
 
-def affine_round(tgt, add, floor, missing, leader, member_count, *, final=False):
-    if not _on_card(tgt):
-        return affine_round_plain(
-            tgt, add, floor, missing, leader, member_count, final=final
+def affine_loop_plain(tgt, add, missing, leader, member_count, max_iters):
+    """Rounds from ``floor = 0`` until one changes nothing or ``max_iters``
+    ran, then the fold: ``(resolved bool[B], rank int32[B], stuck bool[B],
+    rounds int32[1])``."""
+    floor = torch.zeros_like(tgt)
+    rounds = 0
+    while rounds < max_iters:
+        tgt, add, floor, missing, changed = affine_round_plain(
+            tgt, add, floor, missing, leader, member_count
         )
+        rounds += 1
+        if not int(changed.item()):
+            break
+    resolved, rank, stuck = affine_round_plain(
+        tgt, add, floor, missing, leader, member_count, final=True
+    )
+    return resolved, rank, stuck, _rounds(rounds, tgt.device)
+
+
+def _rounds(n: int, device) -> torch.Tensor:
+    return torch.tensor([n], dtype=torch.int32, device=device)
+
+
+def affine_loop(tgt, add, missing, leader, member_count, max_iters):
+    if not _on_card(tgt):
+        return affine_loop_plain(tgt, add, missing, leader, member_count, max_iters)
     batch, width = tgt.shape
     device = tgt.device
-    for name, t in (("tgt", tgt), ("add", add), ("floor", floor)):
-        _check(t, torch.int32, name, batch * width)
+    _check(tgt, torch.int32, "tgt", batch * width)
+    _check(add, torch.int32, "add", batch * width)
     _check(missing, torch.bool, "missing", batch)
     _check(leader, torch.int32, "leader", batch)
     _check(member_count, torch.int32, "member_count", batch)
-    # four aggregate columns and the two composition columns
-    scratch = _i32(6 * batch, device)
-    if final:
-        resolved, stuck = _b(batch, device), _b(batch, device)
-        rank = _i32(batch, device)
-        outs = (None, None, None, None, None, resolved, rank, stuck)
-    else:
-        changed = _i32(1, device)
-        new = (torch.empty_like(tgt), torch.empty_like(add), torch.empty_like(floor),
-               _b(batch, device))
-        outs = (*new, changed, None, None, None)
+    block = _loop_block(batch)
+    # the working tgt/add/floor, then (cooperative) the six columns and the
+    # three changed slots
+    cta = batch <= AFFINE_CTA_ROWS
+    scratch = _i32(3 * batch * width + (0 if cta else 6 * batch + 3), device)
+    miss = _b(batch, device)
+    resolved, stuck = _b(batch, device), _b(batch, device)
+    rank = _i32(batch, device)
+    rounds = _i32(1, device)
     _launch(
-        "gg_affine_round", device, tgt, add, floor, missing, leader,
-        member_count, scratch, *outs, batch, width, int(final),
+        "gg_affine_loop", device, tgt, add, missing, leader, member_count, scratch,
+        miss, resolved, rank, stuck, rounds, _round_total("affine_loop", device),
+        batch, width, max_iters, AFFINE_CTA_ROWS, block,
     )
-    LAUNCHES["affine_round"] += 1
-    return (resolved, rank, stuck) if final else (*new, changed)
+    LAUNCHES["affine_loop"] += 1
+    return resolved, rank, stuck, rounds
 
 
 # ---------------------------------------------------------------------------
-# 11. peel round: one iteration of _peel_stage's body (graph_resolve.py
-#     :536-553), plus the stop rule's inputs
+# 11. peel stage: every round of _peel_stage's while_loop (graph_resolve.py
+#     :528-566), one cooperative launch a stage
 # ---------------------------------------------------------------------------
-# Bound: bytes — the [S, W] target matrix and the [S] columns read once
-# and written once, with random gathers of final/miss/rank at the live
-# targets.  Design: one thread per row writes the round's new state into
-# fresh buffers (other rows read the old final/miss/rank); ``changed`` is
-# an atomicOr and the live count (``~final & ~miss`` after the round, for
-# the non-terminal stage's ``live > half`` rule) a warp-reduced
-# atomicAdd, both into one int32[2] the host reads after every round, so
-# the loop stops at the round the reference stops at.
+# Replaces the reference's stage loop as mode ``general_resident`` of
+# graph_plane_step_pallas (fantoch_tpu/ops/pallas_resolve.py:334) runs it,
+# with no host round-trip inside the stage.  Bound: bytes — a round reads
+# the stage's [S, W] targets and [S] columns once and writes them once
+# (with random gathers of final/miss/rank at the live targets), so the
+# rounds run times those bytes at 3.35 TB/s.  Design: one cooperative
+# launch, its grid clamped to the co-resident limit (the occupancy query
+# times the SM count), rows walked grid-stride, rounds separated by a grid
+# barrier.  A row reads of other rows only their final/miss flags and the
+# rank of a target final before the round, which the round cannot change;
+# so tgt/floor/rank are updated in place and only the flags (one state
+# byte a row) ping-pong between two buffers.  Every round is
+# round-synchronous, so the round counts and stage cuts are the
+# reference's.  Rows final before a round are skipped, and a row's cells
+# are loaded four at a time before any is stored.  The changed flag and
+# live count: a warp sum, a shared-memory sum a block, one atomic a block
+# into slot r % 3 of a three-slot ring (block 0 zeroes slot r + 1, which
+# every block last read two barriers before), read after the barrier by
+# every block, so all take the same stop decision: nothing changed or,
+# unless ``run_to_fixpoint``, ``live <= half``.  Before the first round
+# the stage's initial ``live`` (a host int) is tested the same way.  A
+# refused cooperative launch raises; it never falls back.
 
 
 def peel_round_plain(tgt, floor, miss, final, rank):
-    """Returns the new ``(tgt, floor, miss, final, rank)`` and ``stats
-    int32[2] = [changed, live]``."""
+    """One round (the loop's body): returns the new ``(tgt, floor, miss,
+    final, rank)`` and ``stats int32[2] = [changed, live]``."""
     live = tgt >= 0
     safe = torch.where(live, tgt, 0).long()
     fold = live & final[safe]
@@ -876,9 +962,28 @@ def peel_round_plain(tgt, floor, miss, final, rank):
     return new_tgt, new_floor, new_miss, new_final, new_rank, stats
 
 
-def peel_round(tgt, floor, miss, final, rank):
+def peel_stage_plain(tgt, floor, miss, final, rank, live, *, run_to_fixpoint):
+    """Peel rounds until one changes nothing or, unless ``run_to_fixpoint``,
+    the live set is at most half the stage.  ``live`` is the stage's initial
+    ``(~final & ~miss).sum()``, tested before the first round as the
+    reference's ``while_loop`` tests its condition.  Returns the new
+    ``(tgt, floor, miss, final, rank)`` and ``rounds int32[1]``."""
+    half = max(tgt.shape[0] // 2, 1)
+    rounds, changed = 0, True
+    while changed and (run_to_fixpoint or live > half):
+        tgt, floor, miss, final, rank, stats = peel_round_plain(
+            tgt, floor, miss, final, rank
+        )
+        changed, live = stats.tolist()
+        rounds += 1
+    return tgt, floor, miss, final, rank, _rounds(rounds, tgt.device)
+
+
+def peel_stage(tgt, floor, miss, final, rank, live, *, run_to_fixpoint):
     if not _on_card(tgt):
-        return peel_round_plain(tgt, floor, miss, final, rank)
+        return peel_stage_plain(
+            tgt, floor, miss, final, rank, live, run_to_fixpoint=run_to_fixpoint
+        )
     size, width = tgt.shape
     device = tgt.device
     _check(tgt, torch.int32, "tgt", size * width)
@@ -886,15 +991,18 @@ def peel_round(tgt, floor, miss, final, rank):
     _check(rank, torch.int32, "rank", size)
     _check(miss, torch.bool, "miss", size)
     _check(final, torch.bool, "final", size)
+    block = _loop_block(size)
     out = (torch.empty_like(tgt), _i32(size, device), _b(size, device),
            _b(size, device), _i32(size, device))
-    stats = _i32(2, device)
+    state = torch.empty(2 * size, dtype=torch.uint8, device=device)
+    slots, rounds = _i32(6, device), _i32(1, device)
     _launch(
-        "gg_peel_round", device, tgt, floor, miss, final, rank, *out, stats,
-        size, width,
+        "gg_peel_stage", device, tgt, floor, miss, final, rank, *out, state, slots,
+        rounds, _round_total("peel_stage", device), size, width,
+        min(int(live), INT32_MAX), int(run_to_fixpoint), block,
     )
-    LAUNCHES["peel_round"] += 1
-    return (*out, stats)
+    LAUNCHES["peel_stage"] += 1
+    return (*out, rounds)
 
 
 # ---------------------------------------------------------------------------

@@ -19,13 +19,15 @@ fantoch_tpu/ops/graph_resolve.py:366 and the overflow fallback at :994)
 become one host read of the ``n_residual`` scalar per call — the one
 device sync of a dispatch; the overflow flag follows from it on the host.
 
-The general modes keep the reference's loops on the host: each
-``while_loop`` round of ``resolve_general`` and of the resident peeler is
-one wrapper call followed by one host read of its device flag (and, for
-the peeler, its live count), so the loops stop at the round the
-reference's stop; ``resolve_general``'s fast-path ``lax.cond`` is one host
-read of the prologue's bad-cell count.  ``resolve_general_staged`` (the
-host-column route's resolver) is not ported: ROADMAP.md Queue A3.
+The general modes run the reference's loops on the device: every round of
+``resolve_general``'s ``while_loop`` and its SCC fold are one launch
+(``K.affine_loop``), every round of one stage of the resident peeler one
+cooperative launch (``K.peel_stage``), each stopping at the round the
+reference's stops at.  ``resolve_general``'s fast-path ``lax.cond`` is one
+host read of the prologue's bad-cell count, and the resident peeler reads
+one live count at its start and one per compaction.
+``resolve_general_staged`` (the host-column route's resolver) is not
+ported: ROADMAP.md Queue A3.
 """
 
 from __future__ import annotations
@@ -261,38 +263,15 @@ def resolve_general(
 def _resolve_general_iterative(deps, dot_src, dot_seq, max_iters):
     """The exact fallback: mutual-edge SCC collapse + affine-max doubling
     (see resolve_general).  Returns the GeneralResolution fields.  The
-    reference's ``while_loop`` is a host loop over ``affine_round``: it
-    stops after the first round that changed nothing (whose outputs equal
-    its inputs) or after ``max_iters`` rounds."""
+    reference's ``while_loop`` and its fold are one ``affine_loop``: it stops
+    after the first round that changed nothing (whose outputs equal its
+    inputs) or after ``max_iters`` rounds."""
     leader, tgt, add, missing, member_count = K.mutual_collapse(deps)
-    floor = torch.zeros_like(tgt)
-    for _ in range(max_iters):
-        tgt, add, floor, missing, changed = K.affine_round(
-            tgt, add, floor, missing, leader, member_count
-        )
-        if not int(changed.item()):
-            break
-    resolved, rank, stuck = K.affine_round(
-        tgt, add, floor, missing, leader, member_count, final=True
+    resolved, rank, stuck, _rounds = K.affine_loop(
+        tgt, add, missing, leader, member_count, max_iters
     )
     order = _order_from_ranks(rank, leader, dot_src, dot_seq)
     return order, resolved, rank, leader, stuck
-
-
-def _peel_stage(tgt, floor, miss, final, rank, live: int, *, run_to_fixpoint: bool):
-    """One stage of the staged peeler: frontier peeling (absorption only,
-    one dependency level per round) until progress stops or — unless
-    ``run_to_fixpoint`` — the live set halves.  ``live`` is the stage's
-    initial ``(~final & ~miss).sum()``: the reference's ``while_loop``
-    tests its condition before the first round too."""
-    half = max(tgt.shape[0] // 2, 1)
-    changed = True
-    while changed and (run_to_fixpoint or live > half):
-        tgt, floor, miss, final, rank, stats = K.peel_round(
-            tgt, floor, miss, final, rank
-        )
-        changed, live = stats.tolist()
-    return tgt, floor, miss, final, rank
 
 
 def _resident_schedule(batch: int, min_size: int) -> Tuple[int, ...]:
@@ -333,9 +312,10 @@ def resolve_general_resident(
     live = int(live.item())
     schedule = _resident_schedule(batch, min_size)
     for size in schedule:
-        state = _peel_stage(*state[:5], live, run_to_fixpoint=size <= min_size) + (
-            state[5],
-        )
+        # one stage: frontier peeling until progress stops or, unless it is
+        # the terminal stage, the live set halves
+        stage = K.peel_stage(*state[:5], live, run_to_fixpoint=size <= min_size)
+        state = (*stage[:5], state[5])
         if size <= min_size:
             stuck = K.peel_compact(*state, *outs, mode="publish")
             break  # terminal stage ran to its fixpoint

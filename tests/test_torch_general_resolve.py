@@ -191,11 +191,12 @@ def test_general_resolvers_match_jax(jax_ref, monkeypatch):
     fast path, the affine rounds, stuck cycles, compactions and the closed
     publish gate with FROZEN cells are each counted and required."""
     seen = {"fast": 0, "rounds": 0, "stuck": 0, "compact": 0, "frozen": 0}
-    real_round, real_compact = K.affine_round, K.peel_compact
+    real_loop, real_compact = K.affine_loop, K.peel_compact
 
-    def counted_round(*args, **kwargs):
-        seen["rounds"] += not kwargs.get("final", False)
-        return real_round(*args, **kwargs)
+    def counted_loop(*args, **kwargs):
+        out = real_loop(*args, **kwargs)
+        seen["rounds"] += int(out[3].item())
+        return out
 
     def counted_compact(*args, mode, half=0):
         out = real_compact(*args, mode=mode, half=half)
@@ -204,7 +205,7 @@ def test_general_resolvers_match_jax(jax_ref, monkeypatch):
             seen["frozen"] += int((out[0][0] == K.FROZEN).sum())
         return out
 
-    monkeypatch.setattr(K, "affine_round", counted_round)
+    monkeypatch.setattr(K, "affine_loop", counted_loop)
     monkeypatch.setattr(K, "peel_compact", counted_compact)
     for name, deps, min_sizes in _resolver_cases():
         n = deps.shape[0]

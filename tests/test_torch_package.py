@@ -285,8 +285,9 @@ def test_no_silent_cpu_route(monkeypatch):
         lambda: graph_resolve.resolve_graph_plane_step(*state, *feed, mode="general"),
         lambda: graph_resolve.resolve_general_resident(state[0], state[1], state[2]),
         lambda: K.mutual_collapse(state[0]),
-        lambda: K.affine_round(state[0], state[0], state[0], state[4], state[1], state[1]),
-        lambda: K.peel_round(state[0], state[1], state[4], state[5], state[2]),
+        lambda: K.affine_loop(state[0], state[0], state[4], state[1], state[1], 8),
+        lambda: K.peel_stage(state[0], state[1], state[4], state[5], state[2], 4,
+                             run_to_fixpoint=True),
         lambda: K.peel_compact(state[0], mode="init"),
         lambda: K.lex_sort([state[1]]),
         lambda: K.link_scan(state[1], state[2], state[3]),
