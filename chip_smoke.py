@@ -232,6 +232,8 @@ class Checker:
         self.K = K
         self.real = {name: getattr(K, name) for name in K.LAUNCHES}
         self.calls = {}
+        # a loop kernel's first call at its largest row count
+        self.widest = {}
         self.err = {name: 0.0 for name in K.LAUNCHES}
         self.count = {name: 0 for name in K.LAUNCHES}
 
@@ -287,6 +289,8 @@ class Checker:
             # loop kernel, of the most rows times rounds run)
             size = tensors_of(args)[0].shape[0]
             if name in getattr(self.K, "LOOP_KERNELS", ()):
+                if name not in self.widest or size > self.widest[name][0]:
+                    self.widest[name] = (size, saved, kwargs, got)
                 size *= int(got[-1].item())
             use = self.variant(name, args, kwargs)
             if use not in self.calls or size > self.calls[use][0]:
@@ -353,9 +357,12 @@ def sort_library(torch, args, kwargs):
     return name, (lambda k: torch.sort(k, stable=True)), (keys[0],)
 
 
-def moved_bytes(name, args, out):
+def moved_bytes(K, name, args, kwargs, out):
     """Bytes the function must move: each input read once, each output
-    written once (in-place state rows counted where they are written)."""
+    written once (in-place state rows counted where they are written); for
+    a loop kernel, what its rounds need (``loop_bytes``)."""
+    if name in getattr(K, "LOOP_KERNELS", ()):
+        return loop_bytes(K, name, args, kwargs)
     read = sum(t.numel() * t.element_size() for t in tensors_of(args))
     written = sum(t.numel() * t.element_size() for t in tensors_of(out))
     if name == "graph_prologue":
@@ -364,21 +371,110 @@ def moved_bytes(name, args, out):
         written += u_row.numel() * row_bytes + p_row.numel() * 4 + e_row.numel()
     if name == "plane_epilogue":
         written += args[1].numel()  # executed |= newly
-    if name == "affine_loop":
-        # a round reads the tgt/add/floor/missing state and the leader and
-        # member columns and writes the state; the fold reads tgt, floor,
-        # missing and leader and writes resolved/rank/stuck
-        tgt, _add, missing, leader, member_count = args[:5]
-        state = 3 * tgt.numel() * 4 + missing.numel()
-        cols = leader.numel() * 4 + member_count.numel() * 4
-        fold = 2 * tgt.numel() * 4 + missing.numel() + leader.numel() * 4
-        outs = sum(t.numel() * t.element_size() for t in out[:3])
-        return int(out[3].item()) * (2 * state + cols) + fold + outs
-    if name == "peel_stage":
-        # a round reads the stage's state and writes it
-        state = sum(t.numel() * t.element_size() for t in args[:5])
-        return int(out[5].item()) * 2 * state
     return read + written
+
+
+def loop_bytes(K, name, args, kwargs):
+    """Bytes a loop kernel's rounds need, counted on its plain version's
+    rounds over the same inputs (the same rounds: the Checker holds the
+    round counts equal).  Round 0 reads each input once; the peel stage
+    writes each output once.  Each round writes the cells that change in
+    it (for the peel stage after round 0: its first writes are the
+    outputs').  Each later round reads:
+
+    * ``affine_loop``: every row's targets and floors, the adds of its
+      live cells, its missing flag, leader and member count; the
+      leader-indexed aggregate and composition columns are the round's own
+      scratch (shared memory in the one-CTA form) and not counted;
+    * ``peel_stage``: one state byte (final, missing) a row; of each row
+      not final before the round, its targets and floor, and at each live
+      target that target's state byte and, if it is final, its rank.
+
+    ``affine_loop``'s fold reads targets, floors, missing flags and
+    leaders and writes resolved/rank/stuck."""
+    import torch
+
+    def changed(new, old):
+        return int((new != old).sum())
+
+    if name == "affine_loop":
+        tgt, add, missing, leader, member_count, max_iters = args
+        batch, width = tgt.shape
+        cells = batch * width
+        total = 2 * cells * 4 + batch + 2 * batch * 4  # round 0: the inputs
+        floor = torch.zeros_like(tgt)
+        idx = torch.arange(batch, device=tgt.device)[:, None]
+        rounds = 0
+        while rounds < max_iters:
+            if rounds:
+                live = int(((tgt >= 0) & (tgt != idx)).sum())
+                total += 2 * cells * 4 + live * 4 + batch + 2 * batch * 4
+            new = K.affine_round_plain(tgt, add, floor, missing, leader, member_count)
+            total += 4 * (changed(new[0], tgt) + changed(new[1], add)
+                          + changed(new[2], floor)) + changed(new[3], missing)
+            tgt, add, floor, missing, flag = new
+            rounds += 1
+            if not int(flag.item()):
+                break
+        return total + 2 * cells * 4 + batch + batch * 4 + (1 + 4 + 1) * batch
+    assert name == "peel_stage", name
+    tgt, floor, miss, final, rank, live = args
+    size, width = tgt.shape
+    row = width * 4 + 4 + 1 + 1 + 4
+    total = 2 * size * row  # the inputs read once, the outputs written once
+    half = max(size // 2, 1)
+    rounds, flag = 0, True
+    while flag and (kwargs["run_to_fixpoint"] or live > half):
+        if rounds:
+            open_rows = ~final
+            cells = tgt[open_rows]
+            live_cells = cells >= 0
+            at_final = final[torch.where(live_cells, cells, 0).long()] & live_cells
+            total += (size + int(open_rows.sum()) * (width * 4 + 4)
+                      + int(live_cells.sum()) + 4 * int(at_final.sum()))
+        new = K.peel_round_plain(tgt, floor, miss, final, rank)
+        if rounds:
+            total += 4 * (changed(new[0], tgt) + changed(new[1], floor)
+                          + changed(new[4], rank))
+            total += int(((new[2] != miss) | (new[3] != final)).sum())
+        tgt, floor, miss, final, rank, stats = new
+        flag, live = stats.tolist()
+        rounds += 1
+    return total
+
+
+def affine_forms(K, kernel, args, kwargs):
+    """The same ``affine_loop`` call in its two forms, one CTA (the gate at
+    its default) and cooperative (the gate lowered to 0): single and loop
+    times."""
+    out = {}
+    gate = K.AFFINE_CTA_ROWS
+    assert args[0].shape[0] <= gate, "one CTA holds at most the gate's rows"
+    for form, rows in (("one_cta", gate), ("cooperative", 0)):
+        K.AFFINE_CTA_ROWS = rows
+        try:
+            out[f"ms_{form}"] = time_ms(kernel, args, kwargs)
+            out[f"ms_loop_{form}"] = time_loop_ms(kernel, args, kwargs)
+        finally:
+            K.AFFINE_CTA_ROWS = gate
+    return out
+
+
+def compare_affine_forms(K, calls):
+    """``affine_forms`` of each ``(label, args)`` call, its outputs first held
+    against ``affine_loop_plain`` on the same inputs; {label: times, rounds,
+    calls}."""
+    found = {}
+    for label, (count, args) in calls.items():
+        want = K.affine_loop_plain(*clone_args(args))
+        got = K.affine_loop(*clone_args(args))
+        assert max_abs_err(got, want, label) == 0.0, f"affine_loop differs at {label}"
+        found[label] = {"calls": count, "rounds": int(got[-1].item()),
+                        **affine_forms(K, K.affine_loop, args, {})}
+    return found
+
+
+AFFINE_SWEEP = (256, 512, 1024, 2048, 4096)  # rows of the forms' sweep, W = 4
 
 
 def describe(args):
@@ -410,13 +506,19 @@ def kernel_records(torch, K, checker, names, source, phase, extra_uses=()):
             loops["ms_loop"] = time_loop_ms(kernel, args, kwargs)
             loops["rounds"] = int(out[-1].item())
             loops["ms_per_round"] = ms / loops["rounds"] if loops["rounds"] else None
+            # and the first call at the most rows, with its rounds
+            _rows, w_args, w_kwargs, w_out = checker.widest[name]
+            w_ms = time_ms(kernel, w_args, w_kwargs)
+            w_rounds = int(w_out[-1].item())
+            loops["widest"] = {
+                "shape": describe(w_args), "rounds": w_rounds, "ms": w_ms,
+                "ms_per_round": w_ms / w_rounds if w_rounds else None,
+                "bound_ms": moved_bytes(K, name, w_args, w_kwargs, w_out)
+                / HBM_BYTES_PER_S * 1e3,
+            }
         if use == "affine_loop":
             # the same call in the cooperative form, the gate lowered
-            gate, K.AFFINE_CTA_ROWS = K.AFFINE_CTA_ROWS, 0
-            try:
-                loops["ms_cooperative_form"] = time_ms(kernel, args, kwargs)
-            finally:
-                K.AFFINE_CTA_ROWS = gate
+            loops.update(affine_forms(K, kernel, args, kwargs))
         if name == "lex_sort":
             # the redesigned sort: both timings, the library call's too
             loops["ms_loop"] = time_loop_ms(kernel, args, kwargs)
@@ -426,7 +528,7 @@ def kernel_records(torch, K, checker, names, source, phase, extra_uses=()):
             if library:
                 library_ms = time_ms(library[1], library[2], {})
                 loops["library_ms_loop"] = time_loop_ms(library[1], library[2], {})
-        nbytes = moved_bytes(name, args, out)
+        nbytes = moved_bytes(K, name, args, kwargs, out)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         log(json.dumps({
             f"{phase}_kernel": use, "launches": checker.count[name],
@@ -960,6 +1062,17 @@ def phase3(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
         gp_module.resolve_graph_plane_step = real_step
         gp_module.DeviceGraphPlane._stuck_oracle = real_oracle
     log(json.dumps({"phase3_rounds": rounds}))
+    # both forms of the affine loop on one resolve each of the sweep's
+    # sizes: bench.py's general generator, rows shuffled
+    sweep = {}
+    for rows in AFFINE_SWEEP:
+        deps = general_workload(rows)[1][np.random.default_rng(rows).permutation(rows)]
+        collapsed = K.mutual_collapse(torch.tensor(deps, device=CARD))
+        leader, tgt, add, missing, member_count = collapsed
+        max_iters = 4 * K.num_doubling_steps(rows) + 8
+        sweep[f"{rows} x {deps.shape[1]}"] = (
+            1, (tgt, add, missing, leader, member_count, max_iters))
+    log(json.dumps({"phase3_affine_forms": compare_affine_forms(K, sweep)}))
     # the prologue's general fold is a use of the prologue (graph_plane_step.cu)
     return kernel_records(torch, K, checker, list(K.GENERAL_KERNELS),
                           GENERAL_SOURCE, "phase3",
@@ -1079,9 +1192,26 @@ def phase4(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
         }}))
         del executor, cmds
         sims = {}
+        # the sims' affine_loop calls by shape: a count and the first
+        # call's inputs
+        sim_affine = {}
+        real_affine = K.affine_loop
+
+        def captured_affine(*args):
+            label = " x ".join(str(d) for d in args[0].shape)
+            if label not in sim_affine:
+                sim_affine[label] = (0, clone_args(args))
+            count, first = sim_affine[label]
+            sim_affine[label] = (count + 1, first)
+            return real_affine(*args)
+
         for name in ("EPaxos", "Atlas"):
             t0 = time.perf_counter()
-            got = sim_run("cuda", name)
+            K.affine_loop = captured_affine
+            try:
+                got = sim_run("cuda", name)
+            finally:
+                K.affine_loop = real_affine
             cuda_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             want = sim_run("cpu", name)
@@ -1119,6 +1249,8 @@ def phase4(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
         "host_reads_in_step_by_mode": {m: int(sum(r)) for m, r in step_reads.items()},
     }
     log(json.dumps({"general_sims": sims, "launches": launches, "loops": loops}))
+    # both forms of the affine loop at the sims' own shapes
+    log(json.dumps({"phase4_sim_affine_forms": compare_affine_forms(K, sim_affine)}))
     return launches
 
 

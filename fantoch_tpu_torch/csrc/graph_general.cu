@@ -31,6 +31,7 @@
 #include <cooperative_groups.h>
 #include <stdint.h>
 #include <climits>
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -208,17 +209,47 @@ __device__ __forceinline__ int32_t read_slot(const int32_t* p) {
 
 // the co-resident grid of a cooperative launch of `kernel`: the SM count
 // times the blocks of `block` threads one SM holds, at most `want`; a card
-// without cooperative launches refuses (never a fallback)
+// without cooperative launches refuses (never a fallback).  The blocks an
+// SM holds are queried once per (kernel, block, shared memory, device) and
+// kept, so a launch after the first makes no attribute or occupancy query.
+struct CoopGrid {
+  const void* kernel;
+  int block;
+  size_t smem;
+  int dev;
+  long blocks;  // SM count x blocks an SM holds
+};
+#define COOP_GRIDS 64
+static CoopGrid coop_grids[COOP_GRIDS];
+static int n_coop_grids = 0;
+static std::mutex coop_grids_mu;
+
 template <class F>
 static int coop_grid(F kernel, int block, size_t smem, long want, int* grid) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  int dev = 0;
   CHECK_CALL(cudaGetDevice(&dev));
-  CHECK_CALL(cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev));
-  if (!coop) return (int)cudaErrorNotSupported;
-  CHECK_CALL(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  CHECK_CALL(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem));
-  long g = (long)sms * per_sm;
-  if (want < g) g = want;
+  long blocks = -1;
+  {
+    std::lock_guard<std::mutex> lock(coop_grids_mu);
+    for (int i = 0; i < n_coop_grids; ++i) {
+      const CoopGrid& c = coop_grids[i];
+      if (c.kernel == (const void*)kernel && c.block == block && c.smem == smem &&
+          c.dev == dev)
+        blocks = c.blocks;
+    }
+  }
+  if (blocks < 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    CHECK_CALL(cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev));
+    if (!coop) return (int)cudaErrorNotSupported;
+    CHECK_CALL(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    CHECK_CALL(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem));
+    blocks = (long)sms * per_sm;
+    std::lock_guard<std::mutex> lock(coop_grids_mu);
+    if (n_coop_grids < COOP_GRIDS)
+      coop_grids[n_coop_grids++] = {(const void*)kernel, block, smem, dev, blocks};
+  }
+  long g = want < blocks ? want : blocks;
   if (g < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   *grid = (int)g;
   return 0;
@@ -455,9 +486,18 @@ extern "C" int gg_affine_loop(const int32_t* tgt0, const int32_t* add0,
     int threads = 32;
     while (threads < B && threads < LOOP_CTA) threads *= 2;
     size_t smem = 6 * (size_t)B * sizeof(int32_t);
-    CHECK_CALL(cudaFuncSetAttribute(k_affine_cta,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem));
+    // the dynamic shared-memory limit, raised once to the largest size asked
+    static std::mutex smem_mu;
+    static size_t smem_set = 48 * 1024;  // the default limit
+    {
+      std::lock_guard<std::mutex> lock(smem_mu);
+      if (smem > smem_set) {
+        CHECK_CALL(cudaFuncSetAttribute(k_affine_cta,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)smem));
+        smem_set = smem;
+      }
+    }
     k_affine_cta<<<1, threads, smem, stream>>>(tgt0, add0, miss0, leader, member_count,
                                               tgt, add, floor, miss, resolved, rank,
                                               stuck, rounds, total, B, W, max_iters);
