@@ -40,12 +40,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    width (C = 2^20 x W = 4): 2^20 commands of ``bench.py``'s general
    generator (seed 7, 4 keys per command from 4096) as 4 feeds of 2^18,
    shuffled around the feed edges as in phase 1; then ``resolve_general``
-   itself on 2^16 rows, above the affine loop's one-CTA gate, so the loop
-   runs as a cooperative launch; each kernel is timed beside its plain
-   version and its byte bound (the loops as one call and as the mean of
-   100, with their rounds), with the rounds per resolve and per stage
-   (the loop kernels' own device counts) and the host reads inside each
-   step;
+   itself on 2^16 rows, above mode general's window; each kernel is timed
+   beside its plain version and its byte bound (the loops as one call and
+   as the mean of 100, with their rounds; the widest peel stage also run
+   to its fixpoint), with the rounds per resolve and per stage (the loop
+   kernels' own device counts) and the host reads inside each step; then
+   the affine loop's two forms (one CTA up to ``AFFINE_CTA_ROWS`` = 2,048
+   rows, cooperative above) on the same resolve at 256-4,096 rows;
 4. the general path end to end: ``GraphExecutor`` on ``cuda`` takes the
    2^20 multi-key commands as ``GraphAddBatch`` feeds of 250k, shuffled
    around the feed edges (every command once, each key in dependency
@@ -55,7 +56,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``sim.runner.Runner(device="cuda")`` must equal the same seed's
    ``Runner(device="cpu")`` run in per-key orders and latency histograms;
    every general kernel must have launched in this phase, the affine loop
-   once a resolve and the peel stage once a stage;
+   once a resolve and the peel stage once a stage; both affine forms are
+   timed at the sims' own shapes;
 5. the votes-table kernels (``csrc/table_plane.cu``) against their plain
    versions on the card, exactly, flags and counts included, each timed
    beside its plain version, its byte bound and the one PyTorch call that
@@ -124,7 +126,7 @@ REPLACES = "fantoch_tpu/ops/pallas_resolve.py:334"
 GENERAL_C = 4096  # mode general's largest window: the kernel-size gate
 GENERAL_WIDTH = 4
 GENERAL_FEED = 1024
-COOP_B = 1 << 16  # resolve_general above the one-CTA gate: the cooperative loop
+COOP_B = 1 << 16  # resolve_general above mode general's window
 
 
 def log(msg):
@@ -247,14 +249,12 @@ class Checker:
 
     def variant(self, name, args, kwargs):
         """The call's use: the sort serves five, told apart by its keys;
-        the affine loop's cooperative form (above the one-CTA gate), the
-        peel compaction's init and publish and the stable clocks' table
-        round are uses of their wrappers too (and the mutual collapse of a
-        resolve above that gate)."""
-        if name == "affine_loop" and args[0].shape[0] > self.K.AFFINE_CTA_ROWS:
-            return "affine_loop, cooperative"
-        if name == "mutual_collapse" and args[0].shape[0] > self.K.AFFINE_CTA_ROWS:
-            return "mutual_collapse, above the one-CTA gate"
+        a resolve above mode general's window (``resolve_general`` at
+        2^16 rows: its affine loop and mutual collapse), the peel
+        compaction's init and publish and the stable clocks' table round
+        are uses of their wrappers too."""
+        if name in ("affine_loop", "mutual_collapse") and args[0].shape[0] > GENERAL_C:
+            return f"{name}, above mode general's window"
         if name == "graph_prologue" and kwargs.get("general"):
             return "graph_prologue, general fold"
         if name == "peel_compact" and kwargs["mode"] != "compact":
@@ -444,15 +444,18 @@ def loop_bytes(K, name, args, kwargs):
 
 
 def affine_forms(K, kernel, args, kwargs):
-    """The same ``affine_loop`` call in its two forms, one CTA (the gate at
-    its default) and cooperative (the gate lowered to 0): single and loop
-    times."""
+    """The same ``affine_loop`` call in its two forms, one CTA (the gate
+    raised to the call's rows) and cooperative (the gate lowered to 0),
+    each held against the plain version on the same inputs: single and
+    loop times."""
     out = {}
     gate = K.AFFINE_CTA_ROWS
-    assert args[0].shape[0] <= gate, "one CTA holds at most the gate's rows"
-    for form, rows in (("one_cta", gate), ("cooperative", 0)):
+    want = K.affine_loop_plain(*clone_args(args), **kwargs)
+    for form, rows in (("one_cta", max(gate, args[0].shape[0])), ("cooperative", 0)):
         K.AFFINE_CTA_ROWS = rows
         try:
+            got = kernel(*clone_args(args), **kwargs)
+            assert max_abs_err(got, want, form) == 0.0, f"affine_loop, {form}: differs"
             out[f"ms_{form}"] = time_ms(kernel, args, kwargs)
             out[f"ms_loop_{form}"] = time_loop_ms(kernel, args, kwargs)
         finally:
@@ -461,15 +464,12 @@ def affine_forms(K, kernel, args, kwargs):
 
 
 def compare_affine_forms(K, calls):
-    """``affine_forms`` of each ``(label, args)`` call, its outputs first held
-    against ``affine_loop_plain`` on the same inputs; {label: times, rounds,
-    calls}."""
+    """``affine_forms`` of each ``(label, args)`` call; {label: times,
+    rounds, calls}."""
     found = {}
     for label, (count, args) in calls.items():
-        want = K.affine_loop_plain(*clone_args(args))
-        got = K.affine_loop(*clone_args(args))
-        assert max_abs_err(got, want, label) == 0.0, f"affine_loop differs at {label}"
-        found[label] = {"calls": count, "rounds": int(got[-1].item()),
+        rounds = int(K.affine_loop_plain(*clone_args(args))[-1].item())
+        found[label] = {"calls": count, "rounds": rounds,
                         **affine_forms(K, K.affine_loop, args, {})}
     return found
 
@@ -517,8 +517,23 @@ def kernel_records(torch, K, checker, names, source, phase, extra_uses=()):
                 / HBM_BYTES_PER_S * 1e3,
             }
         if use == "affine_loop":
-            # the same call in the cooperative form, the gate lowered
+            # the same call in both forms
             loops.update(affine_forms(K, kernel, args, kwargs))
+        if name == "peel_stage" and not checker.widest[name][2]["run_to_fixpoint"]:
+            # a stage of the widest call's rows run to its fixpoint: many
+            # rounds at that size
+            w_state, w_live = checker.widest[name][1][:5], checker.widest[name][1][5]
+            f_kwargs = {"run_to_fixpoint": True}
+            want = K.peel_stage_plain(*clone_args(w_state), w_live, **f_kwargs)
+            got = kernel(*clone_args(w_state), w_live, **f_kwargs)
+            assert max_abs_err(got, want, use) == 0.0, "peel_stage to the fixpoint differs"
+            f_ms = time_ms(kernel, (*w_state, w_live), f_kwargs)
+            f_rounds = int(got[-1].item())
+            loops["widest_to_fixpoint"] = {
+                "rounds": f_rounds, "ms": f_ms, "ms_per_round": f_ms / f_rounds,
+                "bound_ms": moved_bytes(K, name, (*w_state, w_live), f_kwargs, got)
+                / HBM_BYTES_PER_S * 1e3,
+            }
         if name == "lex_sort":
             # the redesigned sort: both timings, the library call's too
             loops["ms_loop"] = time_loop_ms(kernel, args, kwargs)
@@ -1028,7 +1043,7 @@ def phase3(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
                 for wrapper in ("peel_stage", "peel_compact"):
                     assert ran[wrapper] > 0, (name, wrapper)
         assert rounds["general, cycle-rich C=4096"]["stuck_oracle_runs"] > 0, rounds
-        # the cooperative form of the affine loop, above the one-CTA gate:
+        # a resolve above mode general's window, cooperative:
         # resolve_general itself on 2^16 rows, every wrapper call checked
         for name, deps in (
             ("resolve_general, cooperative, rows shuffled B=2^16",

@@ -762,18 +762,19 @@ def mutual_collapse(deps):
 # row.  The update reads other rows only through those columns, so the
 # state is updated in place (a row's cells loaded four at a time before any
 # is stored; after round 0, only the cells that change are written) and
-# each round still sees the whole state the round before it left.  Up to ``AFFINE_CTA_ROWS`` rows (mode ``general``'s
-# window: the plane's structure threshold, 4096 at W = 4) one CTA of up to
-# 1,024 threads runs it, the six columns in dynamic shared memory (96 KB at
-# 4096) and the changed flag a ``__syncthreads_or``.  Above, a cooperative
-# launch clamped to the co-resident grid runs the same rounds with the
-# columns in global scratch, grid barriers, and the changed flag an
-# atomicOr into a slot rotated by round.  Scratch is allocated once a
-# resolve; there is no memset and no host read; the rounds run land in a
-# device int.
+# each round still sees the whole state the round before it left.  Up to
+# ``AFFINE_CTA_ROWS`` rows one CTA of up to 1,024 threads runs it, the six
+# columns in dynamic shared memory (48 KB at 2,048 rows) and the changed
+# flag a ``__syncthreads_or``.  Above, a cooperative launch clamped to the
+# co-resident grid runs the same rounds with the columns in global
+# scratch, grid barriers, and the changed flag an atomicOr into a slot
+# rotated by round.  Scratch is allocated once a resolve; there is no
+# memset and no host read; the rounds run land in a device int.
 
-# the one-CTA affine loop's gate: its six [B] int32 columns in shared memory
-AFFINE_CTA_ROWS = 4096
+# the one-CTA affine loop's gate, at the crossover chip_smoke.py measures
+# (both forms on the same resolves): one CTA was faster at 1,024 and 2,048
+# rows, the cooperative form (more SMs) at mode general's 4,096-row window
+AFFINE_CTA_ROWS = 2048
 # threads a block of the cooperative launches (a multiple of 32)
 LOOP_BLOCK = 512
 
