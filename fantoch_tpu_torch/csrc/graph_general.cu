@@ -486,16 +486,19 @@ extern "C" int gg_affine_loop(const int32_t* tgt0, const int32_t* add0,
     int threads = 32;
     while (threads < B && threads < LOOP_CTA) threads *= 2;
     size_t smem = 6 * (size_t)B * sizeof(int32_t);
-    // the dynamic shared-memory limit, raised once to the largest size asked
+    // the dynamic shared-memory limit, raised on each device only when a
+    // launch asks for more than it was last set to (48 KB, the default)
     static std::mutex smem_mu;
-    static size_t smem_set = 48 * 1024;  // the default limit
-    {
+    static size_t smem_set[64];
+    int dev = 0;
+    CHECK_CALL(cudaGetDevice(&dev));
+    if (smem > 48 * 1024) {
       std::lock_guard<std::mutex> lock(smem_mu);
-      if (smem > smem_set) {
+      if (dev >= 64 || smem > smem_set[dev]) {
         CHECK_CALL(cudaFuncSetAttribute(k_affine_cta,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         (int)smem));
-        smem_set = smem;
+        if (dev < 64) smem_set[dev] = smem;
       }
     }
     k_affine_cta<<<1, threads, smem, stream>>>(tgt0, add0, miss0, leader, member_count,

@@ -750,26 +750,29 @@ def mutual_collapse(deps):
 #     a resolve
 # ---------------------------------------------------------------------------
 # Replaces the reference's ``while_loop`` and fold as mode ``general`` of
-# graph_plane_step_pallas (fantoch_tpu/ops/pallas_resolve.py:334) runs
-# them, with no host round-trip inside the loop.  Bound: bytes
-# — a round reads the [B, W] tgt/add/floor state and the [B] columns once
-# and writes the state once (with random [B]-column gathers at the live
-# targets), so the rounds run times those bytes at 3.35 TB/s, plus the
-# fold's.  Design: the whole loop in one launch.  A round is three phases
-# with a barrier between them: zero the four leader-indexed aggregate
-# columns; build them (integer atomicMax/Add/Or, exact in any order) and
-# the composition columns (a singleton SCC's one live slot); update each
-# row.  The update reads other rows only through those columns, so the
-# state is updated in place (a row's cells loaded four at a time before any
-# is stored; after round 0, only the cells that change are written) and
-# each round still sees the whole state the round before it left.  Up to
-# ``AFFINE_CTA_ROWS`` rows one CTA of up to 1,024 threads runs it, the six
-# columns in dynamic shared memory (48 KB at 2,048 rows) and the changed
-# flag a ``__syncthreads_or``.  Above, a cooperative launch clamped to the
-# co-resident grid runs the same rounds with the columns in global
-# scratch, grid barriers, and the changed flag an atomicOr into a slot
-# rotated by round.  Scratch is allocated once a resolve; there is no
-# memset and no host read; the rounds run land in a device int.
+# graph_plane_step_pallas (fantoch_tpu/ops/pallas_resolve.py:334) runs them,
+# with no host round-trip inside the loop.  Bound: bytes at 3.35 TB/s of
+# what the rounds need — the inputs read once; each later round reads every
+# row's targets and floors, the adds of live cells and the
+# missing/leader/member columns; each round writes the cells that change
+# (the aggregate and composition columns are the round's own scratch); the
+# fold reads tgt/floor/missing/leader and writes resolved/rank/stuck
+# (``chip_smoke.py`` counts it on the plain rounds).  Design: the whole loop
+# in one launch.  A round is three phases with a barrier between them: zero
+# the four leader-indexed aggregate columns; build them (integer
+# atomicMax/Add/Or, exact in any order) and the composition columns (a
+# singleton SCC's one live slot); update each row.  The update reads other
+# rows only through those columns, so the state is updated in place (a row's
+# cells loaded four at a time before any is stored; after round 0, only the
+# cells that change are written) and each round still sees the whole state
+# the round before it left.  Up to ``AFFINE_CTA_ROWS`` rows one CTA of up to
+# 1,024 threads runs it, the six columns in dynamic shared memory (48 KB at
+# 2,048 rows) and the changed flag a ``__syncthreads_or``.  Above, a
+# cooperative launch clamped to the co-resident grid runs the same rounds
+# with the columns in global scratch, grid barriers, and the changed flag an
+# atomicOr into a slot rotated by round.  Scratch is allocated once a
+# resolve; there is no memset and no host read; the rounds run land in a
+# device int.
 
 # the one-CTA affine loop's gate, at the crossover chip_smoke.py measures
 # (both forms on the same resolves): one CTA was faster at 1,024 and 2,048
@@ -921,26 +924,28 @@ def affine_loop(tgt, add, missing, leader, member_count, max_iters):
 # ---------------------------------------------------------------------------
 # Replaces the reference's stage loop as mode ``general_resident`` of
 # graph_plane_step_pallas (fantoch_tpu/ops/pallas_resolve.py:334) runs it,
-# with no host round-trip inside the stage.  Bound: bytes — a round reads
-# the stage's [S, W] targets and [S] columns once and writes them once
-# (with random gathers of final/miss/rank at the live targets), so the
-# rounds run times those bytes at 3.35 TB/s.  Design: one cooperative
-# launch, its grid clamped to the co-resident limit (the occupancy query
-# times the SM count), rows walked grid-stride, rounds separated by a grid
-# barrier.  A row reads of other rows only their final/miss flags and the
-# rank of a target final before the round, which the round cannot change;
-# so tgt/floor/rank are updated in place and only the flags (one state
-# byte a row) ping-pong between two buffers.  Every round is
-# round-synchronous, so the round counts and stage cuts are the
-# reference's.  Rows final before a round are skipped, and a row's cells
-# are loaded four at a time before any is stored.  The changed flag and
-# live count: a warp sum, a shared-memory sum a block, one atomic a block
-# into slot r % 3 of a three-slot ring (block 0 zeroes slot r + 1, which
-# every block last read two barriers before), read after the barrier by
-# every block, so all take the same stop decision: nothing changed or,
-# unless ``run_to_fixpoint``, ``live <= half``.  Before the first round
-# the stage's initial ``live`` (a host int) is tested the same way.  A
-# refused cooperative launch raises; it never falls back.
+# with no host round-trip inside the stage.  Bound: bytes at 3.35 TB/s of
+# what the rounds need — the inputs read and the outputs written once; each
+# later round reads one state byte (final, missing) a row and, of each row
+# not yet final, its targets and floor and, at each live target, that
+# target's state byte and, if it is final, its rank; and writes the cells
+# that change (``chip_smoke.py`` counts it on the plain rounds).  Design:
+# one cooperative launch, its grid clamped to the co-resident limit (the
+# occupancy query times the SM count), rows walked grid-stride, rounds
+# separated by a grid barrier.  A row reads of other rows only their
+# final/miss flags and the rank of a target final before the round, which
+# the round cannot change; so tgt/floor/rank are updated in place and only
+# the flags (one state byte a row) ping-pong between two buffers.  Every
+# round is round-synchronous, so the round counts and stage cuts are the
+# reference's.  Rows final before a round are skipped, and a row's cells are
+# loaded four at a time before any is stored.  The changed flag and live
+# count: a warp sum, a shared-memory sum a block, one atomic a block into
+# slot r % 3 of a three-slot ring (block 0 zeroes slot r + 1, which every
+# block last read two barriers before), read after the barrier by every
+# block, so all take the same stop decision: nothing changed or, unless
+# ``run_to_fixpoint``, ``live <= half``.  Before the first round the stage's
+# initial ``live`` (a host int) is tested the same way.  A refused
+# cooperative launch raises; it never falls back.
 
 
 def peel_round_plain(tgt, floor, miss, final, rank):
