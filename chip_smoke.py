@@ -58,6 +58,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    every general kernel must have launched in this phase, the affine loop
    once a resolve and the peel stage once a stage; both affine forms are
    timed at the sims' own shapes;
+4b. the general chain at the sims' shapes: the sims' first dispatch at
+   1,024 x 4 and at 1,024 x 8 that is not the fast path (captured from
+   ``Runner(device="cpu")``), each launch of it (the prologue's general
+   fold, ``mutual_collapse``, ``affine_loop``, the 4-key ``lex_sort``,
+   ``plane_epilogue``) and the whole dispatch held against the plain
+   versions, timed single and in the loop beside the byte bound, and
+   counted in operations on the card by ``torch.profiler``;
+   ``mutual_collapse`` also at 4,096 x 4 and 2^16 x 4, the general fold at
+   4,096 and 2^20 slots, both forms (one CTA, cooperative) of both over
+   256-4,096 rows, and an empty kernel's launch, the one-launch floor;
 5. the votes-table kernels (``csrc/table_plane.cu``) against their plain
    versions on the card, exactly, flags and counts included, each timed
    beside its plain version, its byte bound and the one PyTorch call that
@@ -101,6 +111,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 Each phase reports its wall time.  The last lines are the
 ``{"kernels": [...]}`` record, the card line and
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --general-chain
+
+builds the two graph sources and runs phase 4b alone, then prints the
+card line; copied into an older checkout it times that checkout's kernels
+at the same shapes.
 """
 
 import json
@@ -443,24 +459,40 @@ def loop_bytes(K, name, args, kwargs):
     return total
 
 
-def affine_forms(K, kernel, args, kwargs):
-    """The same ``affine_loop`` call in its two forms, one CTA (the gate
-    raised to the call's rows) and cooperative (the gate lowered to 0),
-    each held against the plain version on the same inputs: single and
-    loop times."""
-    out = {}
-    gate = K.AFFINE_CTA_ROWS
-    want = K.affine_loop_plain(*clone_args(args), **kwargs)
-    for form, rows in (("one_cta", max(gate, args[0].shape[0])), ("cooperative", 0)):
-        K.AFFINE_CTA_ROWS = rows
+SMEM_LIMIT = 232_448  # bytes of shared memory one block can use on an H100
+
+
+def one_launch_forms(K, name, gate_name, args, kwargs, one_cta_smem):
+    """The same call of a one-launch wrapper in its two forms, one CTA (the
+    gate raised to the call's rows, where the block's shared memory holds
+    them) and cooperative (the gate lowered to 0), each held against the
+    plain version: single and loop times.  Empty where the wrapper has no
+    such gate."""
+    if not hasattr(K, gate_name):
+        return {}
+    kernel, plain = getattr(K, name), getattr(K, f"{name}_plain")
+    want = plain(*clone_args(args), **kwargs)
+    rows = args[0].shape[0]
+    gate, out = getattr(K, gate_name), {}
+    for form, value in (("one_cta", max(gate, rows)), ("cooperative", 0)):
+        if form == "one_cta" and one_cta_smem > SMEM_LIMIT:
+            continue
+        setattr(K, gate_name, value)
         try:
             got = kernel(*clone_args(args), **kwargs)
-            assert max_abs_err(got, want, form) == 0.0, f"affine_loop, {form}: differs"
+            assert max_abs_err(got, want, form) == 0.0, f"{name}, {form}: differs"
             out[f"ms_{form}"] = time_ms(kernel, args, kwargs)
             out[f"ms_loop_{form}"] = time_loop_ms(kernel, args, kwargs)
         finally:
-            K.AFFINE_CTA_ROWS = gate
+            setattr(K, gate_name, gate)
     return out
+
+
+def affine_forms(K, args, kwargs):
+    """``one_launch_forms`` of an ``affine_loop`` call (one CTA: six
+    columns of ints in shared memory)."""
+    return one_launch_forms(K, "affine_loop", "AFFINE_CTA_ROWS", args, kwargs,
+                            6 * args[0].shape[0] * 4)
 
 
 def compare_affine_forms(K, calls):
@@ -469,12 +501,13 @@ def compare_affine_forms(K, calls):
     found = {}
     for label, (count, args) in calls.items():
         rounds = int(K.affine_loop_plain(*clone_args(args))[-1].item())
-        found[label] = {"calls": count, "rounds": rounds,
-                        **affine_forms(K, K.affine_loop, args, {})}
+        found[label] = {"calls": count, "rounds": rounds, **affine_forms(K, args, {})}
     return found
 
 
 AFFINE_SWEEP = (256, 512, 1024, 2048, 4096)  # rows of the forms' sweep, W = 4
+# a use built from another source than its wrapper's record
+USE_SOURCE = {"graph_prologue, general fold": GENERAL_SOURCE}
 
 
 def describe(args):
@@ -518,7 +551,7 @@ def kernel_records(torch, K, checker, names, source, phase, extra_uses=()):
             }
         if use == "affine_loop":
             # the same call in both forms
-            loops.update(affine_forms(K, kernel, args, kwargs))
+            loops.update(affine_forms(K, args, kwargs))
         if name == "peel_stage" and not checker.widest[name][2]["run_to_fixpoint"]:
             # a stage of the widest call's rows run to its fixpoint: many
             # rounds at that size
@@ -552,7 +585,8 @@ def kernel_records(torch, K, checker, names, source, phase, extra_uses=()):
             "shape": describe(args),
         }))
         uses.setdefault(name, []).append({
-            "use": use, "shape": describe(args), "ms": ms, "plain_ms": plain_ms,
+            "use": use, "source": USE_SOURCE.get(use, source),
+            "shape": describe(args), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "library_ms": library_ms, **loops,
         })
         if use != main_use.get(name, name):
@@ -1267,6 +1301,268 @@ def phase4(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
     # both forms of the affine loop at the sims' own shapes
     log(json.dumps({"phase4_sim_affine_forms": compare_affine_forms(K, sim_affine)}))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the general chain at the sims' shapes (phase 4b; alone: --general-chain)
+# ---------------------------------------------------------------------------
+
+CHAIN_SWEEP = (256, 512, 1024, 2048, 4096)  # rows of the one-launch forms' sweep
+
+
+def device_ops(torch, calls):
+    """The operations on the card (kernels, memsets, copies) of each call
+    ``(fn, args, kwargs)`` on clones of its arguments, by
+    ``torch.profiler``: one session over all of them, each call warmed
+    before it (library load, grid and limit queries), run inside its own
+    ``record_function`` range and synchronized before the range ends; an
+    operation belongs to the range that holds its start.  Returns, a call,
+    the names and the summed time on the card (ms) of its operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    runs = []
+    for fn, args, kwargs in calls:
+        fn(*clone_args(args), **kwargs)
+        runs.append(clone_args(args))
+    torch.cuda.synchronize()
+    labels = [f"chip_smoke_call_{i}" for i in range(len(calls))]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for label, (fn, _args, kwargs), run in zip(labels, calls, runs):
+            with record_function(label):
+                fn(*run, **kwargs)
+                torch.cuda.synchronize()
+            time.sleep(0.002)
+    events = prof.events()
+    ranges = {e.name: e.time_range for e in events
+              if e.name in labels and e.device_type == DeviceType.CPU}
+    out = [([], 0.0) for _ in calls]
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name in labels:
+            continue  # the ranges' own annotations on the card
+        for i, label in enumerate(labels):
+            span = ranges[label]
+            if span.start <= e.time_range.start <= span.end:
+                names, us = out[i]
+                names.append(e.name)
+                out[i] = (names, us + e.time_range.end - e.time_range.start)
+    return [(names, us / 1e3) for names, us in out]
+
+
+def launch_floor(torch, K):
+    """An empty kernel's launch on the same stream, single and in the loop
+    (None where the library has no empty kernel)."""
+    if "gg_empty" not in K._SIGNATURES:
+        return None
+    device = torch.device(CARD, torch.cuda.current_device())
+
+    def empty():
+        K._launch("gg_empty", device)
+
+    return {"ms": time_ms(empty, (), {}), "ms_loop": time_loop_ms(empty, (), {}),
+            "call": (empty, (), {})}
+
+
+def stage_record(torch, K, name, args, kwargs=None):
+    """One wrapper call checked against its plain version on the card
+    (outputs and in-place arguments), timed single and in the loop beside
+    the plain version and its byte bound; the record's ``call`` is counted
+    in operations on the card later (``count_ops``).  Returns the record,
+    the outputs and the arguments after the call."""
+    kwargs = kwargs or {}
+    kernel, plain = getattr(K, name), getattr(K, f"{name}_plain")
+    got_args, plain_args = clone_args(args), clone_args(args)
+    got = kernel(*got_args, **kwargs)
+    want = plain(*plain_args, **kwargs)
+    err = max(max_abs_err(got, want, name), max_abs_err(got_args, plain_args, name))
+    assert err == 0.0, f"{name}: kernel differs from its plain version"
+    record = {
+        "shape": describe(args), "ms": time_ms(kernel, args, kwargs),
+        "ms_loop": time_loop_ms(kernel, args, kwargs),
+        "plain_ms": time_ms(plain, args, kwargs),
+        "bound_ms": moved_bytes(K, name, args, kwargs, got) / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": err, "call": (kernel, clone_args(args), kwargs),
+    }
+    return record, got, got_args
+
+
+def count_ops(torch, records):
+    """Replace each record's ``call`` by its operations on the card
+    (``device_ops``, one profiler session for all): ``device_ops``, the
+    count, ``op_names``, and ``device_ms``, their summed time on the card
+    in the profiler's trace.  A control call of one PyTorch kernel first:
+    the profiler must see exactly it."""
+    control = (lambda: torch.zeros(8, device=CARD), (), {})
+    ops = device_ops(torch, [control] + [r.pop("call") for r in records])
+    assert len(ops[0][0]) == 1, f"torch.profiler saw {ops[0][0]} for one kernel"
+    for record, (names, ms) in zip(records, ops[1:]):
+        record["device_ops"] = len(names)
+        record["op_names"] = sorted(set(names))
+        record["device_ms"] = ms
+
+
+def collapse_smem(rows, width):
+    return (3 + -(-width // 32)) * rows * 4
+
+
+def collapse_steps(torch, K, deps):
+    """Steps of the collapse's min-label loop that change a leader, of the
+    ``num_doubling_steps(B)`` the reference runs."""
+    batch = deps.shape[0]
+    idx = torch.arange(batch, dtype=torch.int32, device=deps.device)
+    t = torch.where(deps == idx[:, None], K.TERMINAL, deps)
+    valid = t >= 0
+    safe = torch.where(valid, t, 0).long()
+    back = (t[safe] == idx[:, None, None]).any(dim=-1) & valid
+    leader, changed = idx, 0
+    for _ in range(K.num_doubling_steps(batch)):
+        nbr_min = torch.where(back, leader[safe], batch).min(dim=-1).values
+        new = torch.minimum(leader, nbr_min.to(torch.int32))
+        new = torch.minimum(new, new[new.long()])
+        changed += bool((new != leader).any())
+        leader = new
+    return changed
+
+
+def prologue_inputs(torch, cap, width, seed):
+    """A general dispatch into a window of ``cap`` rows: 3/4 of the rows
+    resident (``general_workload``'s dependencies, a few of them MISSING), a
+    quarter of those executed, the last quarter of the window installed by
+    the feed, MISSING cells of resident and installed rows patched, and
+    executed marks on resident and installed rows."""
+    rng = np.random.default_rng(seed)
+    deps = general_workload(cap, width)[1]
+    deps = np.where((deps >= 0) & (rng.random(deps.shape) < 0.02), -2, deps)
+    resident = 3 * cap // 4
+    state_deps = np.full((cap, width), -1, np.int32)
+    state_deps[:resident] = deps[:resident]
+    occ = np.arange(cap) < resident
+    executed = occ & (rng.random(cap) < 0.25)
+    u_row = np.arange(resident, cap, dtype=np.int32)
+    missing = np.argwhere(deps == -2)
+    missing = missing[rng.random(len(missing)) < 0.5]
+    p_row, p_col = missing[:, 0].astype(np.int32), missing[:, 1].astype(np.int32)
+    p_val = rng.integers(0, np.maximum(p_row, 1)).astype(np.int32)
+    e_row = rng.choice(cap, max(cap // 64, 8), replace=False).astype(np.int32)
+    cols = [state_deps, np.zeros(cap, np.int32), np.ones(cap, np.int32),
+            np.arange(cap, dtype=np.int32), occ, executed, u_row, deps[resident:],
+            np.full(len(u_row), -1, np.int32), np.ones(len(u_row), np.int32),
+            u_row + 1, p_row, p_col, p_val, e_row]
+    return [torch.tensor(a, device=CARD) for a in cols]
+
+
+def sims_dispatches(K, gp_module, shapes):
+    """The inputs (on the host) of the first general dispatch at each of
+    ``shapes`` ((slots, width)) whose resolve is not the fast path, from
+    EPaxos and Atlas through ``Runner(device="cpu")`` (the sims of phase 4,
+    whose dispatches on the card take the same inputs)."""
+    found = {}
+    real = gp_module.resolve_graph_plane_step
+
+    def capture(*args, mode):
+        shape = tuple(args[0].shape)
+        if mode == "general" and shape in shapes and shape not in found:
+            saved = clone_args(args)
+            _dmat, n_bad = K.graph_prologue_plain(*clone_args(args), general=True)
+            if int(n_bad[0]):
+                found[shape] = saved
+        return real(*args, mode=mode)
+
+    gp_module.resolve_graph_plane_step = capture
+    try:
+        for name in ("EPaxos", "Atlas"):
+            if len(found) < len(shapes):
+                sim_run("cpu", name)
+    finally:
+        gp_module.resolve_graph_plane_step = real
+    assert len(found) == len(shapes), f"the sims gave no dispatch at {set(shapes) - set(found)}"
+    return found
+
+
+def phase_chain(torch, K, gp_module):
+    """Every launch of a general dispatch (the prologue's general fold,
+    ``mutual_collapse``, ``affine_loop``, ``lex_sort`` with 4 keys,
+    ``plane_epilogue``) at the sims' shapes (1,024 x 4 and 1,024 x 8, each
+    the sims' first dispatch that is not the fast path), each held against
+    its plain version, timed single and in the loop beside its byte bound,
+    and counted in operations on the card by ``torch.profiler``; the whole
+    dispatch too.  Then ``mutual_collapse`` at 4,096 x 4 (mode general's
+    window) and 2^16 x 4 (cooperative) on a permuted and a cycle-rich
+    window, ``graph_prologue``'s general fold at 4,096 and 2^20 slots, both
+    one-launch wrappers in both forms over 256-4,096 rows, and an empty
+    kernel's launch: the floor of a one-launch kernel."""
+    from fantoch_tpu_torch.ops import graph_resolve
+
+    out = {"launch_floor": launch_floor(torch, K), "sims": {}, "collapse": {},
+           "prologue": {}, "forms": {}}
+    for (cap, width), args in sims_dispatches(K, gp_module, ((1024, 4), (1024, 8))).items():
+        args = [a.to(CARD) for a in args]
+        label = f"{cap} x {width}"
+        chain = {}
+        chain["graph_prologue"], (dmat, _n_bad), after = stage_record(
+            torch, K, "graph_prologue", args, {"general": True})
+        _deps, _key, src, seq, occ, executed = after[:6]
+        chain["mutual_collapse"], collapsed, _ = stage_record(
+            torch, K, "mutual_collapse", (dmat,))
+        chain["mutual_collapse"]["steps_changing"] = collapse_steps(torch, K, dmat)
+        leader, tgt, add, missing, member_count = collapsed
+        max_iters = 4 * K.num_doubling_steps(cap) + 8
+        chain["affine_loop"], (resolved, rank, _stuck, rounds), _ = stage_record(
+            torch, K, "affine_loop", (tgt, add, missing, leader, member_count, max_iters))
+        chain["affine_loop"]["rounds"] = int(rounds.item())
+        chain["lex_sort"], _order, _ = stage_record(
+            torch, K, "lex_sort", ([rank, leader, src, seq],))
+        chain["plane_epilogue"], _newly, _ = stage_record(
+            torch, K, "plane_epilogue", (occ, executed, resolved))
+        step = graph_resolve.graph_plane_step_core
+        chain["dispatch"] = {
+            "ms": time_ms(step, args, {"mode": "general"}),
+            "ms_loop": time_loop_ms(step, args, {"mode": "general"}),
+            "sum_of_launches_ms": sum(r["ms"] for r in chain.values()),
+            "sum_of_launches_ms_loop": sum(r["ms_loop"] for r in chain.values()),
+            "call": (step, clone_args(args), {"mode": "general"}),
+        }
+        out["sims"][label] = chain
+    # mutual_collapse at the table's shape and above mode general's window
+    for rows in (GENERAL_C, COOP_B):
+        perm = np.random.default_rng(rows).permutation(rows)
+        for kind, deps in (("permuted", general_workload(rows)[1][perm]),
+                           ("cycle-rich", cycle_rich(rows, GENERAL_FEED)[1])):
+            t = torch.tensor(deps, device=CARD)
+            record, _got, _ = stage_record(torch, K, "mutual_collapse", (t,))
+            record["steps_changing"] = collapse_steps(torch, K, t)
+            record["steps"] = K.num_doubling_steps(rows)
+            out["collapse"][f"{rows} x {GENERAL_WIDTH}, {kind}"] = record
+    for cap, seed in ((GENERAL_C, 3), (BIG, 4)):
+        args = prologue_inputs(torch, cap, GENERAL_WIDTH, seed)
+        record, _got, _ = stage_record(torch, K, "graph_prologue", args, {"general": True})
+        out["prologue"][f"{cap} x {GENERAL_WIDTH}"] = record
+    counted = [r for chain in out["sims"].values() for r in chain.values()]
+    counted += list(out["collapse"].values()) + list(out["prologue"].values())
+    if out["launch_floor"]:
+        counted.append(out["launch_floor"])
+    count_ops(torch, counted)
+    for label, chain in out["sims"].items():
+        log(json.dumps({"phase4b_chain": label, **{
+            k: {f: v[f] for f in ("ms", "ms_loop", "device_ops", "device_ms")}
+            for k, v in chain.items()}}))
+    # both forms of each one-launch wrapper over the sweep's rows
+    for rows in CHAIN_SWEEP:
+        perm = np.random.default_rng(rows).permutation(rows)
+        for kind, deps in (("permuted", general_workload(rows)[1][perm]),
+                           ("cycle-rich", cycle_rich(rows, min(rows, GENERAL_FEED))[1])):
+            t = torch.tensor(deps, device=CARD)
+            forms = one_launch_forms(K, "mutual_collapse", "COLLAPSE_CTA_ROWS", (t,), {},
+                                     collapse_smem(rows, GENERAL_WIDTH))
+            if forms:
+                out["forms"][f"mutual_collapse, {rows} x 4, {kind}"] = forms
+        forms = one_launch_forms(K, "graph_prologue", "PROLOGUE_CTA_ROWS",
+                                 prologue_inputs(torch, rows, GENERAL_WIDTH, rows),
+                                 {"general": True}, 4)
+        if forms:
+            out["forms"][f"graph_prologue, {rows} x 4"] = forms
+    log(json.dumps({"general_chain": out}))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2091,7 +2387,8 @@ def phase8(torch, P):
 
 
 # the kernels redesigned since the first slices, named in phase 0
-REDESIGNED = ("k_radix_", "k_stable_select", "k_affine_", "k_peel_stage")
+REDESIGNED = ("k_radix_", "k_stable_select", "k_affine_", "k_peel_stage", "k_mc_",
+              "k_prologue_")
 
 
 def ptxas_kernels(text):
@@ -2146,6 +2443,9 @@ def main():
 
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in (ROOT / "fantoch_tpu_torch" / "csrc").glob("*.cu"))
+    chain_only = "--general-chain" in sys.argv[1:]
+    if chain_only:  # the general chain alone (also on an older checkout)
+        sources = ["graph_general", "graph_plane_step"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
@@ -2165,6 +2465,10 @@ def main():
                 assert frame == 0 or not kernel.startswith("k_stable_select"), kernel
 
     walls = {"phase 0": time.perf_counter() - t0}
+    if chain_only:
+        phase_chain(torch, K, gp_module)
+        log(card)
+        return 0
 
     def timed(name, fn, *args):
         t = time.perf_counter()
@@ -2184,6 +2488,16 @@ def main():
     records.update(general_records)
     general = timed("phase 4", phase4, torch, K, gp_module, Config, Command, Rifl,
                     KVOp, RunTime, GraphExecutor, GraphAddBatch)
+    chain = timed("phase 4b", phase_chain, torch, K, gp_module)
+    # the one-launch wrappers at the sims' shapes, the table's and above it
+    records["mutual_collapse"]["at_sims_shapes"] = {
+        label: c["mutual_collapse"] for label, c in chain["sims"].items()}
+    records["mutual_collapse"]["collapse_shapes"] = chain["collapse"]
+    records["graph_prologue"]["general_at_sims_shapes"] = {
+        label: c["graph_prologue"] for label, c in chain["sims"].items()}
+    records["graph_prologue"]["general_shapes"] = chain["prologue"]
+    for name in ("mutual_collapse", "graph_prologue"):
+        records[name]["launch_floor"] = chain["launch_floor"]
     # launches: each kernel's count on the main path of its slice, the
     # keyed path (phase 2) or the general path (phase 4), both listed
     for name, record in records.items():

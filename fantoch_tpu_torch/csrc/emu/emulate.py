@@ -67,9 +67,10 @@ def translate(source: str) -> str:
         text,
     )
     text = text.replace("__shared__ ", "static ")
-    return re.sub(
+    text = re.sub(
         r"(\w+)<<<(.*?)>>>\(", r"mock_cfg(\2), mock_launch(\1, ", text, flags=re.S
     )
+    return text.replace(", )", ")")  # a launch with no arguments
 
 
 def build(name: str) -> Path:

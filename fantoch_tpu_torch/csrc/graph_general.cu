@@ -42,7 +42,7 @@ namespace cg = cooperative_groups;
 
 #define EW_BLOCK 256     // per-row kernels (a power of two: block_sum)
 #define SCAN_BLOCK 1024  // block scans of the compaction
-#define LOOP_CTA 1024    // the one-CTA affine loop's largest block
+#define LOOP_CTA 1024    // the one-CTA kernels' largest block
 #define COMP_NONE INT_MIN  // a composition column's "not composable"
 #define CHUNK 4  // the loops take a row's cells four at a time: loads first
 
@@ -94,92 +94,6 @@ __device__ int block_incl_sum(int x, int* sh) {
     __syncthreads();
   }
   return sh[threadIdx.x];
-}
-
-// ---------------------------------------------------------------------------
-// 9. mutual collapse (graph_resolve.py:1058-1077)
-// ---------------------------------------------------------------------------
-
-// self-dependency prune into tgt, the back test (does a slot of the
-// target point back at v?), leader = idx
-__global__ void k_mc_back(const int32_t* deps, int32_t* tgt, uint8_t* back,
-                          int32_t* leader, int B, int W) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= B) return;
-  for (int w = 0; w < W; ++w) {
-    int t = deps[(long)v * W + w];
-    if (t == v) t = TERMINAL;
-    tgt[(long)v * W + w] = t;
-    bool b = false;
-    if (t >= 0)
-      for (int k = 0; k < W; ++k) b = b || deps[(long)t * W + k] == v;
-    back[(long)v * W + w] = b;
-  }
-  leader[v] = v;
-}
-
-// leader = min(leader, min over mutual neighbours of leader[nbr])
-__global__ void k_mc_min(const int32_t* tgt, const uint8_t* back, const int32_t* lin,
-                         int32_t* lout, int B, int W) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= B) return;
-  int m = B;
-  for (int w = 0; w < W; ++w)
-    if (back[(long)v * W + w]) m = min(m, lin[tgt[(long)v * W + w]]);
-  lout[v] = min(lin[v], m);
-}
-
-// leader = min(leader, leader[leader])
-__global__ void k_mc_jump(const int32_t* lin, int32_t* lout, int B) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= B) return;
-  lout[v] = min(lin[v], lin[lin[v]]);
-}
-
-// retarget through the leaders, drop intra-SCC edges, seed add/missing,
-// count members (member_count zeroed by the launcher)
-__global__ void k_mc_retarget(int32_t* tgt, int32_t* add, uint8_t* missing,
-                              const int32_t* leader, int32_t* member_count, int B,
-                              int W) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= B) return;
-  int lv = leader[v];
-  bool miss = false;
-  for (int w = 0; w < W; ++w) {
-    long c = (long)v * W + w;
-    int t = tgt[c];
-    if (t >= 0) {
-      t = leader[t];
-      if (t == lv) t = TERMINAL;
-    }
-    tgt[c] = t;
-    add[c] = t >= 0 ? 1 : 0;
-    miss = miss || t == MISSING;
-  }
-  missing[v] = miss;
-  atomicAdd(&member_count[lv], 1);
-}
-
-extern "C" int gg_mutual_collapse(const int32_t* deps, int32_t* leader, int32_t* tgt,
-                                  int32_t* add, uint8_t* missing,
-                                  int32_t* member_count, uint8_t* back,
-                                  int32_t* spare, int B, int W, int steps,
-                                  cudaStream_t stream) {
-  if (B <= 0) return 0;
-  unsigned g = grid_for(B, EW_BLOCK);
-  k_mc_back<<<g, EW_BLOCK, 0, stream>>>(deps, tgt, back, leader, B, W);
-  CHECK_LAUNCH();
-  for (int s = 0; s < steps; ++s) {
-    k_mc_min<<<g, EW_BLOCK, 0, stream>>>(tgt, back, leader, spare, B, W);
-    CHECK_LAUNCH();
-    k_mc_jump<<<g, EW_BLOCK, 0, stream>>>(spare, leader, B);
-    CHECK_LAUNCH();
-  }
-  CHECK_CALL(cudaMemsetAsync(member_count, 0, (size_t)B * sizeof(int32_t), stream));
-  k_mc_retarget<<<g, EW_BLOCK, 0, stream>>>(tgt, add, missing, leader, member_count,
-                                            B, W);
-  CHECK_LAUNCH();
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -253,6 +167,193 @@ static int coop_grid(F kernel, int block, size_t smem, long want, int* grid) {
   if (g < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   *grid = (int)g;
   return 0;
+}
+
+// threads of a one-CTA launch over n rows: the least power of two (at least
+// a warp) that holds every row, at most LOOP_CTA
+static int cta_threads(long n) {
+  int threads = 32;
+  while (threads < n && threads < LOOP_CTA) threads *= 2;
+  return threads;
+}
+
+// raise `kernel`'s dynamic shared-memory limit on the current device when a
+// launch asks for more than it was last set to (48 KB, the default); the
+// limit set is kept per (kernel, device), so later launches make no call
+struct SmemLimit {
+  const void* kernel;
+  int dev;
+  size_t bytes;
+};
+static SmemLimit smem_limits[COOP_GRIDS];
+static int n_smem_limits = 0;
+static std::mutex smem_limits_mu;
+
+template <class F>
+static int allow_smem(F kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  CHECK_CALL(cudaGetDevice(&dev));
+  std::lock_guard<std::mutex> lock(smem_limits_mu);
+  SmemLimit* hit = nullptr;
+  for (int i = 0; i < n_smem_limits; ++i)
+    if (smem_limits[i].kernel == (const void*)kernel && smem_limits[i].dev == dev)
+      hit = &smem_limits[i];
+  if (hit && hit->bytes >= smem) return 0;
+  CHECK_CALL(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem));
+  if (hit)
+    hit->bytes = smem;
+  else if (n_smem_limits < COOP_GRIDS)
+    smem_limits[n_smem_limits++] = {(const void*)kernel, dev, smem};
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// 9. mutual collapse (graph_resolve.py:1058-1077), one launch a resolve
+// ---------------------------------------------------------------------------
+//
+// Three phases over every row, each row always taken by the same thread:
+//   back: the back test (does a slot of the target point back at v?) as a
+//     bitmask a row, one word per 32 slots; leader = idx; counts zeroed;
+//   steps: num_doubling_steps(B) of two lines, lb = min(la, the mutual
+//     neighbours' la) and la = min(lb, lb[lb]), each reading the whole
+//     column the line before wrote, with a barrier after each line (an
+//     in-place asynchronous update converges differently within a fixed
+//     number of steps); a step is a function of the leader column alone,
+//     so the loop stops after the first step that changes no leader;
+//   retarget: prune self-dependencies, retarget through the leaders, drop
+//     intra-SCC edges, seed add/missing and count each leader's members.
+// One CTA (COOP false): la, lb, the counts and the masks in dynamic shared
+// memory, the changed flag a __syncthreads_or, leaders and counts written
+// out once.  Cooperative (COOP true): la is the leader output and the counts
+// atomics into member_count; lb, the masks and three changed slots are
+// global scratch; grid barriers, and the changed flag an atomicOr into slot
+// s % 3 (block 0 zeroes slot s + 1, which every block last read two
+// barriers before).  No memset: every column is written in the first phase.
+
+template <bool COOP>
+__device__ void collapse_body(const int32_t* deps, int32_t* la, int32_t* lb,
+                              uint32_t* mask, int32_t* mc, int32_t* slots, int32_t* tgt,
+                              int32_t* add, uint8_t* missing, int B, int W, int steps) {
+  int nw = (W + 31) / 32;
+  if (COOP && blockIdx.x == 0 && threadIdx.x == 0) slots[0] = 0;
+  FOR_ROWS(v, B) {
+    for (int j = 0; j < nw; ++j) {
+      uint32_t m = 0;
+      for (int w = 32 * j; w < W && w < 32 * j + 32; ++w) {
+        int t = deps[v * W + w];
+        if (t >= 0 && t != v) {  // a self-dependency is pruned, never mutual
+          bool b = false;
+          for (int k = 0; k < W; ++k) b = b || deps[(long)t * W + k] == v;
+          if (b) m |= 1u << (w - 32 * j);
+        }
+      }
+      mask[v * nw + j] = m;
+    }
+    la[v] = (int32_t)v;
+    mc[v] = 0;
+  }
+  loop_sync<COOP>();
+  for (int s = 0; s < steps; ++s) {
+    FOR_ROWS(v, B) {
+      int m = la[v];
+      for (int j = 0; j < nw; ++j)
+        for (uint32_t bits = mask[v * nw + j]; bits; bits &= bits - 1)
+          m = min(m, la[deps[v * W + 32 * j + __ffs(bits) - 1]]);
+      lb[v] = m;
+    }
+    loop_sync<COOP>();
+    int ch = 0;
+    FOR_ROWS(v, B) {
+      int x = lb[v];
+      int n = min(x, lb[x]);  // never above la[v]: lb[v] <= la[v]
+      if (n != la[v]) {
+        la[v] = n;
+        ch = 1;
+      }
+    }
+    int any = __syncthreads_or(ch);
+    if constexpr (COOP) {
+      if (threadIdx.x == 0) {
+        if (any) atomicOr(&slots[s % 3], 1);
+        if (blockIdx.x == 0) slots[(s + 1) % 3] = 0;
+      }
+      cg::this_grid().sync();
+      any = read_slot(&slots[s % 3]);
+    }
+    if (!any) break;
+  }
+  FOR_ROWS(v, B) {
+    int lv = la[v];
+    bool miss = false;
+    for (int w = 0; w < W; ++w) {
+      long c = v * W + w;
+      int t = deps[c];
+      if (t == v) {
+        t = TERMINAL;
+      } else if (t >= 0) {
+        t = la[t];
+        if (t == lv) t = TERMINAL;
+      }
+      tgt[c] = t;
+      add[c] = t >= 0 ? 1 : 0;
+      miss = miss || t == MISSING;
+    }
+    missing[v] = miss;
+    atomicAdd(&mc[lv], 1);
+  }
+}
+
+__global__ void k_mc_cta(const int32_t* deps, int32_t* leader, int32_t* tgt, int32_t* add,
+                         uint8_t* missing, int32_t* member_count, int B, int W, int steps) {
+  extern __shared__ int32_t mc_smem[];
+  int32_t* la = mc_smem;
+  int32_t* lb = la + B;
+  int32_t* mc = lb + B;
+  collapse_body<false>(deps, la, lb, (uint32_t*)(mc + B), mc, nullptr, tgt, add, missing, B,
+                       W, steps);
+  __syncthreads();
+  FOR_ROWS(v, B) {
+    leader[v] = la[v];
+    member_count[v] = mc[v];
+  }
+}
+
+__global__ void k_mc_coop(const int32_t* deps, int32_t* leader, int32_t* tgt, int32_t* add,
+                          uint8_t* missing, int32_t* member_count, int32_t* scratch, int B,
+                          int W, int steps) {
+  int32_t* slots = scratch + B;
+  collapse_body<true>(deps, leader, scratch, (uint32_t*)(slots + 3), member_count, slots,
+                      tgt, add, missing, B, W, steps);
+}
+
+// B <= cta_rows: one CTA of up to LOOP_CTA threads, (3 + ceil(W / 32)) * B
+// ints of dynamic shared memory; above, a cooperative launch of
+// `block`-thread blocks, scratch B + 3 + ceil(W / 32) * B ints
+extern "C" int gg_mutual_collapse(const int32_t* deps, int32_t* leader, int32_t* tgt,
+                                  int32_t* add, uint8_t* missing,
+                                  int32_t* member_count, int32_t* scratch, int B, int W,
+                                  int steps, int cta_rows, int block,
+                                  cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (B <= cta_rows) {
+    size_t smem = (size_t)(3 + (W + 31) / 32) * B * sizeof(int32_t);
+    int e = allow_smem(k_mc_cta, smem);
+    if (e) return e;
+    k_mc_cta<<<1, cta_threads(B), smem, stream>>>(deps, leader, tgt, add, missing,
+                                                  member_count, B, W, steps);
+    CHECK_LAUNCH();
+    return 0;
+  }
+  int grid = 0;
+  int e = coop_grid(k_mc_coop, block, 0, ((long)B + block - 1) / block, &grid);
+  if (e) return e;
+  void* args[] = {&deps,         &leader,  &tgt, &add, &missing,
+                  &member_count, &scratch, &B,   &W,   &steps};
+  CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_mc_coop, dim3(grid), dim3(block),
+                                         args, 0, stream));
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -483,27 +584,12 @@ extern "C" int gg_affine_loop(const int32_t* tgt0, const int32_t* add0,
   int32_t* add = scratch + (long)B * W;
   int32_t* floor = scratch + 2L * B * W;
   if (B <= cta_rows) {
-    int threads = 32;
-    while (threads < B && threads < LOOP_CTA) threads *= 2;
     size_t smem = 6 * (size_t)B * sizeof(int32_t);
-    // the dynamic shared-memory limit, raised on each device only when a
-    // launch asks for more than it was last set to (48 KB, the default)
-    static std::mutex smem_mu;
-    static size_t smem_set[64];
-    int dev = 0;
-    CHECK_CALL(cudaGetDevice(&dev));
-    if (smem > 48 * 1024) {
-      std::lock_guard<std::mutex> lock(smem_mu);
-      if (dev >= 64 || smem > smem_set[dev]) {
-        CHECK_CALL(cudaFuncSetAttribute(k_affine_cta,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        (int)smem));
-        if (dev < 64) smem_set[dev] = smem;
-      }
-    }
-    k_affine_cta<<<1, threads, smem, stream>>>(tgt0, add0, miss0, leader, member_count,
-                                              tgt, add, floor, miss, resolved, rank,
-                                              stuck, rounds, total, B, W, max_iters);
+    int e = allow_smem(k_affine_cta, smem);
+    if (e) return e;
+    k_affine_cta<<<1, cta_threads(B), smem, stream>>>(
+        tgt0, add0, miss0, leader, member_count, tgt, add, floor, miss, resolved, rank,
+        stuck, rounds, total, B, W, max_iters);
     CHECK_LAUNCH();
     return (int)cudaGetLastError();
   }
@@ -888,4 +974,144 @@ extern "C" int gg_peel_compact(const int32_t* tgt, const int32_t* floor,
     CHECK_LAUNCH();
   }
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 13. general prologue (graph_resolve.py:927-946), one launch a dispatch
+// ---------------------------------------------------------------------------
+//
+// The general modes' prologue: install the feed's rows, patch the MISSING
+// cells whose dots committed, mark the host oracle's executed rows, fold
+// deps on executed slots to TERMINAL, mask non-pending rows and count the
+// cells that bar resolve_general's backward-only fast path once
+// self-dependencies are pruned (a forward dependency or a MISSING one).
+// Four phases with a barrier between them, in the reference's order: a
+// patch or a mark follows the install of its row, and the fold, which reads
+// executed[dep] of any row, follows every mark.  Cells are walked one a
+// thread (grid-stride; one CTA: block-stride), so the installs' and the
+// fold's reads and writes are coalesced.  The count: a warp sum, a
+// shared-memory sum a block, stored once (one CTA) or one atomicAdd a block
+// into n_bad, which block 0 zeroes in the first phase (cooperative).  No
+// memset: every output is written by the launch.
+
+template <bool COOP>
+__device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t* seq,
+                              uint8_t* occ, uint8_t* executed, const int32_t* u_row,
+                              const int32_t* u_deps, const int32_t* u_key,
+                              const int32_t* u_src, const int32_t* u_seq,
+                              const int32_t* p_row, const int32_t* p_col,
+                              const int32_t* p_val, const int32_t* e_row, int32_t* dmat,
+                              int32_t* n_bad, int32_t* sum, int cap, int W, int U, int P,
+                              int E) {
+  if (threadIdx.x == 0) {
+    sum[0] = 0;
+    if (COOP && blockIdx.x == 0) n_bad[0] = 0;
+  }
+  FOR_ROWS(j, (long)U * W) {  // install, a cell a thread; pad rows dropped
+    long i = j / W;
+    int r = u_row[i];
+    if (r < 0 || r >= cap) continue;
+    long w = j - i * W;
+    deps[(long)r * W + w] = u_deps[j];
+    if (w == 0) {
+      key[r] = u_key[i];
+      src[r] = u_src[i];
+      seq[r] = u_seq[i];
+      occ[r] = 1;
+      executed[r] = 0;
+    }
+  }
+  loop_sync<COOP>();
+  FOR_ROWS(j, (long)P + E) {  // patches and marks (different arrays)
+    if (j < P) {
+      int r = p_row[j], c = p_col[j];
+      if (r >= 0 && r < cap && c >= 0 && c < W) deps[(long)r * W + c] = p_val[j];
+    } else {
+      int r = e_row[j - P];
+      if (r >= 0 && r < cap) executed[r] = 1;
+    }
+  }
+  loop_sync<COOP>();
+  int bad = 0;
+  FOR_ROWS(j, (long)cap * W) {  // fold and mask, a cell a thread
+    long r = j / W;
+    int v = TERMINAL;
+    if (occ[r] && !executed[r]) {
+      v = deps[j];
+      if (v >= 0 && executed[v < cap ? v : cap - 1]) v = TERMINAL;
+    }
+    dmat[j] = v;
+    bad += (v > r || v == MISSING) ? 1 : 0;
+  }
+  bad = __reduce_add_sync(0xffffffffu, bad);
+  if ((threadIdx.x & 31) == 0 && bad) atomicAdd(sum, bad);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (!COOP)
+      n_bad[0] = sum[0];
+    else if (sum[0])
+      atomicAdd(n_bad, sum[0]);
+  }
+}
+
+#define PROLOGUE_ARGS                                                                  \
+  int32_t *deps, int32_t *key, int32_t *src, int32_t *seq, uint8_t *occ,              \
+      uint8_t *executed, const int32_t *u_row, const int32_t *u_deps,                 \
+      const int32_t *u_key, const int32_t *u_src, const int32_t *u_seq,               \
+      const int32_t *p_row, const int32_t *p_col, const int32_t *p_val,               \
+      const int32_t *e_row, int32_t *dmat, int32_t *n_bad, int cap, int W, int U, int P, \
+      int E
+
+__global__ void k_prologue_cta(PROLOGUE_ARGS) {
+  extern __shared__ int32_t pro_cta_smem[];  // the block's bad-cell sum
+  prologue_body<false>(deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src,
+                       u_seq, p_row, p_col, p_val, e_row, dmat, n_bad, pro_cta_smem, cap,
+                       W, U, P, E);
+}
+
+__global__ void k_prologue_coop(PROLOGUE_ARGS) {
+  extern __shared__ int32_t pro_coop_smem[];  // the block's bad-cell sum
+  prologue_body<true>(deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src,
+                      u_seq, p_row, p_col, p_val, e_row, dmat, n_bad, pro_coop_smem, cap,
+                      W, U, P, E);
+}
+
+// cap <= cta_rows: one CTA of up to LOOP_CTA threads; above, a cooperative
+// launch of `block`-thread blocks, as many as the largest phase needs up to
+// the co-resident grid
+extern "C" int gg_prologue(PROLOGUE_ARGS, int cta_rows, int block, cudaStream_t stream) {
+  size_t smem = sizeof(int32_t);
+  if (cap <= cta_rows) {
+    k_prologue_cta<<<1, cta_threads(cap), smem, stream>>>(
+        deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq, p_row,
+        p_col, p_val, e_row, dmat, n_bad, cap, W, U, P, E);
+    CHECK_LAUNCH();
+    return 0;
+  }
+  long cells = (long)cap * W;
+  long most = cells > (long)U * W ? cells : (long)U * W;
+  if ((long)P + E > most) most = (long)P + E;
+  int grid = 0;
+  int e = coop_grid(k_prologue_coop, block, smem, (most + block - 1) / block, &grid);
+  if (e) return e;
+  void* args[] = {&deps,  &key,   &src,   &seq, &occ,   &executed, &u_row, &u_deps,
+                  &u_key, &u_src, &u_seq, &p_row, &p_col, &p_val,  &e_row, &dmat,
+                  &n_bad, &cap,   &W,     &U,   &P,     &E};
+  CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_prologue_coop, dim3(grid),
+                                         dim3(block), args, smem, stream));
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the launch floor: an empty kernel, one warp, which chip_smoke.py times on
+// the same stream beside the one-launch kernels above (it replaces no TPU
+// kernel and no path calls it)
+// ---------------------------------------------------------------------------
+
+__global__ void k_empty() {}
+
+extern "C" int gg_empty(cudaStream_t stream) {
+  k_empty<<<1, 32, 0, stream>>>();
+  CHECK_LAUNCH();
+  return 0;
 }

@@ -5,9 +5,10 @@ These replace the TPU kernel ``graph_plane_step_pallas``
 tracing ``graph_plane_step_core`` in fantoch_tpu/ops/graph_resolve.py:883)
 in all three of its modes.  On the TPU that kernel is one program resident
 in VMEM; on an H100 the step is a chain of launches composed by
-``ops/graph_resolve.py``: the prologue and the ``keyed`` mode's stages
-(1-8) from ``csrc/graph_plane_step.cu``, the ``general`` and
-``general_resident`` modes' stages (9-12) from ``csrc/graph_general.cu``.
+``ops/graph_resolve.py``: the ``keyed`` mode's prologue and stages (1-8)
+from ``csrc/graph_plane_step.cu``, the ``general`` and
+``general_resident`` modes' prologue (1, §13 there) and stages (9-12) from
+``csrc/graph_general.cu``.
 
 Every stage below is one wrapper with three things beside it:
 
@@ -93,7 +94,7 @@ def num_doubling_steps(batch: int) -> int:
 # pointer, "i" an int; every launcher takes the stream last and returns
 # cudaError_t
 _SIGNATURES = {
-    "gp_prologue": ("graph_plane_step", "p" * 19 + "i" * 6),
+    "gp_prologue": ("graph_plane_step", "p" * 17 + "i" * 5),
     "gp_lex_sort": ("graph_plane_step", "p" * 11 + "i" * 10),
     "gp_link_scan": ("graph_plane_step", "p" * 8 + "i"),
     "gp_residual_view": ("graph_plane_step", "p" * 13 + "iii"),
@@ -101,10 +102,13 @@ _SIGNATURES = {
     "gp_pointer_doubling": ("graph_plane_step", "p" * 7 + "ii"),
     "gp_emit_scatter": ("graph_plane_step", "p" * 8 + "iii"),
     "gp_epilogue": ("graph_plane_step", "p" * 5 + "i"),
-    "gg_mutual_collapse": ("graph_general", "p" * 8 + "iii"),
+    "gg_prologue": ("graph_general", "p" * 17 + "i" * 7),
+    "gg_mutual_collapse": ("graph_general", "p" * 7 + "i" * 5),
     "gg_affine_loop": ("graph_general", "p" * 12 + "i" * 5),
     "gg_peel_stage": ("graph_general", "p" * 14 + "i" * 5),
     "gg_peel_compact": ("graph_general", "p" * 19 + "iiiii"),
+    # an empty kernel: the launch floor chip_smoke.py times
+    "gg_empty": ("graph_general", ""),
     # the votes-table plane's launchers (wrappers in ops/table_kernels.py)
     "tp_clock_proposal": ("table_plane", "p" * 7 + "i"),
     "tp_clock_bump": ("table_plane", "ppp" + "i"),
@@ -192,14 +196,18 @@ def _b(n: int, device) -> torch.Tensor:
 # Bound: bytes.  One pass over the int32[C, W] dep matrix (read for the
 # fold) plus the key/occ/executed columns and the col/pk outputs (the
 # dmat matrix and one count in the general variant); installs and patches
-# are scattered writes of U and P cells.  Design: three launches —
-# install, then patches and marks (which touch different arrays), then
-# the per-row fold that reads ``executed`` of the dep targets once every
-# mark has landed.  Splitting install from patch keeps the reference's
-# order (install, then patch, then marks) when a dispatch patches or marks
-# a row it also installs.  The general variant's fast-path test is a
-# warp-reduced count with one atomicAdd per warp into a device int that
-# the host reads once per dispatch.
+# are scattered writes of U and P cells.  Order: install, then patches and
+# marks, then the per-row fold that reads ``executed`` of the dep targets
+# once every mark has landed (the reference's order when a dispatch patches
+# or marks a row it also installs).  Design, keyed: three launches (install,
+# patches and marks, fold and compress).  Design, general
+# (``csrc/graph_general.cu`` §13): one launch a dispatch, the three steps
+# and the count of cells that bar ``resolve_general``'s fast path as four
+# phases with a barrier between them, a cell a thread: one CTA up to
+# ``PROLOGUE_CTA_ROWS`` rows, a cooperative launch (grid barriers) above.
+# The count is a warp sum and a shared-memory sum a block, stored once (one
+# CTA) or added once a block (cooperative) into the device int the host
+# reads once per dispatch; no zero-fill launch.
 
 
 def graph_prologue_plain(
@@ -276,21 +284,19 @@ def graph_prologue(
     for name, t in (("p_row", p_row), ("p_col", p_col), ("p_val", p_val)):
         _check(t, torch.int32, name, P)
     _check(e_row, torch.int32, "e_row", E)
+    state = (deps, key, src, seq, occ, executed,
+             u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row)
     if general:
-        col = pk = None
         dmat = torch.empty((cap, width), dtype=torch.int32, device=deps.device)
-        n_bad = _i32(1, deps.device, 0)
-    else:
-        col, pk = _i32(cap, deps.device), _i32(cap, deps.device)
-        dmat = n_bad = None
-    _launch(
-        "gp_prologue", deps.device,
-        deps, key, src, seq, occ, executed,
-        u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
-        col, pk, dmat, n_bad, cap, width, U, P, E, int(general),
-    )
+        n_bad = _i32(1, deps.device)
+        _launch("gg_prologue", deps.device, *state, dmat, n_bad, cap, width, U, P, E,
+                PROLOGUE_CTA_ROWS, _loop_block(cap))
+        LAUNCHES["graph_prologue"] += 1
+        return dmat, n_bad
+    col, pk = _i32(cap, deps.device), _i32(cap, deps.device)
+    _launch("gp_prologue", deps.device, *state, col, pk, cap, width, U, P, E)
     LAUNCHES["graph_prologue"] += 1
-    return (dmat, n_bad) if general else (col, pk)
+    return col, pk
 
 
 # ---------------------------------------------------------------------------
@@ -684,16 +690,30 @@ def _amax_into(n: int, index: torch.Tensor, values: torch.Tensor) -> torch.Tenso
 # 9. mutual collapse: SCCs joined by mutual edges (graph_resolve.py:1058-1077)
 # ---------------------------------------------------------------------------
 # Bound: bytes — the back test reads each live target's W cells, then each
-# round gathers the leader of every live target; the gathers are random,
-# so it runs at the card's gather rate.  Design: one launch for the
-# self-dependency prune and the back test (each row reads its targets' W
-# cells), then ``num_doubling_steps(B)`` rounds of two ping-pong launches
-# — ``leader = min(leader, nbr_min)`` and ``leader = min(leader,
-# leader[leader])`` each read the whole array the line before wrote, as
-# the reference's lines do (an in-place asynchronous update converges
-# differently within a fixed number of rounds) — then one launch that
-# retargets through the leaders, drops intra-SCC edges, seeds the affine
-# state (add, missing) and counts members by atomicAdd.
+# step gathers the leader of every mutual neighbour; the gathers are
+# random, and at the sims' windows (1,024 rows) the launch, not the bytes,
+# bounds it.  Design (``csrc/graph_general.cu`` §9): one launch a resolve,
+# three phases — the back test as a bitmask a row, then
+# ``num_doubling_steps(B)`` steps of ``leader = min(leader, nbr_min)`` and
+# ``leader = min(leader, leader[leader])``, each line reading the whole
+# column the line before wrote, as the reference's lines do (an in-place
+# asynchronous update converges differently within a fixed number of
+# steps), a barrier after each line; then the retarget through the
+# leaders, which drops intra-SCC edges, seeds the affine state (add,
+# missing) and counts members with atomics.  A step is a function of the
+# leader column alone, so the steps stop after the first that changes no
+# leader.  Up to ``COLLAPSE_CTA_ROWS`` rows one CTA runs it, the two leader
+# columns, the counts and the masks in dynamic shared memory (32 KB at
+# 2,048 rows, W <= 32) and the changed flag a ``__syncthreads_or``; above,
+# a cooperative launch with grid barriers and the changed flag in a
+# three-slot ring, as the affine loop's.  No memset, no host read.
+
+# the one-CTA gates of the mutual collapse and the general prologue, at the
+# affine loop's: chip_smoke.py (phase 4b, both forms on the same calls)
+# measured the collapse's one CTA ahead on cycle-rich inputs up to 2,048
+# rows and level at 4,096, and the prologue's two forms level
+COLLAPSE_CTA_ROWS = 2048
+PROLOGUE_CTA_ROWS = 2048
 
 
 def mutual_collapse_plain(deps):
@@ -734,11 +754,15 @@ def mutual_collapse(deps):
     add = torch.empty_like(deps)
     missing = _b(batch, device)
     member_count = _i32(batch, device)
-    back = torch.empty((batch, width), dtype=torch.bool, device=device)
-    spare = _i32(batch, device)
+    # cooperative: the second leader column, three changed slots and the
+    # back masks (one word per 32 slots a row)
+    scratch = None
+    if batch > COLLAPSE_CTA_ROWS:
+        scratch = _i32(batch + 3 + batch * -(-width // 32), device)
     _launch(
         "gg_mutual_collapse", device, deps, leader, tgt, add, missing,
-        member_count, back, spare, batch, width, num_doubling_steps(batch),
+        member_count, scratch, batch, width, num_doubling_steps(batch),
+        COLLAPSE_CTA_ROWS, _loop_block(batch),
     )
     LAUNCHES["mutual_collapse"] += 1
     return leader, tgt, add, missing, member_count
