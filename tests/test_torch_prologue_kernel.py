@@ -19,11 +19,12 @@ the reference's (every ``GraphPlaneStep`` field, the state included).
 Windows of 150 x 4 (not a power of two) and 256 x 8; some dispatches take
 ``resolve_general``'s fast path (count 0), most do not.
 
-One collected item on purpose (ROADMAP.md Queue C); reference calls run
-under ``jax_ref`` (tests/test_torch_device_loops.py).
+Two collected items, one a form (ROADMAP.md Queue C); reference calls
+run under ``jax_ref`` (tests/test_torch_device_loops.py).
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -138,49 +139,54 @@ def install_patch_mark(state, feed):
     return deps, key, src, seq, occ, executed
 
 
-def test_general_prologue_kernel_matches_plain_and_reference(jax_ref, monkeypatch):
+# the two launch forms: one CTA up to the gate, cooperative with it at 0
+FORMS = {"one_cta": None, "cooperative": 0}
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_general_prologue_kernel_matches_plain_and_reference(jax_ref, monkeypatch, form):
     monkeypatch.setattr(K, "LOOP_BLOCK", 64)
+    if FORMS[form] is not None:
+        monkeypatch.setattr(K, "PROLOGUE_CTA_ROWS", FORMS[form])
     seen = {"fast": 0, "iterative": 0, "patched own rows": 0}
     with emulated():
-        for form, gate in (("one CTA", K.PROLOGUE_CTA_ROWS), ("cooperative", 0)):
-            monkeypatch.setattr(K, "PROLOGUE_CTA_ROWS", gate)
-            for cap, width, n_keys in ((150, 4, 40), (256, 8, 96)):
-                state = fresh(cap, width)
-                mine = [torch.tensor(a) for a in state]
-                for i, feed in enumerate(feeds(cap + width, cap, width, 5, n_keys)):
-                    label = f"{form}, {cap} x {width}, feed {i}"
-                    feed, own = feed[:-1], feed[-1]
-                    seen["patched own rows"] += own
-                    tf = [torch.tensor(a) for a in feed]
-                    # the prologue alone, on clones of the port's state
-                    a = [t.clone() for t in mine]
-                    b = [t.clone() for t in mine]
-                    before = K.LAUNCHES["graph_prologue"]
-                    got = K.graph_prologue(*a, *tf, general=True)
-                    assert K.LAUNCHES["graph_prologue"] == before + 1, label
-                    want = K.graph_prologue_plain(*b, *tf, general=True)
-                    for j, (g, w) in enumerate(zip([*got, *a], [*want, *b])):
-                        assert g.dtype == w.dtype and torch.equal(g, w), (
-                            f"{label}: output {j} differs from the plain version")
-                    after = install_patch_mark(state, feed)
-                    dmat, n_bad = numpy_fold(after)
-                    assert np.array_equal(got[0].numpy(), dmat), f"{label}: fold"
-                    assert int(got[1][0]) == n_bad, (label, int(got[1][0]), n_bad)
-                    seen["fast" if n_bad == 0 else "iterative"] += 1
-                    # the whole step on the emulated kernels against the
-                    # reference's graph_plane_step_core (compiled)
-                    out = port.graph_plane_step_core(*mine, *tf, mode="general")
-                    theirs = ref.resolve_graph_plane_step_xla(
-                        *(jnp.array(x) for x in state), *(jnp.asarray(x) for x in feed),
-                        mode="general")
-                    for name, g, w in zip(out._fields, out, theirs):
-                        w = np.asarray(w)
-                        assert g.numpy().dtype == w.dtype and np.array_equal(g.numpy(), w), (
-                            f"{label}: step field {name} differs from the reference")
-                    for j, (g, w) in enumerate(zip(out[:6], after)):
-                        if j == 5:  # the step also executes what it resolved
-                            w = w | out.newly.numpy()
-                        assert np.array_equal(g.numpy(), w), (label, j)
-                    state = [np.asarray(x) for x in theirs[:6]]
-                    mine = list(out[:6])
+        for cap, width, n_keys in ((150, 4, 40), (256, 8, 96)):
+            state = fresh(cap, width)
+            mine = [torch.tensor(a) for a in state]
+            for i, feed in enumerate(feeds(cap + width, cap, width, 5, n_keys)):
+                label = f"{form}, {cap} x {width}, feed {i}"
+                feed, own = feed[:-1], feed[-1]
+                seen["patched own rows"] += own
+                tf = [torch.tensor(a) for a in feed]
+                # the prologue alone, on clones of the port's state
+                a = [t.clone() for t in mine]
+                b = [t.clone() for t in mine]
+                before = K.LAUNCHES["graph_prologue"]
+                got = K.graph_prologue(*a, *tf, general=True)
+                assert K.LAUNCHES["graph_prologue"] == before + 1, label
+                want = K.graph_prologue_plain(*b, *tf, general=True)
+                for j, (g, w) in enumerate(zip([*got, *a], [*want, *b])):
+                    assert g.dtype == w.dtype and torch.equal(g, w), (
+                        f"{label}: output {j} differs from the plain version")
+                after = install_patch_mark(state, feed)
+                dmat, n_bad = numpy_fold(after)
+                assert np.array_equal(got[0].numpy(), dmat), f"{label}: fold"
+                assert int(got[1][0]) == n_bad, (label, int(got[1][0]), n_bad)
+                seen["fast" if n_bad == 0 else "iterative"] += 1
+                # the whole step on the emulated kernels against the
+                # reference's graph_plane_step_core (compiled)
+                out = port.graph_plane_step_core(*mine, *tf, mode="general")
+                theirs = ref.resolve_graph_plane_step_xla(
+                    *(jnp.array(x) for x in state), *(jnp.asarray(x) for x in feed),
+                    mode="general")
+                for name, g, w in zip(out._fields, out, theirs):
+                    w = np.asarray(w)
+                    assert g.numpy().dtype == w.dtype and np.array_equal(g.numpy(), w), (
+                        f"{label}: step field {name} differs from the reference")
+                for j, (g, w) in enumerate(zip(out[:6], after)):
+                    if j == 5:  # the step also executes what it resolved
+                        w = w | out.newly.numpy()
+                    assert np.array_equal(g.numpy(), w), (label, j)
+                state = [np.asarray(x) for x in theirs[:6]]
+                mine = list(out[:6])
     assert all(seen.values()), seen
