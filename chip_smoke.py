@@ -45,7 +45,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    as the mean of 100, with their rounds; the widest peel stage also run
    to its fixpoint), with the rounds per resolve and per stage (the loop
    kernels' own device counts) and the host reads inside each step; then
-   the affine loop's two forms (one CTA up to ``AFFINE_CTA_ROWS`` = 2,048
+   the affine loop's two forms (one CTA up to ``CTA_ROWS`` = 2,048
    rows, cooperative above) on the same resolve at 256-4,096 rows;
 4. the general path end to end: ``GraphExecutor`` on ``cuda`` takes the
    2^20 multi-key commands as ``GraphAddBatch`` feeds of 250k, shuffled
@@ -64,10 +64,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    fold, ``mutual_collapse``, ``affine_loop``, the 4-key ``lex_sort``,
    ``plane_epilogue``) and the whole dispatch held against the plain
    versions, timed single and in the loop beside the byte bound, and
-   counted in operations on the card by ``torch.profiler``;
-   ``mutual_collapse`` also at 4,096 x 4 and 2^16 x 4, the general fold at
-   4,096 and 2^20 slots, both forms (one CTA, cooperative) of both over
-   256-4,096 rows, and an empty kernel's launch, the one-launch floor;
+   counted in operations on the card by ``torch.profiler``: one a call
+   for ``mutual_collapse`` and the prologue, one a wrapper and the read of
+   the fast-path count for the dispatch; ``mutual_collapse`` also at 4,096
+   x 4 and 2^16 x 4, the prologue in modes general and keyed at 4,096 and
+   2^20 slots, both forms (one CTA, cooperative) of both over 256-4,096
+   rows (single, loop and on the card), and an empty kernel's launch, the
+   one-launch floor;
 5. the votes-table kernels (``csrc/table_plane.cu``) against their plain
    versions on the card, exactly, flags and counts included, each timed
    beside its plain version, its byte bound and the one PyTorch call that
@@ -462,12 +465,13 @@ def loop_bytes(K, name, args, kwargs):
 SMEM_LIMIT = 232_448  # bytes of shared memory one block can use on an H100
 
 
-def one_launch_forms(K, name, gate_name, args, kwargs, one_cta_smem):
+def one_launch_forms(K, name, gate_name, args, kwargs, one_cta_smem, on_card=False):
     """The same call of a one-launch wrapper in its two forms, one CTA (the
     gate raised to the call's rows, where the block's shared memory holds
     them) and cooperative (the gate lowered to 0), each held against the
-    plain version: single and loop times.  Empty where the wrapper has no
-    such gate."""
+    plain version: single and loop times, and with ``on_card`` each form's
+    call, timed on the card by ``forms_on_card``.  Empty where the wrapper
+    has no such gate."""
     if not hasattr(K, gate_name):
         return {}
     kernel, plain = getattr(K, name), getattr(K, f"{name}_plain")
@@ -485,13 +489,54 @@ def one_launch_forms(K, name, gate_name, args, kwargs, one_cta_smem):
             out[f"ms_loop_{form}"] = time_loop_ms(kernel, args, kwargs)
         finally:
             setattr(K, gate_name, gate)
+        if on_card:  # timed on the card later (forms_on_card)
+            out[f"call_{form}"] = (gated(K, gate_name, value, kernel), clone_args(args),
+                                   kwargs)
     return out
+
+
+def gated(K, gate_name, value, kernel):
+    """``kernel`` called with ``K.<gate_name>`` set to ``value`` for the
+    call (a form's call, counted on the card later)."""
+    def call(*args, **kwargs):
+        gate = getattr(K, gate_name)
+        setattr(K, gate_name, value)
+        try:
+            return kernel(*args, **kwargs)
+        finally:
+            setattr(K, gate_name, gate)
+
+    return call
+
+
+FORM_REPEATS = 5  # profiled calls of each form: the median is kept
+
+
+def forms_on_card(torch, found):
+    """Replace each form's ``call`` in ``found`` ({label: forms}) by the
+    median time on the card of ``FORM_REPEATS`` profiled calls
+    (``device_ms_<form>``), each one operation."""
+    records = []
+    for forms in found.values():
+        for form in ("one_cta", "cooperative"):
+            call = forms.pop(f"call_{form}", None)
+            if call:
+                runs = [{"call": call} for _ in range(FORM_REPEATS)]
+                records += runs
+                forms[f"device_runs_{form}"] = runs
+    count_ops(torch, records)
+    for label, forms in found.items():
+        for form in ("one_cta", "cooperative"):
+            runs = forms.pop(f"device_runs_{form}", None)
+            if runs:
+                assert all(r["device_ops"] == 1 for r in runs), (label, form, runs)
+                forms[f"device_ms_{form}"] = float(np.median([r["device_ms"] for r in runs]))
 
 
 def affine_forms(K, args, kwargs):
     """``one_launch_forms`` of an ``affine_loop`` call (one CTA: six
     columns of ints in shared memory)."""
-    return one_launch_forms(K, "affine_loop", "AFFINE_CTA_ROWS", args, kwargs,
+    return one_launch_forms(K, "affine_loop", "CTA_ROWS", args, kwargs,
                             6 * args[0].shape[0] * 4)
 
 
@@ -506,8 +551,8 @@ def compare_affine_forms(K, calls):
 
 
 AFFINE_SWEEP = (256, 512, 1024, 2048, 4096)  # rows of the forms' sweep, W = 4
-# a use built from another source than its wrapper's record
-USE_SOURCE = {"graph_prologue, general fold": GENERAL_SOURCE}
+# a wrapper whose kernels are in another source than its phase's
+KERNEL_SOURCE = {"graph_prologue": GENERAL_SOURCE}
 
 
 def describe(args):
@@ -585,7 +630,7 @@ def kernel_records(torch, K, checker, names, source, phase, extra_uses=()):
             "shape": describe(args),
         }))
         uses.setdefault(name, []).append({
-            "use": use, "source": USE_SOURCE.get(use, source),
+            "use": use, "source": KERNEL_SOURCE.get(name, source),
             "shape": describe(args), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "library_ms": library_ms, **loops,
         })
@@ -594,7 +639,7 @@ def kernel_records(torch, K, checker, names, source, phase, extra_uses=()):
         records[name] = {
             "name": name,
             "route": "cuda",
-            "source": source,
+            "source": KERNEL_SOURCE.get(name, source),
             "replaces": REPLACES,
             "launches": 0,
             "max_abs_err": checker.err[name],
@@ -1122,7 +1167,7 @@ def phase3(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
         sweep[f"{rows} x {deps.shape[1]}"] = (
             1, (tgt, add, missing, leader, member_count, max_iters))
     log(json.dumps({"phase3_affine_forms": compare_affine_forms(K, sweep)}))
-    # the prologue's general fold is a use of the prologue (graph_plane_step.cu)
+    # the prologue in mode general is a use of the prologue (graph_general.cu §13)
     return kernel_records(torch, K, checker, list(K.GENERAL_KERNELS),
                           GENERAL_SOURCE, "phase3",
                           extra_uses=("graph_prologue, general fold",))
@@ -1405,23 +1450,11 @@ def collapse_smem(rows, width):
     return (3 + -(-width // 32)) * rows * 4
 
 
-def collapse_steps(torch, K, deps):
-    """Steps of the collapse's min-label loop that change a leader, of the
-    ``num_doubling_steps(B)`` the reference runs."""
-    batch = deps.shape[0]
-    idx = torch.arange(batch, dtype=torch.int32, device=deps.device)
-    t = torch.where(deps == idx[:, None], K.TERMINAL, deps)
-    valid = t >= 0
-    safe = torch.where(valid, t, 0).long()
-    back = (t[safe] == idx[:, None, None]).any(dim=-1) & valid
-    leader, changed = idx, 0
-    for _ in range(K.num_doubling_steps(batch)):
-        nbr_min = torch.where(back, leader[safe], batch).min(dim=-1).values
-        new = torch.minimum(leader, nbr_min.to(torch.int32))
-        new = torch.minimum(new, new[new.long()])
-        changed += bool((new != leader).any())
-        leader = new
-    return changed
+def collapse_steps(K, deps):
+    """Steps of the collapse's min-label loop that change a leader (None on
+    a checkout whose plain collapse does not count them)."""
+    count = getattr(K, "mutual_collapse_steps", None)
+    return count(deps) if count else None
 
 
 def prologue_inputs(torch, cap, width, seed):
@@ -1479,7 +1512,7 @@ def sims_dispatches(K, gp_module, shapes):
     return found
 
 
-def phase_chain(torch, K, gp_module):
+def phase_chain(torch, K, gp_module, one_launch=True):
     """Every launch of a general dispatch (the prologue's general fold,
     ``mutual_collapse``, ``affine_loop``, ``lex_sort`` with 4 keys,
     ``plane_epilogue``) at the sims' shapes (1,024 x 4 and 1,024 x 8, each
@@ -1488,9 +1521,13 @@ def phase_chain(torch, K, gp_module):
     and counted in operations on the card by ``torch.profiler``; the whole
     dispatch too.  Then ``mutual_collapse`` at 4,096 x 4 (mode general's
     window) and 2^16 x 4 (cooperative) on a permuted and a cycle-rich
-    window, ``graph_prologue``'s general fold at 4,096 and 2^20 slots, both
-    one-launch wrappers in both forms over 256-4,096 rows, and an empty
-    kernel's launch: the floor of a one-launch kernel."""
+    window, ``graph_prologue`` in modes general and keyed at 4,096 and 2^20
+    slots, both one-launch wrappers in both forms over 256-4,096 rows (the
+    prologue in both modes), and an empty
+    kernel's launch: the floor of a one-launch kernel.  With ``one_launch``
+    (the whole smoke; not on an older checkout) every ``mutual_collapse``
+    and prologue call must be one operation on the card, and a dispatch one
+    kernel a wrapper and the one read of the fast-path count."""
     from fantoch_tpu_torch.ops import graph_resolve
 
     out = {"launch_floor": launch_floor(torch, K), "sims": {}, "collapse": {},
@@ -1504,7 +1541,7 @@ def phase_chain(torch, K, gp_module):
         _deps, _key, src, seq, occ, executed = after[:6]
         chain["mutual_collapse"], collapsed, _ = stage_record(
             torch, K, "mutual_collapse", (dmat,))
-        chain["mutual_collapse"]["steps_changing"] = collapse_steps(torch, K, dmat)
+        chain["mutual_collapse"]["steps_changing"] = collapse_steps(K, dmat)
         leader, tgt, add, missing, member_count = collapsed
         max_iters = 4 * K.num_doubling_steps(cap) + 8
         chain["affine_loop"], (resolved, rank, _stuck, rounds), _ = stage_record(
@@ -1530,13 +1567,15 @@ def phase_chain(torch, K, gp_module):
                            ("cycle-rich", cycle_rich(rows, GENERAL_FEED)[1])):
             t = torch.tensor(deps, device=CARD)
             record, _got, _ = stage_record(torch, K, "mutual_collapse", (t,))
-            record["steps_changing"] = collapse_steps(torch, K, t)
+            record["steps_changing"] = collapse_steps(K, t)
             record["steps"] = K.num_doubling_steps(rows)
             out["collapse"][f"{rows} x {GENERAL_WIDTH}, {kind}"] = record
     for cap, seed in ((GENERAL_C, 3), (BIG, 4)):
         args = prologue_inputs(torch, cap, GENERAL_WIDTH, seed)
-        record, _got, _ = stage_record(torch, K, "graph_prologue", args, {"general": True})
-        out["prologue"][f"{cap} x {GENERAL_WIDTH}"] = record
+        for mode in ("general", "keyed"):
+            record, _got, _ = stage_record(torch, K, "graph_prologue", args,
+                                           {"general": mode == "general"})
+            out["prologue"][f"{mode}, {cap} x {GENERAL_WIDTH}"] = record
     counted = [r for chain in out["sims"].values() for r in chain.values()]
     counted += list(out["collapse"].values()) + list(out["prologue"].values())
     if out["launch_floor"]:
@@ -1546,21 +1585,35 @@ def phase_chain(torch, K, gp_module):
         log(json.dumps({"phase4b_chain": label, **{
             k: {f: v[f] for f in ("ms", "ms_loop", "device_ops", "device_ms")}
             for k, v in chain.items()}}))
+    if one_launch:
+        one = [(label, c["graph_prologue"]) for label, c in out["sims"].items()]
+        one += [(label, c["mutual_collapse"]) for label, c in out["sims"].items()]
+        one += list(out["collapse"].items()) + list(out["prologue"].items())
+        for label, record in one:
+            assert record["device_ops"] == 1, (label, record["op_names"])
+        for label, chain in out["sims"].items():
+            names = chain["dispatch"]["op_names"]
+            kernels = [n for n in names if not n.startswith("Memcpy")]
+            assert len(kernels) == len(chain) - 1, (label, names)  # a kernel a wrapper
+            assert chain["dispatch"]["device_ops"] == len(kernels) + 1, (label, names)
     # both forms of each one-launch wrapper over the sweep's rows
     for rows in CHAIN_SWEEP:
         perm = np.random.default_rng(rows).permutation(rows)
         for kind, deps in (("permuted", general_workload(rows)[1][perm]),
                            ("cycle-rich", cycle_rich(rows, min(rows, GENERAL_FEED))[1])):
             t = torch.tensor(deps, device=CARD)
-            forms = one_launch_forms(K, "mutual_collapse", "COLLAPSE_CTA_ROWS", (t,), {},
-                                     collapse_smem(rows, GENERAL_WIDTH))
+            forms = one_launch_forms(K, "mutual_collapse", "CTA_ROWS", (t,), {},
+                                     collapse_smem(rows, GENERAL_WIDTH), on_card=True)
             if forms:
                 out["forms"][f"mutual_collapse, {rows} x 4, {kind}"] = forms
-        forms = one_launch_forms(K, "graph_prologue", "PROLOGUE_CTA_ROWS",
-                                 prologue_inputs(torch, rows, GENERAL_WIDTH, rows),
-                                 {"general": True}, 4)
-        if forms:
-            out["forms"][f"graph_prologue, {rows} x 4"] = forms
+        for general in (True, False):
+            forms = one_launch_forms(K, "graph_prologue", "CTA_ROWS",
+                                     prologue_inputs(torch, rows, GENERAL_WIDTH, rows),
+                                     {"general": general}, 4, on_card=True)
+            if forms:
+                mode = "general" if general else "keyed"
+                out["forms"][f"graph_prologue, {mode}, {rows} x 4"] = forms
+    forms_on_card(torch, out["forms"])
     log(json.dumps({"general_chain": out}))
     return out
 
@@ -2466,7 +2519,7 @@ def main():
 
     walls = {"phase 0": time.perf_counter() - t0}
     if chain_only:
-        phase_chain(torch, K, gp_module)
+        phase_chain(torch, K, gp_module, one_launch=False)
         log(card)
         return 0
 
@@ -2488,14 +2541,14 @@ def main():
     records.update(general_records)
     general = timed("phase 4", phase4, torch, K, gp_module, Config, Command, Rifl,
                     KVOp, RunTime, GraphExecutor, GraphAddBatch)
-    chain = timed("phase 4b", phase_chain, torch, K, gp_module)
+    chain = timed("phase 4b", phase_chain, torch, K, gp_module, True)
     # the one-launch wrappers at the sims' shapes, the table's and above it
     records["mutual_collapse"]["at_sims_shapes"] = {
         label: c["mutual_collapse"] for label, c in chain["sims"].items()}
     records["mutual_collapse"]["collapse_shapes"] = chain["collapse"]
     records["graph_prologue"]["general_at_sims_shapes"] = {
         label: c["graph_prologue"] for label, c in chain["sims"].items()}
-    records["graph_prologue"]["general_shapes"] = chain["prologue"]
+    records["graph_prologue"]["prologue_shapes"] = chain["prologue"]
     for name in ("mutual_collapse", "graph_prologue"):
         records[name]["launch_floor"] = chain["launch_floor"]
     # launches: each kernel's count on the main path of its slice, the

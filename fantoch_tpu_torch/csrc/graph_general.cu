@@ -1,12 +1,13 @@
 // Hopper kernels of the graph-plane step's general modes (windows with
-// multi-key commands: up to W live dependencies per row).  Together with
-// the prologue and the sort of graph_plane_step.cu they replace the TPU
-// kernel graph_plane_step_pallas (fantoch_tpu/ops/pallas_resolve.py:334)
-// in modes "general" (resolve_general, fantoch_tpu/ops/graph_resolve.py:467
-// and its _resolve_general_iterative, :1052) and "general_resident"
+// multi-key commands: up to W live dependencies per row) and the prologue of
+// every mode.  Together with the sort of graph_plane_step.cu they replace
+// the TPU kernel graph_plane_step_pallas
+// (fantoch_tpu/ops/pallas_resolve.py:334) in modes "general"
+// (resolve_general, fantoch_tpu/ops/graph_resolve.py:467 and its
+// _resolve_general_iterative, :1052) and "general_resident"
 // (resolve_general_resident, :746, with _peel_stage, :528).  The Python
 // wrappers, plain versions and per-stage notes on bounds and design are in
-// fantoch_tpu_torch/ops/graph_plane_kernels.py (stages 9-12).
+// fantoch_tpu_torch/ops/graph_plane_kernels.py (stages 1 and 9-12).
 //
 // The reference's while_loops run on the device: every affine round of a
 // resolve and its SCC fold are one launch (one CTA up to a size gate, a
@@ -977,22 +978,28 @@ extern "C" int gg_peel_compact(const int32_t* tgt, const int32_t* floor,
 }
 
 // ---------------------------------------------------------------------------
-// 13. general prologue (graph_resolve.py:927-946), one launch a dispatch
+// 13. prologue (graph_resolve.py:927-946), one launch a dispatch, every mode
 // ---------------------------------------------------------------------------
 //
-// The general modes' prologue: install the feed's rows, patch the MISSING
-// cells whose dots committed, mark the host oracle's executed rows, fold
-// deps on executed slots to TERMINAL, mask non-pending rows and count the
-// cells that bar resolve_general's backward-only fast path once
-// self-dependencies are pruned (a forward dependency or a MISSING one).
-// Four phases with a barrier between them, in the reference's order: a
-// patch or a mark follows the install of its row, and the fold, which reads
-// executed[dep] of any row, follows every mark.  Cells are walked one a
-// thread (grid-stride; one CTA: block-stride), so the installs' and the
-// fold's reads and writes are coalesced.  The count: a warp sum, a
-// shared-memory sum a block, stored once (one CTA) or one atomicAdd a block
-// into n_bad, which block 0 zeroes in the first phase (cooperative).  No
-// memset: every output is written by the launch.
+// Install the feed's rows, patch the MISSING cells whose dots committed,
+// mark the host oracle's executed rows, then fold deps on executed slots to
+// TERMINAL and mask non-pending rows.  Three phases with a barrier between
+// them, in the reference's order: a patch or a mark follows the install of
+// its row, and the fold, which reads executed[dep] of any row, follows
+// every mark.  Installs and the general fold walk cells one a thread
+// (grid-stride; one CTA: block-stride), so their reads and writes are
+// coalesced.  The third phase by mode:
+//   general (out0 = dmat, out1 = n_bad): the folded, masked matrix and the
+//     count of cells that bar resolve_general's backward-only fast path once
+//     self-dependencies are pruned (a forward dependency or a MISSING one):
+//     a warp sum, a shared-memory sum a block, stored once (one CTA) or one
+//     atomicAdd a block into n_bad, which block 0 zeroes in the first phase
+//     (cooperative);
+//   keyed (out0 = col, out1 = pk): a row a thread, the first live folded
+//     dependency (else MISSING if any, else TERMINAL) and the run key
+//     (pending rows keep their key, the others the private pad key
+//     INT_MAX - row).
+// No memset: every output is written by the launch.
 
 template <bool COOP>
 __device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t* seq,
@@ -1000,12 +1007,12 @@ __device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t
                               const int32_t* u_deps, const int32_t* u_key,
                               const int32_t* u_src, const int32_t* u_seq,
                               const int32_t* p_row, const int32_t* p_col,
-                              const int32_t* p_val, const int32_t* e_row, int32_t* dmat,
-                              int32_t* n_bad, int32_t* sum, int cap, int W, int U, int P,
-                              int E) {
-  if (threadIdx.x == 0) {
+                              const int32_t* p_val, const int32_t* e_row, int32_t* out0,
+                              int32_t* out1, int32_t* sum, int cap, int W, int U, int P,
+                              int E, int general) {
+  if (general && threadIdx.x == 0) {
     sum[0] = 0;
-    if (COOP && blockIdx.x == 0) n_bad[0] = 0;
+    if (COOP && blockIdx.x == 0) out1[0] = 0;
   }
   FOR_ROWS(j, (long)U * W) {  // install, a cell a thread; pad rows dropped
     long i = j / W;
@@ -1032,15 +1039,32 @@ __device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t
     }
   }
   loop_sync<COOP>();
+  if (!general) {
+    FOR_ROWS(r, cap) {  // keyed fold and compression, a row a thread
+      bool pending = occ[r] && !executed[r];
+      int first = TERMINAL;
+      bool any_miss = false;
+      for (int w = 0; pending && w < W && first == TERMINAL; ++w) {
+        int v = deps[r * W + w];
+        if (v >= 0 && !executed[v < cap ? v : cap - 1])
+          first = v;
+        else if (v == MISSING)
+          any_miss = true;
+      }
+      out0[r] = first != TERMINAL ? first : (any_miss ? MISSING : TERMINAL);
+      out1[r] = pending ? key[r] : (int32_t)(INT_MAX - r);
+    }
+    return;
+  }
   int bad = 0;
-  FOR_ROWS(j, (long)cap * W) {  // fold and mask, a cell a thread
+  FOR_ROWS(j, (long)cap * W) {  // general fold and mask, a cell a thread
     long r = j / W;
     int v = TERMINAL;
     if (occ[r] && !executed[r]) {
       v = deps[j];
       if (v >= 0 && executed[v < cap ? v : cap - 1]) v = TERMINAL;
     }
-    dmat[j] = v;
+    out0[j] = v;
     bad += (v > r || v == MISSING) ? 1 : 0;
   }
   bad = __reduce_add_sync(0xffffffffu, bad);
@@ -1048,9 +1072,9 @@ __device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t
   __syncthreads();
   if (threadIdx.x == 0) {
     if (!COOP)
-      n_bad[0] = sum[0];
+      out1[0] = sum[0];
     else if (sum[0])
-      atomicAdd(n_bad, sum[0]);
+      atomicAdd(out1, sum[0]);
   }
 }
 
@@ -1059,21 +1083,21 @@ __device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t
       uint8_t *executed, const int32_t *u_row, const int32_t *u_deps,                 \
       const int32_t *u_key, const int32_t *u_src, const int32_t *u_seq,               \
       const int32_t *p_row, const int32_t *p_col, const int32_t *p_val,               \
-      const int32_t *e_row, int32_t *dmat, int32_t *n_bad, int cap, int W, int U, int P, \
-      int E
+      const int32_t *e_row, int32_t *out0, int32_t *out1, int cap, int W, int U, int P, \
+      int E, int general
 
 __global__ void k_prologue_cta(PROLOGUE_ARGS) {
   extern __shared__ int32_t pro_cta_smem[];  // the block's bad-cell sum
   prologue_body<false>(deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src,
-                       u_seq, p_row, p_col, p_val, e_row, dmat, n_bad, pro_cta_smem, cap,
-                       W, U, P, E);
+                       u_seq, p_row, p_col, p_val, e_row, out0, out1, pro_cta_smem, cap,
+                       W, U, P, E, general);
 }
 
 __global__ void k_prologue_coop(PROLOGUE_ARGS) {
   extern __shared__ int32_t pro_coop_smem[];  // the block's bad-cell sum
   prologue_body<true>(deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src,
-                      u_seq, p_row, p_col, p_val, e_row, dmat, n_bad, pro_coop_smem, cap,
-                      W, U, P, E);
+                      u_seq, p_row, p_col, p_val, e_row, out0, out1, pro_coop_smem, cap,
+                      W, U, P, E, general);
 }
 
 // cap <= cta_rows: one CTA of up to LOOP_CTA threads; above, a cooperative
@@ -1084,19 +1108,19 @@ extern "C" int gg_prologue(PROLOGUE_ARGS, int cta_rows, int block, cudaStream_t 
   if (cap <= cta_rows) {
     k_prologue_cta<<<1, cta_threads(cap), smem, stream>>>(
         deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq, p_row,
-        p_col, p_val, e_row, dmat, n_bad, cap, W, U, P, E);
+        p_col, p_val, e_row, out0, out1, cap, W, U, P, E, general);
     CHECK_LAUNCH();
     return 0;
   }
-  long cells = (long)cap * W;
-  long most = cells > (long)U * W ? cells : (long)U * W;
+  long most = general ? (long)cap * W : cap;
+  if ((long)U * W > most) most = (long)U * W;
   if ((long)P + E > most) most = (long)P + E;
   int grid = 0;
   int e = coop_grid(k_prologue_coop, block, smem, (most + block - 1) / block, &grid);
   if (e) return e;
   void* args[] = {&deps,  &key,   &src,   &seq, &occ,   &executed, &u_row, &u_deps,
-                  &u_key, &u_src, &u_seq, &p_row, &p_col, &p_val,  &e_row, &dmat,
-                  &n_bad, &cap,   &W,     &U,   &P,     &E};
+                  &u_key, &u_src, &u_seq, &p_row, &p_col, &p_val,  &e_row, &out0,
+                  &out1,  &cap,   &W,     &U,   &P,     &E,        &general};
   CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_prologue_coop, dim3(grid),
                                          dim3(block), args, smem, stream));
   return (int)cudaGetLastError();

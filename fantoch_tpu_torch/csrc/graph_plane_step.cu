@@ -1,9 +1,9 @@
 // Hopper kernels of the graph-plane step (one resident EPaxos/Atlas
-// backlog dispatch): the prologue and the stages of mode "keyed", and the
-// sort every mode uses.  They replace the TPU kernel graph_plane_step_pallas
+// backlog dispatch): the stages of mode "keyed", and the sort every mode
+// uses.  They replace the TPU kernel graph_plane_step_pallas
 // (fantoch_tpu/ops/pallas_resolve.py:334, tracing graph_plane_step_core,
-// fantoch_tpu/ops/graph_resolve.py:883); the general modes' prologue and
-// stages are in graph_general.cu.  The Python
+// fantoch_tpu/ops/graph_resolve.py:883); the prologue of every mode and the
+// general modes' stages are in graph_general.cu.  The Python
 // wrappers, plain versions and per-stage notes on bounds and design are in
 // fantoch_tpu_torch/ops/graph_plane_kernels.py.
 //
@@ -35,100 +35,6 @@
 
 static inline unsigned grid_for(long n, int block) {
   return (unsigned)((n + block - 1) / block);
-}
-
-// ---------------------------------------------------------------------------
-// 1. prologue
-// ---------------------------------------------------------------------------
-
-__global__ void k_install(int32_t* deps, int32_t* key, int32_t* src, int32_t* seq,
-                          uint8_t* occ, uint8_t* executed, const int32_t* u_row,
-                          const int32_t* u_deps, const int32_t* u_key,
-                          const int32_t* u_src, const int32_t* u_seq, int cap,
-                          int width, int U) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= U) return;
-  int r = u_row[i];
-  if (r < 0 || r >= cap) return;  // pad rows are dropped
-  for (int w = 0; w < width; ++w)
-    deps[(long)r * width + w] = u_deps[(long)i * width + w];
-  key[r] = u_key[i];
-  src[r] = u_src[i];
-  seq[r] = u_seq[i];
-  occ[r] = 1;
-  executed[r] = 0;
-}
-
-__global__ void k_patch_mark(int32_t* deps, uint8_t* executed, const int32_t* p_row,
-                             const int32_t* p_col, const int32_t* p_val,
-                             const int32_t* e_row, int cap, int width, int P, int E) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < P) {
-    int r = p_row[i], c = p_col[i];
-    if (r >= 0 && r < cap && c >= 0 && c < width) deps[(long)r * width + c] = p_val[i];
-  } else if (i < P + E) {
-    int r = e_row[i - P];
-    if (r >= 0 && r < cap) executed[r] = 1;
-  }
-}
-
-__global__ void k_fold_compress(const int32_t* deps, const int32_t* key,
-                                const uint8_t* occ, const uint8_t* executed,
-                                int32_t* col, int32_t* pk, int cap, int width) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= cap) return;
-  bool pending = occ[r] && !executed[r];
-  bool has_live = false, any_miss = false;
-  int first = TERMINAL;
-  if (pending) {
-    for (int w = 0; w < width; ++w) {
-      int v = deps[(long)r * width + w];
-      if (v >= 0) {
-        int safe = v < cap ? v : cap - 1;
-        if (executed[safe]) v = TERMINAL;  // fold deps on executed slots
-      }
-      if (v >= 0) {
-        if (!has_live) {
-          has_live = true;
-          first = v;
-        }
-      } else if (v == MISSING) {
-        any_miss = true;
-      }
-    }
-  }
-  col[r] = has_live ? first : (any_miss ? MISSING : TERMINAL);
-  pk[r] = pending ? key[r] : (INT_MAX - r);  // private pad key per slot
-}
-
-// the keyed mode's prologue: install, then patches and marks, then the
-// keyed fold + compression into col/pk (the general modes' prologue is one
-// launch, gg_prologue in graph_general.cu)
-extern "C" int gp_prologue(int32_t* deps, int32_t* key, int32_t* src, int32_t* seq,
-                           uint8_t* occ, uint8_t* executed, const int32_t* u_row,
-                           const int32_t* u_deps, const int32_t* u_key,
-                           const int32_t* u_src, const int32_t* u_seq,
-                           const int32_t* p_row, const int32_t* p_col,
-                           const int32_t* p_val, const int32_t* e_row, int32_t* col,
-                           int32_t* pk, int cap, int width, int U, int P, int E,
-                           cudaStream_t stream) {
-  if (U > 0) {
-    k_install<<<grid_for(U, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-        deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq, cap,
-        width, U);
-    CHECK_LAUNCH();
-  }
-  if (P + E > 0) {
-    k_patch_mark<<<grid_for(P + E, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-        deps, executed, p_row, p_col, p_val, e_row, cap, width, P, E);
-    CHECK_LAUNCH();
-  }
-  if (cap > 0) {
-    k_fold_compress<<<grid_for(cap, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-        deps, key, occ, executed, col, pk, cap, width);
-    CHECK_LAUNCH();
-  }
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -5,9 +5,9 @@ These replace the TPU kernel ``graph_plane_step_pallas``
 tracing ``graph_plane_step_core`` in fantoch_tpu/ops/graph_resolve.py:883)
 in all three of its modes.  On the TPU that kernel is one program resident
 in VMEM; on an H100 the step is a chain of launches composed by
-``ops/graph_resolve.py``: the ``keyed`` mode's prologue and stages (1-8)
-from ``csrc/graph_plane_step.cu``, the ``general`` and
-``general_resident`` modes' prologue (1, §13 there) and stages (9-12) from
+``ops/graph_resolve.py``: the ``keyed`` mode's stages (2-8) from
+``csrc/graph_plane_step.cu``; the prologue of every mode (1, §13 there)
+and the ``general`` and ``general_resident`` modes' stages (9-12) from
 ``csrc/graph_general.cu``.
 
 Every stage below is one wrapper with three things beside it:
@@ -94,7 +94,6 @@ def num_doubling_steps(batch: int) -> int:
 # pointer, "i" an int; every launcher takes the stream last and returns
 # cudaError_t
 _SIGNATURES = {
-    "gp_prologue": ("graph_plane_step", "p" * 17 + "i" * 5),
     "gp_lex_sort": ("graph_plane_step", "p" * 11 + "i" * 10),
     "gp_link_scan": ("graph_plane_step", "p" * 8 + "i"),
     "gp_residual_view": ("graph_plane_step", "p" * 13 + "iii"),
@@ -102,7 +101,7 @@ _SIGNATURES = {
     "gp_pointer_doubling": ("graph_plane_step", "p" * 7 + "ii"),
     "gp_emit_scatter": ("graph_plane_step", "p" * 8 + "iii"),
     "gp_epilogue": ("graph_plane_step", "p" * 5 + "i"),
-    "gg_prologue": ("graph_general", "p" * 17 + "i" * 7),
+    "gg_prologue": ("graph_general", "p" * 17 + "i" * 8),
     "gg_mutual_collapse": ("graph_general", "p" * 7 + "i" * 5),
     "gg_affine_loop": ("graph_general", "p" * 12 + "i" * 5),
     "gg_peel_stage": ("graph_general", "p" * 14 + "i" * 5),
@@ -199,15 +198,15 @@ def _b(n: int, device) -> torch.Tensor:
 # are scattered writes of U and P cells.  Order: install, then patches and
 # marks, then the per-row fold that reads ``executed`` of the dep targets
 # once every mark has landed (the reference's order when a dispatch patches
-# or marks a row it also installs).  Design, keyed: three launches (install,
-# patches and marks, fold and compress).  Design, general
-# (``csrc/graph_general.cu`` §13): one launch a dispatch, the three steps
-# and the count of cells that bar ``resolve_general``'s fast path as four
-# phases with a barrier between them, a cell a thread: one CTA up to
-# ``PROLOGUE_CTA_ROWS`` rows, a cooperative launch (grid barriers) above.
-# The count is a warp sum and a shared-memory sum a block, stored once (one
-# CTA) or added once a block (cooperative) into the device int the host
-# reads once per dispatch; no zero-fill launch.
+# or marks a row it also installs).  Design (``csrc/graph_general.cu``
+# §13): one launch a dispatch in every mode, the three steps as three
+# phases with a barrier between them, installs and the general fold a cell
+# a thread, the keyed fold and compression a row a thread: one CTA up to
+# ``CTA_ROWS`` rows, a cooperative launch (grid barriers) above.  The
+# general count of cells that bar ``resolve_general``'s fast path is a warp
+# sum and a shared-memory sum a block, stored once (one CTA) or added once
+# a block (cooperative) into the device int the host reads once per
+# dispatch; no zero-fill launch.
 
 
 def graph_prologue_plain(
@@ -286,17 +285,15 @@ def graph_prologue(
     _check(e_row, torch.int32, "e_row", E)
     state = (deps, key, src, seq, occ, executed,
              u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row)
-    if general:
-        dmat = torch.empty((cap, width), dtype=torch.int32, device=deps.device)
-        n_bad = _i32(1, deps.device)
-        _launch("gg_prologue", deps.device, *state, dmat, n_bad, cap, width, U, P, E,
-                PROLOGUE_CTA_ROWS, _loop_block(cap))
-        LAUNCHES["graph_prologue"] += 1
-        return dmat, n_bad
-    col, pk = _i32(cap, deps.device), _i32(cap, deps.device)
-    _launch("gp_prologue", deps.device, *state, col, pk, cap, width, U, P, E)
+    if general:  # the folded matrix and the bad-cell count
+        out = (torch.empty((cap, width), dtype=torch.int32, device=deps.device),
+               _i32(1, deps.device))
+    else:  # the keyed column and the run keys
+        out = (_i32(cap, deps.device), _i32(cap, deps.device))
+    _launch("gg_prologue", deps.device, *state, *out, cap, width, U, P, E, int(general),
+            CTA_ROWS, _loop_block(cap))
     LAUNCHES["graph_prologue"] += 1
-    return col, pk
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -702,18 +699,39 @@ def _amax_into(n: int, index: torch.Tensor, values: torch.Tensor) -> torch.Tenso
 # leaders, which drops intra-SCC edges, seeds the affine state (add,
 # missing) and counts members with atomics.  A step is a function of the
 # leader column alone, so the steps stop after the first that changes no
-# leader.  Up to ``COLLAPSE_CTA_ROWS`` rows one CTA runs it, the two leader
+# leader.  Up to ``CTA_ROWS`` rows one CTA runs it, the two leader
 # columns, the counts and the masks in dynamic shared memory (32 KB at
 # 2,048 rows, W <= 32) and the changed flag a ``__syncthreads_or``; above,
 # a cooperative launch with grid barriers and the changed flag in a
 # three-slot ring, as the affine loop's.  No memset, no host read.
 
-# the one-CTA gates of the mutual collapse and the general prologue, at the
-# affine loop's: chip_smoke.py (phase 4b, both forms on the same calls)
-# measured the collapse's one CTA ahead on cycle-rich inputs up to 2,048
-# rows and level at 4,096, and the prologue's two forms level
-COLLAPSE_CTA_ROWS = 2048
-PROLOGUE_CTA_ROWS = 2048
+def _mutual_leaders(deps, count_steps=False):
+    """The min-label loop of the collapse: ``(deps with self-deps pruned,
+    valid, safe targets, leader, steps)``, where ``steps`` is how many of the
+    ``num_doubling_steps(B)`` steps changed a leader (counted with a host
+    read a step only when ``count_steps``, else 0)."""
+    batch = deps.shape[0]
+    idx = torch.arange(batch, dtype=torch.int32, device=deps.device)
+    deps = torch.where(deps == idx[:, None], TERMINAL, deps)
+    valid = deps >= 0
+    safe = torch.where(valid, deps, 0).long()
+    back = (deps[safe] == idx[:, None, None]).any(dim=-1) & valid
+    leader, steps = idx, 0
+    for _ in range(num_doubling_steps(batch)):
+        nbr_min = torch.where(back, leader[safe], batch).min(dim=-1).values
+        new = torch.minimum(leader, nbr_min.to(torch.int32))
+        new = torch.minimum(new, new[new.long()])
+        if count_steps:
+            steps += bool((new != leader).any())
+        leader = new
+    return deps, valid, safe, leader, steps
+
+
+def mutual_collapse_steps(deps) -> int:
+    """How many steps of the collapse's min-label loop change a leader, of
+    the ``num_doubling_steps(B)`` the reference runs: the kernel stops after
+    the first that changes none (for ``chip_smoke.py`` and the tests)."""
+    return _mutual_leaders(deps, count_steps=True)[-1]
 
 
 def mutual_collapse_plain(deps):
@@ -724,16 +742,7 @@ def mutual_collapse_plain(deps):
     dropped, and the affine rounds' initial ``add``/``missing``."""
     batch = deps.shape[0]
     device = deps.device
-    idx = torch.arange(batch, dtype=torch.int32, device=device)
-    deps = torch.where(deps == idx[:, None], TERMINAL, deps)
-    valid = deps >= 0
-    safe = torch.where(valid, deps, 0).long()
-    back = (deps[safe] == idx[:, None, None]).any(dim=-1) & valid
-    leader = idx
-    for _ in range(num_doubling_steps(batch)):
-        nbr_min = torch.where(back, leader[safe], batch).min(dim=-1).values
-        leader = torch.minimum(leader, nbr_min.to(torch.int32))
-        leader = torch.minimum(leader, leader[leader.long()])
+    deps, valid, safe, leader, _steps = _mutual_leaders(deps)
     tgt = torch.where(valid, leader[safe], deps)
     tgt = torch.where(valid & (tgt == leader[:, None]), TERMINAL, tgt).to(torch.int32)
     add = (tgt >= 0).to(torch.int32)
@@ -757,12 +766,12 @@ def mutual_collapse(deps):
     # cooperative: the second leader column, three changed slots and the
     # back masks (one word per 32 slots a row)
     scratch = None
-    if batch > COLLAPSE_CTA_ROWS:
+    if batch > CTA_ROWS:
         scratch = _i32(batch + 3 + batch * -(-width // 32), device)
     _launch(
         "gg_mutual_collapse", device, deps, leader, tgt, add, missing,
         member_count, scratch, batch, width, num_doubling_steps(batch),
-        COLLAPSE_CTA_ROWS, _loop_block(batch),
+        CTA_ROWS, _loop_block(batch),
     )
     LAUNCHES["mutual_collapse"] += 1
     return leader, tgt, add, missing, member_count
@@ -789,7 +798,7 @@ def mutual_collapse(deps):
 # rows only through those columns, so the state is updated in place (a row's
 # cells loaded four at a time before any is stored; after round 0, only the
 # cells that change are written) and each round still sees the whole state
-# the round before it left.  Up to ``AFFINE_CTA_ROWS`` rows one CTA of up to
+# the round before it left.  Up to ``CTA_ROWS`` rows one CTA of up to
 # 1,024 threads runs it, the six columns in dynamic shared memory (48 KB at
 # 2,048 rows) and the changed flag a ``__syncthreads_or``.  Above, a
 # cooperative launch clamped to the co-resident grid runs the same rounds
@@ -798,10 +807,11 @@ def mutual_collapse(deps):
 # resolve; there is no memset and no host read; the rounds run land in a
 # device int.
 
-# the one-CTA affine loop's gate, at the crossover chip_smoke.py measures
-# (both forms on the same resolves): one CTA was faster at 1,024 and 2,048
+# the one-CTA gate of the one-launch kernels (the prologue, the mutual
+# collapse and the affine loop), at the crossover chip_smoke.py measures
+# (both forms on the same calls): one CTA was faster at 1,024 and 2,048
 # rows, the cooperative form (more SMs) at mode general's 4,096-row window
-AFFINE_CTA_ROWS = 2048
+CTA_ROWS = 2048
 # threads a block of the cooperative launches (a multiple of 32)
 LOOP_BLOCK = 512
 
@@ -927,7 +937,7 @@ def affine_loop(tgt, add, missing, leader, member_count, max_iters):
     block = _loop_block(batch)
     # the working tgt/add/floor, then (cooperative) the six columns and the
     # three changed slots
-    cta = batch <= AFFINE_CTA_ROWS
+    cta = batch <= CTA_ROWS
     scratch = _i32(3 * batch * width + (0 if cta else 6 * batch + 3), device)
     miss = _b(batch, device)
     resolved, stuck = _b(batch, device), _b(batch, device)
@@ -936,7 +946,7 @@ def affine_loop(tgt, add, missing, leader, member_count, max_iters):
     _launch(
         "gg_affine_loop", device, tgt, add, missing, leader, member_count, scratch,
         miss, resolved, rank, stuck, rounds, _round_total("affine_loop", device),
-        batch, width, max_iters, AFFINE_CTA_ROWS, block,
+        batch, width, max_iters, CTA_ROWS, block,
     )
     LAUNCHES["affine_loop"] += 1
     return resolved, rank, stuck, rounds

@@ -10,15 +10,13 @@ the machine:
 
 Either way the script exits with a code other than 0 before it asks
 ``nvidia-smi`` or builds a kernel, says why on standard error, and prints
-no result line.  Two collected items (ROADMAP.md Queue C).
+no result line.  One collected item (ROADMAP.md Queue C).
 """
 
 import shutil
 import subprocess
 import sys
 from pathlib import Path
-
-import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -30,19 +28,19 @@ runpy.run_path({script!r}, run_name="__main__")
 """
 
 
-@pytest.mark.parametrize("case", ["no_cuda", "lone_copy"])
-def test_chip_smoke_refuses_without_card_or_checkout(case, tmp_path):
-    if case == "no_cuda":
-        script, available, reason = ROOT / "chip_smoke.py", False, "no CUDA device"
-    else:
-        script = tmp_path / "chip_smoke.py"
-        shutil.copy(ROOT / "chip_smoke.py", script)
-        available, reason = True, "run it from a checkout"
-    out = subprocess.run(
-        [sys.executable, "-c", RUN.format(available=available, script=str(script))],
-        cwd=script.parent, capture_output=True, text=True, timeout=120,
+def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    cases = (
+        ("no_cuda", ROOT / "chip_smoke.py", False, "no CUDA device"),
+        ("lone_copy", lone, True, "run it from a checkout"),
     )
-    assert out.returncode not in (0, None), (out.returncode, out.stdout, out.stderr)
-    assert reason in out.stderr, out.stderr
-    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout, out.stdout
-    assert out.stdout.strip() == "", out.stdout
+    for case, script, available, reason in cases:
+        out = subprocess.run(
+            [sys.executable, "-c", RUN.format(available=available, script=str(script))],
+            cwd=script.parent, capture_output=True, text=True, timeout=120,
+        )
+        assert out.returncode not in (0, None), (case, out.returncode, out.stdout,
+                                                 out.stderr)
+        assert reason in out.stderr, (case, out.stderr)
+        assert out.stdout.strip() == "", (case, out.stdout)

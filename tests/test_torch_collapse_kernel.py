@@ -4,7 +4,7 @@ reference.
 
 The CUDA source runs on the CPU through the emulator
 (``csrc/emu/emulate.py``), behind the wrapper's own device test, in both
-forms: one CTA (up to ``COLLAPSE_CTA_ROWS`` rows) and, with the gate
+forms: one CTA (up to ``CTA_ROWS`` rows) and, with the gate
 lowered to 0, a cooperative launch (``LOOP_BLOCK`` lowered to 64, so at
 most 4 blocks of 64 threads on the emulated card cross a real grid
 barrier, rows walked grid-stride).  On numpy-seeded inputs — mutual pairs,
@@ -17,17 +17,15 @@ each call is one launch.  Then ``resolve_general`` on the emulated
 kernels (collapse, affine loop, sort) equals the reference's
 ``resolve_general`` field by field, its SCC leaders included.
 
-Two collected items, one a form (ROADMAP.md Queue C); reference calls
-run under ``jax_ref`` (tests/test_torch_device_loops.py).
+One collected item on purpose (ROADMAP.md Queue C); reference calls run
+under ``jax_ref`` (tests/test_torch_device_loops.py).
 """
 
 import numpy as np
-import pytest
 import torch
 
 import jax.numpy as jnp
 
-import chip_smoke
 from fantoch_tpu.ops import graph_resolve as ref
 from fantoch_tpu_torch.csrc.emu.emulate import emulated
 from fantoch_tpu_torch.ops import graph_plane_kernels as K
@@ -100,43 +98,38 @@ def _same(case, got, want):
         assert torch.equal(g, w), f"{case}: output {i} differs from the plain version"
 
 
-# the two launch forms: one CTA up to the gate, cooperative with it at 0
-FORMS = {"one_cta": None, "cooperative": 0}
-
-
-@pytest.mark.parametrize("form", list(FORMS))
-def test_mutual_collapse_kernel_matches_plain_and_reference(jax_ref, monkeypatch, form):
+def test_mutual_collapse_kernel_matches_plain_and_reference(jax_ref, monkeypatch):
     rng = np.random.default_rng(303)
     cases = list(_cases(rng))
     # the steps of the reference's min-label loop that change a leader
-    steps = {case: (chip_smoke.collapse_steps(torch, K, torch.tensor(d)),
+    steps = {case: (K.mutual_collapse_steps(torch.tensor(d)),
                     K.num_doubling_steps(len(d))) for case, d in cases}
     # the early stop and the full step count are both exercised
     assert any(c == 0 for c, _s in steps.values()), steps
     assert any(c == s for c, s in steps.values()), steps
     monkeypatch.setattr(K, "LOOP_BLOCK", 64)
-    if FORMS[form] is not None:
-        monkeypatch.setattr(K, "COLLAPSE_CTA_ROWS", FORMS[form])
     with emulated():
-        for case, deps in cases:
-            label = f"{form}, {case}"
-            t = torch.tensor(deps)
-            want = K.mutual_collapse_plain(t.clone())
-            before = K.LAUNCHES["mutual_collapse"]
-            got = K.mutual_collapse(t)
-            assert K.LAUNCHES["mutual_collapse"] == before + 1, label
-            _same(label, got, want)
-            assert torch.equal(t, torch.tensor(deps)), f"{label}: input changed"
-            # the whole resolution on the emulated kernels against the
-            # reference (every case takes the iterative path)
-            n = len(deps)
-            n_bad = int(((deps > np.arange(n)[:, None]) | (deps == MISSING)).sum())
-            assert n_bad, label
-            src, seq = dots(n, n)
-            mine = port.resolve_general(t, torch.tensor(src), torch.tensor(seq),
-                                        n_bad=n_bad)
-            theirs = ref.resolve_general(*(jnp.asarray(a) for a in (deps, src, seq)))
-            for name, g, w in zip(mine._fields, mine, theirs):
-                w = np.asarray(w)
-                assert g.numpy().dtype == w.dtype and np.array_equal(g.numpy(), w), (
-                    f"{label}: resolve_general field {name} differs from the reference")
+        for form, gate in (("one CTA", K.CTA_ROWS), ("cooperative", 0)):
+            monkeypatch.setattr(K, "CTA_ROWS", gate)
+            for case, deps in cases:
+                label = f"{form}, {case}"
+                t = torch.tensor(deps)
+                want = K.mutual_collapse_plain(t.clone())
+                before = K.LAUNCHES["mutual_collapse"]
+                got = K.mutual_collapse(t)
+                assert K.LAUNCHES["mutual_collapse"] == before + 1, label
+                _same(label, got, want)
+                assert torch.equal(t, torch.tensor(deps)), f"{label}: input changed"
+                # the whole resolution on the emulated kernels against the
+                # reference (every case takes the iterative path)
+                n = len(deps)
+                n_bad = int(((deps > np.arange(n)[:, None]) | (deps == MISSING)).sum())
+                assert n_bad, label
+                src, seq = dots(n, n)
+                mine = port.resolve_general(t, torch.tensor(src), torch.tensor(seq),
+                                            n_bad=n_bad)
+                theirs = ref.resolve_general(*(jnp.asarray(a) for a in (deps, src, seq)))
+                for name, g, w in zip(mine._fields, mine, theirs):
+                    w = np.asarray(w)
+                    assert g.numpy().dtype == w.dtype and np.array_equal(g.numpy(), w), (
+                        f"{label}: resolve_general field {name} differs from the reference")

@@ -14,7 +14,7 @@ equal.
 (b) The CUDA sources of both loops (``csrc/graph_general.cu`` §10-11) run
 on the CPU through the emulator (``csrc/emu/emulate.py``), behind the
 wrappers' own device test, against the plain versions: ``affine_loop`` as
-one CTA and, with ``AFFINE_CTA_ROWS`` lowered, as a cooperative launch;
+one CTA and, with ``CTA_ROWS`` lowered, as a cooperative launch;
 ``peel_stage`` (always cooperative) to its fixpoint, stopped by half, with
 no round at all, and over more rows than threads.  ``LOOP_BLOCK`` is
 lowered to 64 and the emulated card holds 4 blocks, so the cooperative
@@ -310,14 +310,14 @@ def _check_kernels(monkeypatch):
     affine = [
         # (case, deps, max_iters, cta_rows): one CTA of at most 256 threads,
         # or cooperative (4 blocks of 64 threads, rows walked grid-stride)
-        ("one CTA, permuted DAG", permuted_dag(rng, 256, 24), 40, K.AFFINE_CTA_ROWS),
-        ("one CTA, cycle-rich", cycle_rich(rng, 200), 40, K.AFFINE_CTA_ROWS),
-        ("one CTA, max_iters hit", long_chain(150), 2, K.AFFINE_CTA_ROWS),
+        ("one CTA, permuted DAG", permuted_dag(rng, 256, 24), 40, K.CTA_ROWS),
+        ("one CTA, cycle-rich", cycle_rich(rng, 200), 40, K.CTA_ROWS),
+        ("one CTA, max_iters hit", long_chain(150), 2, K.CTA_ROWS),
         ("cooperative, MISSING chains", missing_chains(rng, 300), 40, 0),
         ("cooperative, cycle-rich", cycle_rich(rng, 520), 44, 0),
         ("cooperative, max_iters hit", long_chain(300), 3, 0),
         ("one CTA, W = 6", widened(rng, permuted_dag(rng, 200, 20), 6), 40,
-         K.AFFINE_CTA_ROWS),
+         K.CTA_ROWS),
         ("cooperative, W = 3", widened(rng, missing_chains(rng, 260), 3), 40, 0),
     ]
     dag = _peel_inputs(permuted_dag(rng, 400, 40))
@@ -345,7 +345,7 @@ def _check_kernels(monkeypatch):
     stopped_by_half = 0
     with emulated():
         for case, deps, max_iters, cta_rows in affine:
-            monkeypatch.setattr(K, "AFFINE_CTA_ROWS", cta_rows)
+            monkeypatch.setattr(K, "CTA_ROWS", cta_rows)
             args = _affine_inputs(deps)
             saved = [a.clone() for a in args]
             want = K.affine_loop_plain(*args, max_iters)

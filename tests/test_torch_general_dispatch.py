@@ -16,14 +16,15 @@ also compacts.  Every dispatch — primary and stuck follow-up — must take
 the JAX plane's mode (``general``, or ``keyed`` when a compaction left no
 multi-key row) and give the same ``order``, ``newly``, ``stuck`` and
 ``leader``; emission, per-key order and the resident state must agree feed
-by feed.  Two collected items, one a form (ROADMAP.md Queue C): the
-kernels' one-CTA forms (the default gates) and, with every gate lowered to
-0 and ``LOOP_BLOCK`` to 64, their cooperative forms.  Reference calls run
+by feed.  Run twice: with the kernels' one-CTA forms (the default
+``CTA_ROWS``) and, with the gate lowered to 0 and ``LOOP_BLOCK`` to 64,
+their cooperative forms.
+
+One collected item on purpose (ROADMAP.md Queue C); reference calls run
 under ``jax_ref`` (tests/test_torch_device_loops.py).
 """
 
 import numpy as np
-import pytest
 import torch
 
 import fantoch_tpu.core as jcore
@@ -99,43 +100,44 @@ def _record(monkeypatch, log):
         monkeypatch.setattr(mod.DeviceGraphPlane, "_dispatch_raw", dispatch)
 
 
-@pytest.mark.parametrize("form", ["one_cta", "cooperative"])
-def test_general_dispatches_on_emulated_kernels_match_jax(jax_ref, monkeypatch, form):
+def test_general_dispatches_on_emulated_kernels_match_jax(jax_ref, monkeypatch):
     log = {"jax": [], "port": []}
     _record(monkeypatch, log)
     seen = {"stuck": 0, "compactions": 0, "general": 0}
     monkeypatch.setattr(K, "lex_sort", K.lex_sort_plain)
-    if form == "cooperative":
-        for name in ("PROLOGUE_CTA_ROWS", "COLLAPSE_CTA_ROWS", "AFFINE_CTA_ROWS"):
-            monkeypatch.setattr(K, name, 0)
-        monkeypatch.setattr(K, "LOOP_BLOCK", 64)
     with emulated():
-        ref = _Side(jcore, jbatched, jdeps, JKind)
-        mine = _Side(tcore, tbatched, tdeps, TKind, device="cpu")
-        for side in (ref, mine):
-            _shrink(side.graph._plane, WINDOW)
-        K.reset_launch_counts()
-        for i, feed in enumerate(feeds(17)):
-            case = f"{form}, feed {i}"
-            before = len(log["jax"])
-            assert mine.feed(feed) == ref.feed(feed), f"{case}: emission"
-            assert len(log["port"]) == len(log["jax"]) > before, case
-            for j in range(before, len(log["jax"])):
-                theirs, ours = log["jax"][j], log["port"][j]
-                assert ours[0] == theirs[0], (case, ours[0], theirs[0])
-                seen["general"] += ours[0] == "general"
-                for field, g, w in zip(("order", "newly", "stuck", "leader"),
-                                       ours[1:], theirs[1:]):
-                    assert g.dtype == w.dtype and np.array_equal(g, w), (
-                        f"{case}, dispatch {j}: {field} differs")
-                seen["stuck"] += int(ours[3].sum())
-            _compare_planes(case, ref, mine)
-        assert mine.order == ref.order, f"{form}: per-key order differs"
-        assert sum(len(set(v)) for v in mine.order.values()) > 0
-        seen["compactions"] += mine.graph._plane.stats["compactions"]
-        # every dispatch one prologue launch and one epilogue launch,
-        # every iterative resolve one collapse and one affine launch
-        dispatches = len(log["port"])
-        assert K.LAUNCHES["graph_prologue"] == dispatches == K.LAUNCHES["plane_epilogue"]
-        assert K.LAUNCHES["mutual_collapse"] == K.LAUNCHES["affine_loop"] > 0
+        for form, gate in (("one CTA", None), ("cooperative", 0)):
+            if gate is not None:
+                monkeypatch.setattr(K, "CTA_ROWS", gate)
+                monkeypatch.setattr(K, "LOOP_BLOCK", 64)
+            ref = _Side(jcore, jbatched, jdeps, JKind)
+            mine = _Side(tcore, tbatched, tdeps, TKind, device="cpu")
+            for side in (ref, mine):
+                _shrink(side.graph._plane, WINDOW)
+            for name in log:
+                log[name].clear()
+            K.reset_launch_counts()
+            for i, feed in enumerate(feeds(17)):
+                case = f"{form}, feed {i}"
+                before = len(log["jax"])
+                assert mine.feed(feed) == ref.feed(feed), f"{case}: emission"
+                assert len(log["port"]) == len(log["jax"]) > before, case
+                for j in range(before, len(log["jax"])):
+                    theirs, ours = log["jax"][j], log["port"][j]
+                    assert ours[0] == theirs[0], (case, ours[0], theirs[0])
+                    seen["general"] += ours[0] == "general"
+                    for field, g, w in zip(("order", "newly", "stuck", "leader"),
+                                           ours[1:], theirs[1:]):
+                        assert g.dtype == w.dtype and np.array_equal(g, w), (
+                            f"{case}, dispatch {j}: {field} differs")
+                    seen["stuck"] += int(ours[3].sum())
+                _compare_planes(case, ref, mine)
+            assert mine.order == ref.order, f"{form}: per-key order differs"
+            assert sum(len(set(v)) for v in mine.order.values()) > 0
+            seen["compactions"] += mine.graph._plane.stats["compactions"]
+            # every dispatch one prologue launch and one epilogue launch,
+            # every iterative resolve one collapse and one affine launch
+            dispatches = len(log["port"])
+            assert K.LAUNCHES["graph_prologue"] == dispatches == K.LAUNCHES["plane_epilogue"]
+            assert K.LAUNCHES["mutual_collapse"] == K.LAUNCHES["affine_loop"] > 0
     assert all(seen.values()), seen

@@ -1,30 +1,31 @@
-"""The general prologue as one launch a dispatch: ``K.graph_prologue(...,
-general=True)`` (``csrc/graph_general.cu`` §13) against its plain version
-and the JAX reference's ``graph_plane_step_core`` in mode ``general``.
+"""The prologue as one launch a dispatch: ``K.graph_prologue``
+(``csrc/graph_general.cu`` §13) in modes general and keyed against its
+plain version, and in mode general against the JAX reference's
+``graph_plane_step_core``.
 
 The CUDA source runs on the CPU through the emulator
 (``csrc/emu/emulate.py``), behind the wrapper's own device test, in both
-forms: one CTA (up to ``PROLOGUE_CTA_ROWS`` rows) and, with the gate
-lowered to 0, a cooperative launch (``LOOP_BLOCK`` lowered to 64: at most
-4 blocks of 64 threads on the emulated card, cells walked grid-stride).
+forms: one CTA (up to ``CTA_ROWS`` rows) and, with the gate lowered to 0,
+a cooperative launch (``LOOP_BLOCK`` lowered to 64: at most 4 blocks of 64
+threads on the emulated card, cells and rows walked grid-stride).
 Each run feeds a fresh window numpy-seeded multi-key commands in shuffled
 order, so a feed installs rows whose dependencies are not installed yet
 (MISSING cells), patches cells of rows installed earlier and of rows it
 installs itself, and marks rows executed, some of them installed by the
-same feed.  Per dispatch: the prologue equals ``graph_prologue_plain``
-exactly (the folded matrix, the bad-cell count and the state it updates
-in place), the folded matrix and the count equal a numpy fold of the
-reference's lines, and the whole port step on the emulated kernels equals
+same feed.  Per dispatch, in each mode: the prologue equals
+``graph_prologue_plain`` exactly (the folded matrix and the bad-cell
+count, or the keyed column and run keys, and the state it updates in
+place), and they equal a numpy fold and compression of the reference's
+lines; then the whole general port step on the emulated kernels equals
 the reference's (every ``GraphPlaneStep`` field, the state included).
 Windows of 150 x 4 (not a power of two) and 256 x 8; some dispatches take
 ``resolve_general``'s fast path (count 0), most do not.
 
-Two collected items, one a form (ROADMAP.md Queue C); reference calls
-run under ``jax_ref`` (tests/test_torch_device_loops.py).
+One collected item on purpose (ROADMAP.md Queue C); reference calls run
+under ``jax_ref`` (tests/test_torch_device_loops.py).
 """
 
 import numpy as np
-import pytest
 import torch
 
 import jax.numpy as jnp
@@ -79,7 +80,7 @@ def feeds(seed, cap, width, n_feeds, n_keys):
         batch = arrival[lo:hi]
         u_row = np.full(ucap, cap, np.int32)
         u_deps = np.full((ucap, width), TERMINAL, np.int32)
-        u_key = np.full(ucap, -1, np.int32)
+        u_key = np.full(ucap, -1, np.int32)  # a command's first key
         u_src = np.zeros(ucap, np.int32)
         u_seq = np.zeros(ucap, np.int32)
         patches = []
@@ -87,6 +88,7 @@ def feeds(seed, cap, width, n_feeds, n_keys):
             slot = c  # a slot a command, in index order
             slot_of[c] = slot
             u_row[j], u_src[j], u_seq[j] = slot, 1 + c % 5, c + 1
+            u_key[j] = keys[c, 0]
             for w, d in enumerate(deps[c]):
                 if d in slot_of:
                     u_deps[j, w] = slot_of[d]
@@ -123,6 +125,21 @@ def numpy_fold(state):
     return dmat, int(((dmat > idx) | (dmat == MISSING)).sum())
 
 
+def numpy_keyed(state, dmat):
+    """The reference's keyed compression of the folded matrix
+    (graph_resolve.py:949-962), in numpy: the first live cell of a row,
+    else MISSING if any, else TERMINAL; the run key, or the private pad
+    key of a slot that is not pending."""
+    _deps, key, _src, _seq, occ, executed = state
+    cap = dmat.shape[0]
+    live = dmat >= 0
+    col = dmat[np.arange(cap), live.argmax(axis=1)]
+    col = np.where(live.any(axis=1), col,
+                   np.where((dmat == MISSING).any(axis=1), MISSING, TERMINAL))
+    pk = np.where(occ & ~executed, key, np.iinfo(np.int32).max - np.arange(cap))
+    return col.astype(np.int32), pk.astype(np.int32)
+
+
 def install_patch_mark(state, feed):
     """The state after the reference's lines (1)-(3), in numpy."""
     deps, key, src, seq, occ, executed = (a.copy() for a in state)
@@ -139,54 +156,56 @@ def install_patch_mark(state, feed):
     return deps, key, src, seq, occ, executed
 
 
-# the two launch forms: one CTA up to the gate, cooperative with it at 0
-FORMS = {"one_cta": None, "cooperative": 0}
-
-
-@pytest.mark.parametrize("form", list(FORMS))
-def test_general_prologue_kernel_matches_plain_and_reference(jax_ref, monkeypatch, form):
+def test_general_prologue_kernel_matches_plain_and_reference(jax_ref, monkeypatch):
     monkeypatch.setattr(K, "LOOP_BLOCK", 64)
-    if FORMS[form] is not None:
-        monkeypatch.setattr(K, "PROLOGUE_CTA_ROWS", FORMS[form])
     seen = {"fast": 0, "iterative": 0, "patched own rows": 0}
     with emulated():
-        for cap, width, n_keys in ((150, 4, 40), (256, 8, 96)):
-            state = fresh(cap, width)
-            mine = [torch.tensor(a) for a in state]
-            for i, feed in enumerate(feeds(cap + width, cap, width, 5, n_keys)):
-                label = f"{form}, {cap} x {width}, feed {i}"
-                feed, own = feed[:-1], feed[-1]
-                seen["patched own rows"] += own
-                tf = [torch.tensor(a) for a in feed]
-                # the prologue alone, on clones of the port's state
-                a = [t.clone() for t in mine]
-                b = [t.clone() for t in mine]
-                before = K.LAUNCHES["graph_prologue"]
-                got = K.graph_prologue(*a, *tf, general=True)
-                assert K.LAUNCHES["graph_prologue"] == before + 1, label
-                want = K.graph_prologue_plain(*b, *tf, general=True)
-                for j, (g, w) in enumerate(zip([*got, *a], [*want, *b])):
-                    assert g.dtype == w.dtype and torch.equal(g, w), (
-                        f"{label}: output {j} differs from the plain version")
-                after = install_patch_mark(state, feed)
-                dmat, n_bad = numpy_fold(after)
-                assert np.array_equal(got[0].numpy(), dmat), f"{label}: fold"
-                assert int(got[1][0]) == n_bad, (label, int(got[1][0]), n_bad)
-                seen["fast" if n_bad == 0 else "iterative"] += 1
-                # the whole step on the emulated kernels against the
-                # reference's graph_plane_step_core (compiled)
-                out = port.graph_plane_step_core(*mine, *tf, mode="general")
-                theirs = ref.resolve_graph_plane_step_xla(
-                    *(jnp.array(x) for x in state), *(jnp.asarray(x) for x in feed),
-                    mode="general")
-                for name, g, w in zip(out._fields, out, theirs):
-                    w = np.asarray(w)
-                    assert g.numpy().dtype == w.dtype and np.array_equal(g.numpy(), w), (
-                        f"{label}: step field {name} differs from the reference")
-                for j, (g, w) in enumerate(zip(out[:6], after)):
-                    if j == 5:  # the step also executes what it resolved
-                        w = w | out.newly.numpy()
-                    assert np.array_equal(g.numpy(), w), (label, j)
-                state = [np.asarray(x) for x in theirs[:6]]
-                mine = list(out[:6])
+        for form, gate in (("one CTA", K.CTA_ROWS), ("cooperative", 0)):
+            monkeypatch.setattr(K, "CTA_ROWS", gate)
+            for cap, width, n_keys in ((150, 4, 40), (256, 8, 96)):
+                state = fresh(cap, width)
+                mine = [torch.tensor(a) for a in state]
+                for i, feed in enumerate(feeds(cap + width, cap, width, 5, n_keys)):
+                    label = f"{form}, {cap} x {width}, feed {i}"
+                    feed, own = feed[:-1], feed[-1]
+                    seen["patched own rows"] += own
+                    tf = [torch.tensor(a) for a in feed]
+                    # the prologue alone in each mode, on clones of the
+                    # port's state
+                    got = {}
+                    for general in (True, False):
+                        a = [t.clone() for t in mine]
+                        b = [t.clone() for t in mine]
+                        before = K.LAUNCHES["graph_prologue"]
+                        got[general] = K.graph_prologue(*a, *tf, general=general)
+                        assert K.LAUNCHES["graph_prologue"] == before + 1, label
+                        want = K.graph_prologue_plain(*b, *tf, general=general)
+                        for j, (g, w) in enumerate(zip([*got[general], *a], [*want, *b])):
+                            assert g.dtype == w.dtype and torch.equal(g, w), (
+                                f"{label}, general={general}: output {j} differs "
+                                "from the plain version")
+                    after = install_patch_mark(state, feed)
+                    dmat, n_bad = numpy_fold(after)
+                    assert np.array_equal(got[True][0].numpy(), dmat), f"{label}: fold"
+                    assert int(got[True][1][0]) == n_bad, (label, int(got[True][1][0]), n_bad)
+                    for j, w in enumerate(numpy_keyed(after, dmat)):
+                        assert np.array_equal(got[False][j].numpy(), w), (
+                            f"{label}: keyed output {j}")
+                    seen["fast" if n_bad == 0 else "iterative"] += 1
+                    # the whole step on the emulated kernels against the
+                    # reference's graph_plane_step_core (compiled)
+                    out = port.graph_plane_step_core(*mine, *tf, mode="general")
+                    theirs = ref.resolve_graph_plane_step_xla(
+                        *(jnp.array(x) for x in state), *(jnp.asarray(x) for x in feed),
+                        mode="general")
+                    for name, g, w in zip(out._fields, out, theirs):
+                        w = np.asarray(w)
+                        assert g.numpy().dtype == w.dtype and np.array_equal(g.numpy(), w), (
+                            f"{label}: step field {name} differs from the reference")
+                    for j, (g, w) in enumerate(zip(out[:6], after)):
+                        if j == 5:  # the step also executes what it resolved
+                            w = w | out.newly.numpy()
+                        assert np.array_equal(g.numpy(), w), (label, j)
+                    state = [np.asarray(x) for x in theirs[:6]]
+                    mine = list(out[:6])
     assert all(seen.values()), seen
