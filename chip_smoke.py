@@ -68,9 +68,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    for ``mutual_collapse`` and the prologue, one a wrapper and the read of
    the fast-path count for the dispatch; ``mutual_collapse`` also at 4,096
    x 4 and 2^16 x 4, the prologue in modes general and keyed at 4,096 and
-   2^20 slots, both forms (one CTA, cooperative) of both over 256-4,096
-   rows (single, loop and on the card), and an empty kernel's launch, the
-   one-launch floor;
+   2^20 slots, both forms of ``mutual_collapse`` (one CTA, cooperative)
+   over 256-4,096 rows (single, loop and on the card), and an empty
+   kernel's launch, the one-launch floor;
 5. the votes-table kernels (``csrc/table_plane.cu``) against their plain
    versions on the card, exactly, flags and counts included, each timed
    beside its plain version, its byte bound and the one PyTorch call that
@@ -1355,42 +1355,54 @@ def phase4(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
 CHAIN_SWEEP = (256, 512, 1024, 2048, 4096)  # rows of the one-launch forms' sweep
 
 
+SEPARATOR = "spin_kernel"  # torch.cuda._sleep's kernel, launched by nothing else here
+PROFILE_TRIES = 3
+
+
 def device_ops(torch, calls):
     """The operations on the card (kernels, memsets, copies) of each call
     ``(fn, args, kwargs)`` on clones of its arguments, by
     ``torch.profiler``: one session over all of them, each call warmed
-    before it (library load, grid and limit queries), run inside its own
-    ``record_function`` range and synchronized before the range ends; an
-    operation belongs to the range that holds its start.  Returns, a call,
-    the names and the summed time on the card (ms) of its operations."""
+    before it (library load, grid and limit queries), with a separator
+    kernel (``torch.cuda._sleep``) on the same stream before the first call
+    and after each.  The card's events, in the order the card ran them,
+    are split at the separators, so no event is matched to a call by the
+    host's clock.  A session that does not show exactly one separator more
+    than there are calls lost events and is run again (at most
+    ``PROFILE_TRIES`` sessions).  Returns, a call, the names and the summed
+    time on the card (ms) of its operations."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     runs = []
     for fn, args, kwargs in calls:
         fn(*clone_args(args), **kwargs)
         runs.append(clone_args(args))
     torch.cuda.synchronize()
-    labels = [f"chip_smoke_call_{i}" for i in range(len(calls))]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for label, (fn, _args, kwargs), run in zip(labels, calls, runs):
-            with record_function(label):
+    for _try in range(PROFILE_TRIES):
+        fresh = [clone_args(run) for run in runs]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for (fn, _args, kwargs), run in zip(calls, fresh):
                 fn(*run, **kwargs)
-                torch.cuda.synchronize()
-            time.sleep(0.002)
-    events = prof.events()
-    ranges = {e.name: e.time_range for e in events
-              if e.name in labels and e.device_type == DeviceType.CPU}
-    out = [([], 0.0) for _ in calls]
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if sum(SEPARATOR in e.name for e in events) == len(calls) + 1:
+            break
+    else:
+        raise AssertionError(f"torch.profiler lost events in {PROFILE_TRIES} sessions")
+    out, current = [], None
     for e in events:
-        if e.device_type != DeviceType.CUDA or e.name in labels:
-            continue  # the ranges' own annotations on the card
-        for i, label in enumerate(labels):
-            span = ranges[label]
-            if span.start <= e.time_range.start <= span.end:
-                names, us = out[i]
-                names.append(e.name)
-                out[i] = (names, us + e.time_range.end - e.time_range.start)
+        if SEPARATOR in e.name:
+            if current is not None:
+                out.append(current)
+            current = ([], 0.0)
+        elif current is not None:
+            names, us = current
+            current = (names + [e.name], us + e.time_range.end - e.time_range.start)
     return [(names, us / 1e3) for names, us in out]
 
 
@@ -1522,9 +1534,8 @@ def phase_chain(torch, K, gp_module, one_launch=True):
     dispatch too.  Then ``mutual_collapse`` at 4,096 x 4 (mode general's
     window) and 2^16 x 4 (cooperative) on a permuted and a cycle-rich
     window, ``graph_prologue`` in modes general and keyed at 4,096 and 2^20
-    slots, both one-launch wrappers in both forms over 256-4,096 rows (the
-    prologue in both modes), and an empty
-    kernel's launch: the floor of a one-launch kernel.  With ``one_launch``
+    slots, ``mutual_collapse`` in both forms over 256-4,096 rows, and an
+    empty kernel's launch: the floor of a one-launch kernel.  With ``one_launch``
     (the whole smoke; not on an older checkout) every ``mutual_collapse``
     and prologue call must be one operation on the card, and a dispatch one
     kernel a wrapper and the one read of the fast-path count."""
@@ -1596,7 +1607,7 @@ def phase_chain(torch, K, gp_module, one_launch=True):
             kernels = [n for n in names if not n.startswith("Memcpy")]
             assert len(kernels) == len(chain) - 1, (label, names)  # a kernel a wrapper
             assert chain["dispatch"]["device_ops"] == len(kernels) + 1, (label, names)
-    # both forms of each one-launch wrapper over the sweep's rows
+    # both forms of the mutual collapse over the sweep's rows
     for rows in CHAIN_SWEEP:
         perm = np.random.default_rng(rows).permutation(rows)
         for kind, deps in (("permuted", general_workload(rows)[1][perm]),
@@ -1606,13 +1617,6 @@ def phase_chain(torch, K, gp_module, one_launch=True):
                                      collapse_smem(rows, GENERAL_WIDTH), on_card=True)
             if forms:
                 out["forms"][f"mutual_collapse, {rows} x 4, {kind}"] = forms
-        for general in (True, False):
-            forms = one_launch_forms(K, "graph_prologue", "CTA_ROWS",
-                                     prologue_inputs(torch, rows, GENERAL_WIDTH, rows),
-                                     {"general": general}, 4, on_card=True)
-            if forms:
-                mode = "general" if general else "keyed"
-                out["forms"][f"graph_prologue, {mode}, {rows} x 4"] = forms
     forms_on_card(torch, out["forms"])
     log(json.dumps({"general_chain": out}))
     return out

@@ -983,25 +983,28 @@ extern "C" int gg_peel_compact(const int32_t* tgt, const int32_t* floor,
 //
 // Install the feed's rows, patch the MISSING cells whose dots committed,
 // mark the host oracle's executed rows, then fold deps on executed slots to
-// TERMINAL and mask non-pending rows.  Three phases with a barrier between
-// them, in the reference's order: a patch or a mark follows the install of
-// its row, and the fold, which reads executed[dep] of any row, follows
-// every mark.  Installs and the general fold walk cells one a thread
-// (grid-stride; one CTA: block-stride), so their reads and writes are
-// coalesced.  The third phase by mode:
+// TERMINAL and mask non-pending rows.  One cooperative launch (the grid
+// clamped to the co-resident one), three phases with a grid barrier
+// between them, in the reference's order: a patch or a mark follows the
+// install of its row, and the fold, which reads executed[dep] of any row,
+// follows every mark.  Installs and the general fold walk cells one a
+// thread, grid-stride, so their reads and writes are coalesced.  There is
+// no one-CTA form: on an H100 80GB HBM3 (700 W), chip_smoke.py's phase 4b
+// found one CTA level with this launch on the card up to 512 slots and
+// behind it from 1,024 in mode general, and at most 0.0017 ms ahead in mode
+// keyed, in calls that take 0.04-0.06 ms on the host.  The third
+// phase by mode:
 //   general (out0 = dmat, out1 = n_bad): the folded, masked matrix and the
 //     count of cells that bar resolve_general's backward-only fast path once
 //     self-dependencies are pruned (a forward dependency or a MISSING one):
-//     a warp sum, a shared-memory sum a block, stored once (one CTA) or one
-//     atomicAdd a block into n_bad, which block 0 zeroes in the first phase
-//     (cooperative);
+//     a warp sum, a shared-memory sum a block, and one atomicAdd a block
+//     into n_bad, which block 0 zeroes in the first phase;
 //   keyed (out0 = col, out1 = pk): a row a thread, the first live folded
 //     dependency (else MISSING if any, else TERMINAL) and the run key
 //     (pending rows keep their key, the others the private pad key
 //     INT_MAX - row).
 // No memset: every output is written by the launch.
 
-template <bool COOP>
 __device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t* seq,
                               uint8_t* occ, uint8_t* executed, const int32_t* u_row,
                               const int32_t* u_deps, const int32_t* u_key,
@@ -1012,7 +1015,7 @@ __device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t
                               int E, int general) {
   if (general && threadIdx.x == 0) {
     sum[0] = 0;
-    if (COOP && blockIdx.x == 0) out1[0] = 0;
+    if (blockIdx.x == 0) out1[0] = 0;
   }
   FOR_ROWS(j, (long)U * W) {  // install, a cell a thread; pad rows dropped
     long i = j / W;
@@ -1028,7 +1031,7 @@ __device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t
       executed[r] = 0;
     }
   }
-  loop_sync<COOP>();
+  cg::this_grid().sync();
   FOR_ROWS(j, (long)P + E) {  // patches and marks (different arrays)
     if (j < P) {
       int r = p_row[j], c = p_col[j];
@@ -1038,7 +1041,7 @@ __device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t
       if (r >= 0 && r < cap) executed[r] = 1;
     }
   }
-  loop_sync<COOP>();
+  cg::this_grid().sync();
   if (!general) {
     FOR_ROWS(r, cap) {  // keyed fold and compression, a row a thread
       bool pending = occ[r] && !executed[r];
@@ -1070,12 +1073,7 @@ __device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t
   bad = __reduce_add_sync(0xffffffffu, bad);
   if ((threadIdx.x & 31) == 0 && bad) atomicAdd(sum, bad);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    if (!COOP)
-      out1[0] = sum[0];
-    else if (sum[0])
-      atomicAdd(out1, sum[0]);
-  }
+  if (threadIdx.x == 0 && sum[0]) atomicAdd(out1, sum[0]);
 }
 
 #define PROLOGUE_ARGS                                                                  \
@@ -1086,43 +1084,27 @@ __device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t
       const int32_t *e_row, int32_t *out0, int32_t *out1, int cap, int W, int U, int P, \
       int E, int general
 
-__global__ void k_prologue_cta(PROLOGUE_ARGS) {
-  extern __shared__ int32_t pro_cta_smem[];  // the block's bad-cell sum
-  prologue_body<false>(deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src,
-                       u_seq, p_row, p_col, p_val, e_row, out0, out1, pro_cta_smem, cap,
-                       W, U, P, E, general);
+__global__ void k_prologue(PROLOGUE_ARGS) {
+  extern __shared__ int32_t pro_smem[];  // the block's bad-cell sum
+  prologue_body(deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq,
+                p_row, p_col, p_val, e_row, out0, out1, pro_smem, cap, W, U, P, E, general);
 }
 
-__global__ void k_prologue_coop(PROLOGUE_ARGS) {
-  extern __shared__ int32_t pro_coop_smem[];  // the block's bad-cell sum
-  prologue_body<true>(deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src,
-                      u_seq, p_row, p_col, p_val, e_row, out0, out1, pro_coop_smem, cap,
-                      W, U, P, E, general);
-}
-
-// cap <= cta_rows: one CTA of up to LOOP_CTA threads; above, a cooperative
-// launch of `block`-thread blocks, as many as the largest phase needs up to
-// the co-resident grid
-extern "C" int gg_prologue(PROLOGUE_ARGS, int cta_rows, int block, cudaStream_t stream) {
+// a cooperative launch of `block`-thread blocks, as many as the largest
+// phase needs up to the co-resident grid
+extern "C" int gg_prologue(PROLOGUE_ARGS, int block, cudaStream_t stream) {
   size_t smem = sizeof(int32_t);
-  if (cap <= cta_rows) {
-    k_prologue_cta<<<1, cta_threads(cap), smem, stream>>>(
-        deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq, p_row,
-        p_col, p_val, e_row, out0, out1, cap, W, U, P, E, general);
-    CHECK_LAUNCH();
-    return 0;
-  }
   long most = general ? (long)cap * W : cap;
   if ((long)U * W > most) most = (long)U * W;
   if ((long)P + E > most) most = (long)P + E;
   int grid = 0;
-  int e = coop_grid(k_prologue_coop, block, smem, (most + block - 1) / block, &grid);
+  int e = coop_grid(k_prologue, block, smem, (most + block - 1) / block, &grid);
   if (e) return e;
   void* args[] = {&deps,  &key,   &src,   &seq, &occ,   &executed, &u_row, &u_deps,
                   &u_key, &u_src, &u_seq, &p_row, &p_col, &p_val,  &e_row, &out0,
                   &out1,  &cap,   &W,     &U,   &P,     &E,        &general};
-  CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_prologue_coop, dim3(grid),
-                                         dim3(block), args, smem, stream));
+  CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_prologue, dim3(grid), dim3(block),
+                                         args, smem, stream));
   return (int)cudaGetLastError();
 }
 

@@ -101,7 +101,7 @@ _SIGNATURES = {
     "gp_pointer_doubling": ("graph_plane_step", "p" * 7 + "ii"),
     "gp_emit_scatter": ("graph_plane_step", "p" * 8 + "iii"),
     "gp_epilogue": ("graph_plane_step", "p" * 5 + "i"),
-    "gg_prologue": ("graph_general", "p" * 17 + "i" * 8),
+    "gg_prologue": ("graph_general", "p" * 17 + "i" * 7),
     "gg_mutual_collapse": ("graph_general", "p" * 7 + "i" * 5),
     "gg_affine_loop": ("graph_general", "p" * 12 + "i" * 5),
     "gg_peel_stage": ("graph_general", "p" * 14 + "i" * 5),
@@ -199,14 +199,14 @@ def _b(n: int, device) -> torch.Tensor:
 # marks, then the per-row fold that reads ``executed`` of the dep targets
 # once every mark has landed (the reference's order when a dispatch patches
 # or marks a row it also installs).  Design (``csrc/graph_general.cu``
-# §13): one launch a dispatch in every mode, the three steps as three
-# phases with a barrier between them, installs and the general fold a cell
-# a thread, the keyed fold and compression a row a thread: one CTA up to
-# ``CTA_ROWS`` rows, a cooperative launch (grid barriers) above.  The
+# §13): one cooperative launch a dispatch in every mode, the three steps as
+# three phases with a grid barrier between them, installs and the general
+# fold a cell a thread, the keyed fold and compression a row a thread.  The
 # general count of cells that bar ``resolve_general``'s fast path is a warp
-# sum and a shared-memory sum a block, stored once (one CTA) or added once
-# a block (cooperative) into the device int the host reads once per
-# dispatch; no zero-fill launch.
+# sum and a shared-memory sum a block, added once a block into the device
+# int the host reads once per dispatch; no zero-fill launch.  No one-CTA
+# form: chip_smoke.py measured none ahead on the card at the sims' windows
+# (the source's §13 has the numbers).
 
 
 def graph_prologue_plain(
@@ -291,7 +291,7 @@ def graph_prologue(
     else:  # the keyed column and the run keys
         out = (_i32(cap, deps.device), _i32(cap, deps.device))
     _launch("gg_prologue", deps.device, *state, *out, cap, width, U, P, E, int(general),
-            CTA_ROWS, _loop_block(cap))
+            _loop_block(cap))
     LAUNCHES["graph_prologue"] += 1
     return out
 
@@ -807,10 +807,10 @@ def mutual_collapse(deps):
 # resolve; there is no memset and no host read; the rounds run land in a
 # device int.
 
-# the one-CTA gate of the one-launch kernels (the prologue, the mutual
-# collapse and the affine loop), at the crossover chip_smoke.py measures
-# (both forms on the same calls): one CTA was faster at 1,024 and 2,048
-# rows, the cooperative form (more SMs) at mode general's 4,096-row window
+# the one-CTA gate of the mutual collapse and the affine loop, at the
+# crossover chip_smoke.py measures (both forms on the same calls): one CTA
+# was faster at 1,024 and 2,048 rows, the cooperative form (more SMs) at
+# mode general's 4,096-row window
 CTA_ROWS = 2048
 # threads a block of the cooperative launches (a multiple of 32)
 LOOP_BLOCK = 512

@@ -16,9 +16,10 @@ also compacts.  Every dispatch — primary and stuck follow-up — must take
 the JAX plane's mode (``general``, or ``keyed`` when a compaction left no
 multi-key row) and give the same ``order``, ``newly``, ``stuck`` and
 ``leader``; emission, per-key order and the resident state must agree feed
-by feed.  Run twice: with the kernels' one-CTA forms (the default
-``CTA_ROWS``) and, with the gate lowered to 0 and ``LOOP_BLOCK`` to 64,
-their cooperative forms.
+by feed.  Run twice: with the collapse's and the affine loop's one-CTA
+forms (the default ``CTA_ROWS``) and, with the gate lowered to 0 and
+``LOOP_BLOCK`` to 64, their cooperative forms (the prologue is always
+cooperative).
 
 One collected item on purpose (ROADMAP.md Queue C); reference calls run
 under ``jax_ref`` (tests/test_torch_device_loops.py).

@@ -4,10 +4,11 @@ plain version, and in mode general against the JAX reference's
 ``graph_plane_step_core``.
 
 The CUDA source runs on the CPU through the emulator
-(``csrc/emu/emulate.py``), behind the wrapper's own device test, in both
-forms: one CTA (up to ``CTA_ROWS`` rows) and, with the gate lowered to 0,
-a cooperative launch (``LOOP_BLOCK`` lowered to 64: at most 4 blocks of 64
-threads on the emulated card, cells and rows walked grid-stride).
+(``csrc/emu/emulate.py``), behind the wrapper's own device test, as the
+cooperative launch it is, in two grid shapes: blocks of up to
+``LOOP_BLOCK`` = 512 threads, and with ``LOOP_BLOCK`` lowered to 64 (at
+most 4 blocks of 64 threads on the emulated card, cells and rows walked
+grid-stride, several a thread).
 Each run feeds a fresh window numpy-seeded multi-key commands in shuffled
 order, so a feed installs rows whose dependencies are not installed yet
 (MISSING cells), patches cells of rows installed earlier and of rows it
@@ -157,11 +158,10 @@ def install_patch_mark(state, feed):
 
 
 def test_general_prologue_kernel_matches_plain_and_reference(jax_ref, monkeypatch):
-    monkeypatch.setattr(K, "LOOP_BLOCK", 64)
     seen = {"fast": 0, "iterative": 0, "patched own rows": 0}
     with emulated():
-        for form, gate in (("one CTA", K.CTA_ROWS), ("cooperative", 0)):
-            monkeypatch.setattr(K, "CTA_ROWS", gate)
+        for form, block in (("blocks of 512", K.LOOP_BLOCK), ("blocks of 64", 64)):
+            monkeypatch.setattr(K, "LOOP_BLOCK", block)
             for cap, width, n_keys in ((150, 4, 40), (256, 8, 96)):
                 state = fresh(cap, width)
                 mine = [torch.tensor(a) for a in state]
