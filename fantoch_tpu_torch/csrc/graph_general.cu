@@ -978,133 +978,179 @@ extern "C" int gg_peel_compact(const int32_t* tgt, const int32_t* floor,
 }
 
 // ---------------------------------------------------------------------------
-// 13. prologue (graph_resolve.py:927-946), one launch a dispatch, every mode
+// 13. prologue (graph_resolve.py:927-946), every mode
 // ---------------------------------------------------------------------------
 //
 // Install the feed's rows, patch the MISSING cells whose dots committed,
 // mark the host oracle's executed rows, then fold deps on executed slots to
-// TERMINAL and mask non-pending rows.  One cooperative launch (the grid
-// clamped to the co-resident one), three phases with a grid barrier
-// between them, in the reference's order: a patch or a mark follows the
-// install of its row, and the fold, which reads executed[dep] of any row,
-// follows every mark.  Installs and the general fold walk cells one a
-// thread, grid-stride, so their reads and writes are coalesced.  There is
-// no one-CTA form: on an H100 80GB HBM3 (700 W), chip_smoke.py's phase 4b
-// found one CTA level with this launch on the card up to 512 slots and
-// behind it from 1,024 in mode general, and at most 0.0017 ms ahead in mode
-// keyed, in calls that take 0.04-0.06 ms on the host.  The third
-// phase by mode:
-//   general (out0 = dmat, out1 = n_bad): the folded, masked matrix and the
-//     count of cells that bar resolve_general's backward-only fast path once
+// TERMINAL and mask non-pending rows, in the reference's order: a patch or
+// a mark follows the install of its row, and the fold, which reads
+// executed[dep] of any row, follows every mark.  Each step is one
+// __device__ function over its items (cells, patches and marks, rows or
+// cells of the fold), walked grid-stride, so both modes share the install,
+// patch and mark rules (pad rows and out-of-range cells dropped):
+//   general (out0 = dmat, out1 = n_bad): one cooperative launch a dispatch
+//     (the grid clamped to the co-resident one), the steps split by grid
+//     barriers; the fold and mask a cell a thread, with the count of cells
+//     that bar resolve_general's backward-only fast path once
 //     self-dependencies are pruned (a forward dependency or a MISSING one):
 //     a warp sum, a shared-memory sum a block, and one atomicAdd a block
-//     into n_bad, which block 0 zeroes in the first phase;
-//   keyed (out0 = col, out1 = pk): a row a thread, the first live folded
-//     dependency (else MISSING if any, else TERMINAL) and the run key
-//     (pending rows keep their key, the others the private pad key
-//     INT_MAX - row).
-// No memset: every output is written by the launch.
+//     into n_bad, which block 0 zeroes in the first phase.  No one-CTA
+//     form: on an H100 80GB HBM3 (700 W), chip_smoke.py's phase 4b found one
+//     CTA level with it on the card up to 512 slots and behind from 1,024.
+//   keyed (out0 = col, out1 = pk): three launches, one a step; the fold a
+//     row a thread: the first live folded dependency (else MISSING if any,
+//     else TERMINAL) and the run key (pending rows keep their key, the
+//     others the private pad key INT_MAX - row).  As one cooperative launch
+//     it took 0.0396 ms on the card at 2^20 slots against these launches'
+//     0.0312 (same card, phase 4b): its two grid barriers cost more than
+//     the two launch gaps at the keyed path's window.
+// No memset: every output is written by the launches.
 
-__device__ void prologue_body(int32_t* deps, int32_t* key, int32_t* src, int32_t* seq,
-                              uint8_t* occ, uint8_t* executed, const int32_t* u_row,
-                              const int32_t* u_deps, const int32_t* u_key,
-                              const int32_t* u_src, const int32_t* u_seq,
-                              const int32_t* p_row, const int32_t* p_col,
-                              const int32_t* p_val, const int32_t* e_row, int32_t* out0,
-                              int32_t* out1, int32_t* sum, int cap, int W, int U, int P,
-                              int E, int general) {
-  if (general && threadIdx.x == 0) {
-    sum[0] = 0;
-    if (blockIdx.x == 0) out1[0] = 0;
+// cell j of the feed's U x W install rows
+__device__ __forceinline__ void install_cell(long j, int32_t* deps, int32_t* key,
+                                             int32_t* src, int32_t* seq, uint8_t* occ,
+                                             uint8_t* executed, const int32_t* u_row,
+                                             const int32_t* u_deps, const int32_t* u_key,
+                                             const int32_t* u_src, const int32_t* u_seq,
+                                             int cap, int W) {
+  long i = j / W;
+  int r = u_row[i];
+  if (r < 0 || r >= cap) return;  // a pad row
+  long w = j - i * W;
+  deps[(long)r * W + w] = u_deps[j];
+  if (w == 0) {
+    key[r] = u_key[i];
+    src[r] = u_src[i];
+    seq[r] = u_seq[i];
+    occ[r] = 1;
+    executed[r] = 0;
   }
-  FOR_ROWS(j, (long)U * W) {  // install, a cell a thread; pad rows dropped
-    long i = j / W;
-    int r = u_row[i];
-    if (r < 0 || r >= cap) continue;
-    long w = j - i * W;
-    deps[(long)r * W + w] = u_deps[j];
-    if (w == 0) {
-      key[r] = u_key[i];
-      src[r] = u_src[i];
-      seq[r] = u_seq[i];
-      occ[r] = 1;
-      executed[r] = 0;
-    }
-  }
-  cg::this_grid().sync();
-  FOR_ROWS(j, (long)P + E) {  // patches and marks (different arrays)
-    if (j < P) {
-      int r = p_row[j], c = p_col[j];
-      if (r >= 0 && r < cap && c >= 0 && c < W) deps[(long)r * W + c] = p_val[j];
-    } else {
-      int r = e_row[j - P];
-      if (r >= 0 && r < cap) executed[r] = 1;
-    }
-  }
-  cg::this_grid().sync();
-  if (!general) {
-    FOR_ROWS(r, cap) {  // keyed fold and compression, a row a thread
-      bool pending = occ[r] && !executed[r];
-      int first = TERMINAL;
-      bool any_miss = false;
-      for (int w = 0; pending && w < W && first == TERMINAL; ++w) {
-        int v = deps[r * W + w];
-        if (v >= 0 && !executed[v < cap ? v : cap - 1])
-          first = v;
-        else if (v == MISSING)
-          any_miss = true;
-      }
-      out0[r] = first != TERMINAL ? first : (any_miss ? MISSING : TERMINAL);
-      out1[r] = pending ? key[r] : (int32_t)(INT_MAX - r);
-    }
-    return;
-  }
-  int bad = 0;
-  FOR_ROWS(j, (long)cap * W) {  // general fold and mask, a cell a thread
-    long r = j / W;
-    int v = TERMINAL;
-    if (occ[r] && !executed[r]) {
-      v = deps[j];
-      if (v >= 0 && executed[v < cap ? v : cap - 1]) v = TERMINAL;
-    }
-    out0[j] = v;
-    bad += (v > r || v == MISSING) ? 1 : 0;
-  }
-  bad = __reduce_add_sync(0xffffffffu, bad);
-  if ((threadIdx.x & 31) == 0 && bad) atomicAdd(sum, bad);
-  __syncthreads();
-  if (threadIdx.x == 0 && sum[0]) atomicAdd(out1, sum[0]);
 }
 
-#define PROLOGUE_ARGS                                                                  \
+// patch j (j < P) or mark j - P (different arrays, so in any order)
+__device__ __forceinline__ void patch_or_mark(long j, int32_t* deps, uint8_t* executed,
+                                              const int32_t* p_row, const int32_t* p_col,
+                                              const int32_t* p_val, const int32_t* e_row,
+                                              int cap, int W, int P) {
+  if (j < P) {
+    int r = p_row[j], c = p_col[j];
+    if (r >= 0 && r < cap && c >= 0 && c < W) deps[(long)r * W + c] = p_val[j];
+  } else {
+    int r = e_row[j - P];
+    if (r >= 0 && r < cap) executed[r] = 1;
+  }
+}
+
+// the folded, masked cell j of the dep matrix
+__device__ __forceinline__ int folded(long j, const int32_t* deps, const uint8_t* occ,
+                                      const uint8_t* executed, int cap, int W) {
+  long r = j / W;
+  if (!occ[r] || executed[r]) return TERMINAL;
+  int v = deps[j];
+  return v >= 0 && executed[v < cap ? v : cap - 1] ? TERMINAL : v;
+}
+
+#define INSTALL_ARGS                                                                   \
   int32_t *deps, int32_t *key, int32_t *src, int32_t *seq, uint8_t *occ,              \
       uint8_t *executed, const int32_t *u_row, const int32_t *u_deps,                 \
-      const int32_t *u_key, const int32_t *u_src, const int32_t *u_seq,               \
-      const int32_t *p_row, const int32_t *p_col, const int32_t *p_val,               \
+      const int32_t *u_key, const int32_t *u_src, const int32_t *u_seq
+#define PROLOGUE_ARGS                                                                  \
+  INSTALL_ARGS, const int32_t *p_row, const int32_t *p_col, const int32_t *p_val,     \
       const int32_t *e_row, int32_t *out0, int32_t *out1, int cap, int W, int U, int P, \
-      int E, int general
+      int E
 
-__global__ void k_prologue(PROLOGUE_ARGS) {
-  extern __shared__ int32_t pro_smem[];  // the block's bad-cell sum
-  prologue_body(deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq,
-                p_row, p_col, p_val, e_row, out0, out1, pro_smem, cap, W, U, P, E, general);
+__global__ void k_install(INSTALL_ARGS, int cap, int W, int U) {
+  FOR_ROWS(j, (long)U * W)
+  install_cell(j, deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq,
+               cap, W);
 }
 
-// a cooperative launch of `block`-thread blocks, as many as the largest
-// phase needs up to the co-resident grid
-extern "C" int gg_prologue(PROLOGUE_ARGS, int block, cudaStream_t stream) {
+__global__ void k_patch_mark(int32_t* deps, uint8_t* executed, const int32_t* p_row,
+                             const int32_t* p_col, const int32_t* p_val,
+                             const int32_t* e_row, int cap, int W, int P, int E) {
+  FOR_ROWS(j, (long)P + E)
+  patch_or_mark(j, deps, executed, p_row, p_col, p_val, e_row, cap, W, P);
+}
+
+__global__ void k_fold_keyed(const int32_t* deps, const int32_t* key, const uint8_t* occ,
+                             const uint8_t* executed, int32_t* col, int32_t* pk, int cap,
+                             int W) {
+  FOR_ROWS(r, cap) {
+    int first = TERMINAL;
+    bool any_miss = false;
+    for (int w = 0; w < W && first == TERMINAL; ++w) {
+      int v = folded(r * W + w, deps, occ, executed, cap, W);
+      if (v >= 0)
+        first = v;
+      else if (v == MISSING)
+        any_miss = true;
+    }
+    col[r] = first != TERMINAL ? first : (any_miss ? MISSING : TERMINAL);
+    pk[r] = occ[r] && !executed[r] ? key[r] : (int32_t)(INT_MAX - r);
+  }
+}
+
+__global__ void k_prologue_general(PROLOGUE_ARGS) {
+  extern __shared__ int32_t pro_smem[];  // the block's bad-cell sum
+  if (threadIdx.x == 0) {
+    pro_smem[0] = 0;
+    if (blockIdx.x == 0) out1[0] = 0;
+  }
+  FOR_ROWS(j, (long)U * W)
+  install_cell(j, deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq,
+               cap, W);
+  cg::this_grid().sync();
+  FOR_ROWS(j, (long)P + E)
+  patch_or_mark(j, deps, executed, p_row, p_col, p_val, e_row, cap, W, P);
+  cg::this_grid().sync();
+  int bad = 0;
+  FOR_ROWS(j, (long)cap * W) {
+    int v = folded(j, deps, occ, executed, cap, W);
+    out0[j] = v;
+    bad += (v > j / W || v == MISSING) ? 1 : 0;
+  }
+  bad = __reduce_add_sync(0xffffffffu, bad);
+  if ((threadIdx.x & 31) == 0 && bad) atomicAdd(pro_smem, bad);
+  __syncthreads();
+  if (threadIdx.x == 0 && pro_smem[0]) atomicAdd(out1, pro_smem[0]);
+}
+
+// general: a cooperative launch of `block`-thread blocks, as many as the
+// largest phase needs up to the co-resident grid; keyed: three launches
+extern "C" int gg_prologue(PROLOGUE_ARGS, int general, int block, cudaStream_t stream) {
+  if (!general) {
+    if (U > 0) {
+      k_install<<<grid_for((long)U * W, EW_BLOCK), EW_BLOCK, 0, stream>>>(
+          deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq, cap, W,
+          U);
+      CHECK_LAUNCH();
+    }
+    if (P + E > 0) {
+      k_patch_mark<<<grid_for((long)P + E, EW_BLOCK), EW_BLOCK, 0, stream>>>(
+          deps, executed, p_row, p_col, p_val, e_row, cap, W, P, E);
+      CHECK_LAUNCH();
+    }
+    if (cap > 0) {
+      k_fold_keyed<<<grid_for(cap, EW_BLOCK), EW_BLOCK, 0, stream>>>(deps, key, occ,
+                                                                     executed, out0, out1,
+                                                                     cap, W);
+      CHECK_LAUNCH();
+    }
+    return 0;
+  }
   size_t smem = sizeof(int32_t);
-  long most = general ? (long)cap * W : cap;
+  long most = (long)cap * W;
   if ((long)U * W > most) most = (long)U * W;
   if ((long)P + E > most) most = (long)P + E;
   int grid = 0;
-  int e = coop_grid(k_prologue, block, smem, (most + block - 1) / block, &grid);
+  int e = coop_grid(k_prologue_general, block, smem, (most + block - 1) / block, &grid);
   if (e) return e;
   void* args[] = {&deps,  &key,   &src,   &seq, &occ,   &executed, &u_row, &u_deps,
                   &u_key, &u_src, &u_seq, &p_row, &p_col, &p_val,  &e_row, &out0,
-                  &out1,  &cap,   &W,     &U,   &P,     &E,        &general};
-  CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_prologue, dim3(grid), dim3(block),
-                                         args, smem, stream));
+                  &out1,  &cap,   &W,     &U,   &P,     &E};
+  CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_prologue_general, dim3(grid),
+                                         dim3(block), args, smem, stream));
   return (int)cudaGetLastError();
 }
 

@@ -199,14 +199,15 @@ def _b(n: int, device) -> torch.Tensor:
 # marks, then the per-row fold that reads ``executed`` of the dep targets
 # once every mark has landed (the reference's order when a dispatch patches
 # or marks a row it also installs).  Design (``csrc/graph_general.cu``
-# §13): one cooperative launch a dispatch in every mode, the three steps as
-# three phases with a grid barrier between them, installs and the general
-# fold a cell a thread, the keyed fold and compression a row a thread.  The
-# general count of cells that bar ``resolve_general``'s fast path is a warp
-# sum and a shared-memory sum a block, added once a block into the device
-# int the host reads once per dispatch; no zero-fill launch.  No one-CTA
-# form: chip_smoke.py measured none ahead on the card at the sims' windows
-# (the source's §13 has the numbers).
+# §13): each step one device function both modes share, installs a cell a
+# thread.  General: one cooperative launch a dispatch, the steps split by
+# grid barriers, the fold a cell a thread; the count of cells that bar
+# ``resolve_general``'s fast path is a warp sum and a shared-memory sum a
+# block, added once a block into the device int the host reads once per
+# dispatch; no zero-fill launch.  Keyed: three launches (install, patches
+# and marks, fold and compression a row a thread), which beat one
+# cooperative launch at the keyed path's 2^20 slots (the source's §13 has
+# the numbers).
 
 
 def graph_prologue_plain(

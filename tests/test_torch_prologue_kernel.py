@@ -1,14 +1,15 @@
-"""The prologue as one launch a dispatch: ``K.graph_prologue``
+"""The prologue, one launch a dispatch in mode general: ``K.graph_prologue``
 (``csrc/graph_general.cu`` §13) in modes general and keyed against its
 plain version, and in mode general against the JAX reference's
 ``graph_plane_step_core``.
 
 The CUDA source runs on the CPU through the emulator
-(``csrc/emu/emulate.py``), behind the wrapper's own device test, as the
-cooperative launch it is, in two grid shapes: blocks of up to
+(``csrc/emu/emulate.py``), behind the wrapper's own device test.  Mode
+general is one cooperative launch, run in two grid shapes: blocks of up to
 ``LOOP_BLOCK`` = 512 threads, and with ``LOOP_BLOCK`` lowered to 64 (at
-most 4 blocks of 64 threads on the emulated card, cells and rows walked
-grid-stride, several a thread).
+most 4 blocks of 64 threads on the emulated card, cells walked
+grid-stride, several a thread).  Mode keyed is three launches of the same
+install, patch and mark steps.
 Each run feeds a fresh window numpy-seeded multi-key commands in shuffled
 order, so a feed installs rows whose dependencies are not installed yet
 (MISSING cells), patches cells of rows installed earlier and of rows it
