@@ -985,47 +985,45 @@ extern "C" int gg_peel_compact(const int32_t* tgt, const int32_t* floor,
 // mark the host oracle's executed rows, then fold deps on executed slots to
 // TERMINAL and mask non-pending rows, in the reference's order: a patch or
 // a mark follows the install of its row, and the fold, which reads
-// executed[dep] of any row, follows every mark.  Each step is one
-// __device__ function over its items (cells, patches and marks, rows or
-// cells of the fold), walked grid-stride, so both modes share the install,
-// patch and mark rules (pad rows and out-of-range cells dropped):
+// executed[dep] of any row, follows every mark.  The install, patch and
+// mark rules (pad rows and out-of-range cells dropped) and the fold of one
+// dependency are __device__ functions both modes share; rows, patches and
+// marks are walked one a thread, grid-stride.  (Installs and folds a cell a
+// thread, a 64-bit index division a cell, took 0.0416 ms on the card in
+// mode keyed at 2^20 slots against 0.0311-0.0318 a row a thread.)
 //   general (out0 = dmat, out1 = n_bad): one cooperative launch a dispatch
 //     (the grid clamped to the co-resident one), the steps split by grid
-//     barriers; the fold and mask a cell a thread, with the count of cells
+//     barriers; the fold and mask a row a thread, with the count of cells
 //     that bar resolve_general's backward-only fast path once
 //     self-dependencies are pruned (a forward dependency or a MISSING one):
 //     a warp sum, a shared-memory sum a block, and one atomicAdd a block
 //     into n_bad, which block 0 zeroes in the first phase.  No one-CTA
-//     form: on an H100 80GB HBM3 (700 W), chip_smoke.py's phase 4b found one
-//     CTA level with it on the card up to 512 slots and behind from 1,024.
+//     form: one CTA was level with it on the card up to 512 slots and
+//     behind from 1,024.
 //   keyed (out0 = col, out1 = pk): three launches, one a step; the fold a
 //     row a thread: the first live folded dependency (else MISSING if any,
 //     else TERMINAL) and the run key (pending rows keep their key, the
-//     others the private pad key INT_MAX - row).  As one cooperative launch
-//     it took 0.0396 ms on the card at 2^20 slots against these launches'
-//     0.0312 (same card, phase 4b): its two grid barriers cost more than
-//     the two launch gaps at the keyed path's window.
+//     others the private pad key INT_MAX - row).  It stays three launches:
+//     one cooperative launch (installs a cell a thread) took 0.0396 ms on
+//     the card at 2^20 slots against the three launches' 0.0312.
+// Times: one H100 80GB HBM3 at 700 W, chip_smoke.py phase 4b.
 // No memset: every output is written by the launches.
 
-// cell j of the feed's U x W install rows
-__device__ __forceinline__ void install_cell(long j, int32_t* deps, int32_t* key,
-                                             int32_t* src, int32_t* seq, uint8_t* occ,
-                                             uint8_t* executed, const int32_t* u_row,
-                                             const int32_t* u_deps, const int32_t* u_key,
-                                             const int32_t* u_src, const int32_t* u_seq,
-                                             int cap, int W) {
-  long i = j / W;
+// install row i of the feed (a pad row is dropped)
+__device__ __forceinline__ void install_row(long i, int32_t* deps, int32_t* key,
+                                            int32_t* src, int32_t* seq, uint8_t* occ,
+                                            uint8_t* executed, const int32_t* u_row,
+                                            const int32_t* u_deps, const int32_t* u_key,
+                                            const int32_t* u_src, const int32_t* u_seq,
+                                            int cap, int W) {
   int r = u_row[i];
-  if (r < 0 || r >= cap) return;  // a pad row
-  long w = j - i * W;
-  deps[(long)r * W + w] = u_deps[j];
-  if (w == 0) {
-    key[r] = u_key[i];
-    src[r] = u_src[i];
-    seq[r] = u_seq[i];
-    occ[r] = 1;
-    executed[r] = 0;
-  }
+  if (r < 0 || r >= cap) return;
+  for (int w = 0; w < W; ++w) deps[(long)r * W + w] = u_deps[i * W + w];
+  key[r] = u_key[i];
+  src[r] = u_src[i];
+  seq[r] = u_seq[i];
+  occ[r] = 1;
+  executed[r] = 0;
 }
 
 // patch j (j < P) or mark j - P (different arrays, so in any order)
@@ -1042,12 +1040,8 @@ __device__ __forceinline__ void patch_or_mark(long j, int32_t* deps, uint8_t* ex
   }
 }
 
-// the folded, masked cell j of the dep matrix
-__device__ __forceinline__ int folded(long j, const int32_t* deps, const uint8_t* occ,
-                                      const uint8_t* executed, int cap, int W) {
-  long r = j / W;
-  if (!occ[r] || executed[r]) return TERMINAL;
-  int v = deps[j];
+// dependency v of a pending row, folded: TERMINAL if its slot executed
+__device__ __forceinline__ int folded(int v, const uint8_t* executed, int cap) {
   return v >= 0 && executed[v < cap ? v : cap - 1] ? TERMINAL : v;
 }
 
@@ -1061,9 +1055,9 @@ __device__ __forceinline__ int folded(long j, const int32_t* deps, const uint8_t
       int E
 
 __global__ void k_install(INSTALL_ARGS, int cap, int W, int U) {
-  FOR_ROWS(j, (long)U * W)
-  install_cell(j, deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq,
-               cap, W);
+  FOR_ROWS(i, U)
+  install_row(i, deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq,
+              cap, W);
 }
 
 __global__ void k_patch_mark(int32_t* deps, uint8_t* executed, const int32_t* p_row,
@@ -1077,17 +1071,18 @@ __global__ void k_fold_keyed(const int32_t* deps, const int32_t* key, const uint
                              const uint8_t* executed, int32_t* col, int32_t* pk, int cap,
                              int W) {
   FOR_ROWS(r, cap) {
+    bool pending = occ[r] && !executed[r];
     int first = TERMINAL;
     bool any_miss = false;
-    for (int w = 0; w < W && first == TERMINAL; ++w) {
-      int v = folded(r * W + w, deps, occ, executed, cap, W);
+    for (int w = 0; pending && w < W && first == TERMINAL; ++w) {
+      int v = folded(deps[r * W + w], executed, cap);
       if (v >= 0)
         first = v;
       else if (v == MISSING)
         any_miss = true;
     }
     col[r] = first != TERMINAL ? first : (any_miss ? MISSING : TERMINAL);
-    pk[r] = occ[r] && !executed[r] ? key[r] : (int32_t)(INT_MAX - r);
+    pk[r] = pending ? key[r] : (int32_t)(INT_MAX - r);
   }
 }
 
@@ -1097,18 +1092,21 @@ __global__ void k_prologue_general(PROLOGUE_ARGS) {
     pro_smem[0] = 0;
     if (blockIdx.x == 0) out1[0] = 0;
   }
-  FOR_ROWS(j, (long)U * W)
-  install_cell(j, deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq,
-               cap, W);
+  FOR_ROWS(i, U)
+  install_row(i, deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq,
+              cap, W);
   cg::this_grid().sync();
   FOR_ROWS(j, (long)P + E)
   patch_or_mark(j, deps, executed, p_row, p_col, p_val, e_row, cap, W, P);
   cg::this_grid().sync();
   int bad = 0;
-  FOR_ROWS(j, (long)cap * W) {
-    int v = folded(j, deps, occ, executed, cap, W);
-    out0[j] = v;
-    bad += (v > j / W || v == MISSING) ? 1 : 0;
+  FOR_ROWS(r, cap) {
+    bool pending = occ[r] && !executed[r];
+    for (int w = 0; w < W; ++w) {
+      int v = pending ? folded(deps[r * W + w], executed, cap) : TERMINAL;
+      out0[r * W + w] = v;
+      bad += (v > r || v == MISSING) ? 1 : 0;
+    }
   }
   bad = __reduce_add_sync(0xffffffffu, bad);
   if ((threadIdx.x & 31) == 0 && bad) atomicAdd(pro_smem, bad);
@@ -1121,7 +1119,7 @@ __global__ void k_prologue_general(PROLOGUE_ARGS) {
 extern "C" int gg_prologue(PROLOGUE_ARGS, int general, int block, cudaStream_t stream) {
   if (!general) {
     if (U > 0) {
-      k_install<<<grid_for((long)U * W, EW_BLOCK), EW_BLOCK, 0, stream>>>(
+      k_install<<<grid_for(U, EW_BLOCK), EW_BLOCK, 0, stream>>>(
           deps, key, src, seq, occ, executed, u_row, u_deps, u_key, u_src, u_seq, cap, W,
           U);
       CHECK_LAUNCH();
@@ -1140,8 +1138,7 @@ extern "C" int gg_prologue(PROLOGUE_ARGS, int general, int block, cudaStream_t s
     return 0;
   }
   size_t smem = sizeof(int32_t);
-  long most = (long)cap * W;
-  if ((long)U * W > most) most = (long)U * W;
+  long most = cap > U ? cap : U;
   if ((long)P + E > most) most = (long)P + E;
   int grid = 0;
   int e = coop_grid(k_prologue_general, block, smem, (most + block - 1) / block, &grid);
