@@ -98,18 +98,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``DevicePredPlane``s held by the Checker: ``bench.py``'s
    ``bench_pred_path`` generator (one uniform key per command, up to three
    same-key lower-clock predecessors, the cross-feed residual seam) at its
-   own defaults (feeds of 4,096 on 512 keys: the one-CTA variant), at the
-   table path's round (feeds of 100,000 on 4,096 keys: the grid-wide
-   variant) and in a full window of 2^20 slots filled by 4 feeds of 2^18;
-   each shape's last dispatch timed beside the plain version and its byte
-   bound, with its sweeps;
+   own defaults (feeds of 4,096 on 512 keys, C = 8,192), at the table
+   path's round (feeds of 100,000 on 4,096 keys) and in a full window of
+   2^20 slots filled by 4 feeds of 2^18, all three above the one-CTA
+   form's 2,048 rows (the Caesar sim's dispatches take that form: phases
+   8-9); each shape's last dispatch timed beside the plain version and its
+   byte bound, with its work (rows the propagation marked, and pushed
+   onto its worklist);
 8. the Caesar path on the card: 2 warm and 3 timed steady feeds of
    100,000 commands through ``DevicePredPlane(device="cuda").add_arrays``,
    each key in the host ``PredecessorsGraph`` twin's order (commands/s and
    the plane's ``kernel_ms``); then Caesar through
    ``Runner(device="cuda")`` with ``device_pred_plane=True`` equal to
    ``Runner(device="cpu")`` at n = 5, f = 2, each path with the launch
-   counts set to 0 just before it and read just after it.
+   counts set to 0 just before it and read just after it;
+9. the two kernels redesigned last at every shape their paths give them,
+   each call held against its plain version, timed single (and
+   ``vote_runs`` in the loop) beside its bound and counted in operations
+   on the card by ``torch.profiler``: ``vote_runs`` at the Newt sim's
+   shapes (its calls captured from ``Runner(device="cpu")``, the first at
+   each row count), at phase 5's V = 2^19, on commits whose merged group
+   crosses tile boundaries under a negative ``frontier[0, 0]`` (2,048 and
+   2^19 rows), and in both forms (one CTA, tiles) over 256-4,096 rows;
+   ``pred_plane_step`` at the Caesar sim's shapes (captured the same way),
+   at phase 7's three shapes and on a hot-key feed (4,096 commands on one
+   key, C = 2^16, the grid form), every dispatch of phase 7's first two
+   shapes replayed 50 times against the plain version (a race between
+   the grid's blocks shows in some run), and both forms of each kernel
+   over a sweep of sizes; it asserts at most 3 operations on the card
+   after ``vote_runs``' sort (3 in all up to 2,048 rows), one a
+   ``pred_plane_step`` dispatch, and the dispatch's marked rows equal to
+   its ``newly`` rows.
 
 Each phase reports its wall time.  The last lines are the
 ``{"kernels": [...]}`` record, the card line and
@@ -120,6 +139,14 @@ Each phase reports its wall time.  The last lines are the
 builds the two graph sources and runs phase 4b alone, then prints the
 card line; copied into an older checkout it times that checkout's kernels
 at the same shapes.
+
+    python3 chip_smoke.py --redesign
+
+builds the graph-plane sort, the table and the pred sources and runs
+phase 9 alone, without its asserts (with ``--checks``, with them: the
+whole smoke runs phase 9 so, in a process of its own), then prints the
+card line; copied into an older checkout it times that checkout's
+``vote_runs`` and ``pred_plane_step`` at the same shapes.
 """
 
 import json
@@ -1370,7 +1397,8 @@ def device_ops(torch, calls):
     host's clock.  A session that does not show exactly one separator more
     than there are calls lost events and is run again (at most
     ``PROFILE_TRIES`` sessions).  Returns, a call, the names and the summed
-    time on the card (ms) of its operations."""
+    time on the card (ms) of its operations, and each operation's name and
+    time in the order the card ran them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1379,6 +1407,7 @@ def device_ops(torch, calls):
         fn(*clone_args(args), **kwargs)
         runs.append(clone_args(args))
     torch.cuda.synchronize()
+    seen = []
     for _try in range(PROFILE_TRIES):
         fresh = [clone_args(run) for run in runs]
         torch.cuda.synchronize()
@@ -1390,20 +1419,22 @@ def device_ops(torch, calls):
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
-        if sum(SEPARATOR in e.name for e in events) == len(calls) + 1:
+        seen.append((sum(SEPARATOR in e.name for e in events), len(events)))
+        if seen[-1][0] == len(calls) + 1:
             break
     else:
-        raise AssertionError(f"torch.profiler lost events in {PROFILE_TRIES} sessions")
+        raise AssertionError(
+            f"torch.profiler lost events in {PROFILE_TRIES} sessions of {len(calls)} calls "
+            f"(separators, events seen: {seen})")
     out, current = [], None
     for e in events:
         if SEPARATOR in e.name:
             if current is not None:
                 out.append(current)
-            current = ([], 0.0)
+            current = []
         elif current is not None:
-            names, us = current
-            current = (names + [e.name], us + e.time_range.end - e.time_range.start)
-    return [(names, us / 1e3) for names, us in out]
+            current.append((e.name, (e.time_range.end - e.time_range.start) / 1e3))
+    return [([n for n, _ms in ops], sum(ms for _n, ms in ops), ops) for ops in out]
 
 
 def launch_floor(torch, K):
@@ -1443,19 +1474,26 @@ def stage_record(torch, K, name, args, kwargs=None):
     return record, got, got_args
 
 
+OPS_LISTED = 40  # a call's operations listed one by one (op_ms) up to this many
+
+
 def count_ops(torch, records):
     """Replace each record's ``call`` by its operations on the card
     (``device_ops``, one profiler session for all): ``device_ops``, the
-    count, ``op_names``, and ``device_ms``, their summed time on the card
-    in the profiler's trace.  A control call of one PyTorch kernel first:
+    count, ``op_names``, ``device_ms``, their summed time on the card in
+    the profiler's trace, and up to ``OPS_LISTED`` of them ``op_ms``, each
+    operation's name and time in the order the card ran them.  A control
+    call of one PyTorch kernel first:
     the profiler must see exactly it."""
     control = (lambda: torch.zeros(8, device=CARD), (), {})
     ops = device_ops(torch, [control] + [r.pop("call") for r in records])
     assert len(ops[0][0]) == 1, f"torch.profiler saw {ops[0][0]} for one kernel"
-    for record, (names, ms) in zip(records, ops[1:]):
+    for record, (names, ms, each) in zip(records, ops[1:]):
         record["device_ops"] = len(names)
         record["op_names"] = sorted(set(names))
         record["device_ms"] = ms
+        if len(each) <= OPS_LISTED:
+            record["op_ms"] = [[name.split("(")[0], t] for name, t in each]
 
 
 def collapse_smem(rows, width):
@@ -2135,9 +2173,9 @@ PRED_SOURCE = "fantoch_tpu_torch/csrc/pred_plane.cu"
 PRED_REPLACES = "fantoch_tpu/ops/pallas_resolve.py:264"
 PRED_WIDTH = 3  # bench.py bench_pred_path: up to 3 same-key predecessors
 # (use, batch, keys, feeds, slot capacity or None for the plane's growth):
-# bench_pred_path's own defaults (the one-CTA variant), the table path's
-# round on its key count (the steady shape, grid-wide), and the full
-# window of 2^20 slots filled by 4 feeds of 2^18
+# bench_pred_path's own defaults, the table path's round on its key count
+# (the steady shape), and the full window of 2^20 slots filled by 4 feeds
+# of 2^18
 PRED_SHAPES = (
     ("small window", 4096, 512, 3, None),
     ("steady", TABLE_BATCH, TABLE_KEYS, 3, None),
@@ -2218,7 +2256,7 @@ def pred_plane_run(P, device, batch, keys, feeds, capacity, record=None):
     """One plane on ``device`` fed ``pred_workload(batch, keys, feeds)``
     through ``add_arrays``; returns the plane, the per-key drain order and
     the wall ms of each feed.  ``record`` (a list) receives, for each
-    dispatch, clones of the step's arguments and its sweep count."""
+    dispatch, clones of the step's arguments and its work (``pred_work``)."""
     import torch
 
     from fantoch_tpu_torch.core import Config
@@ -2233,7 +2271,7 @@ def pred_plane_run(P, device, batch, keys, feeds, capacity, record=None):
         def recorded(*args):
             saved = clone_args(args)
             out = wrapper(*args)
-            record.append((saved, P.last_sweeps()))
+            record.append((saved, pred_work(P)))
             return out
 
         P.pred_plane_step = recorded
@@ -2281,23 +2319,26 @@ def phase7(torch, P):
             kernel, plain = checker.real["pred_plane_step"], P.pred_plane_step_plain
             ms = time_ms(kernel, args, {})
             got = kernel(*clone_args(args))
-            sweeps = P.last_sweeps()
+            work = pred_work(P)
             plain_ms = time_ms(plain, args, {})
             nbytes = pred_moved_bytes(torch, args, got)
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             cap, width = args[0].shape
+            # the form of the last dispatch, by the wrapper's gates
+            one_cta = (cap <= P.ONE_CTA_ROWS
+                       and P.one_cta_smem_bytes(cap, width) <= P.ONE_CTA_SMEM_BYTES)
             row = {
                 "use": f"pred_plane_step, {use}, C={cap} W={width} B={batch} keys={keys}",
-                "variant": "one CTA" if variants["one_cta"] else "grid-wide",
+                "variant": "one CTA" if one_cta else "grid",
                 "variants": variants, "shape": describe(args), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": nbytes,
-                "library_ms": None, "sweeps": sweeps,
-                "sweeps_by_dispatch": [s for _a, s in calls],
+                "library_ms": None, "work": work,
+                "work_by_dispatch": [w for _a, w in calls],
                 "newly": int(got[5].sum()), "dispatches": plane.dispatches,
                 "grows": plane.grows, "compactions": plane.stats["compactions"],
                 "feed_wall_ms": wall,
             }
-            assert (row["variant"] == "one CTA") == (use == "small window"), row
+            assert variants["one_cta" if one_cta else "grid"] > 0, row
             log(json.dumps({"phase7_kernel": row}))
             uses.append(row)
             if use == PRED_MAIN_USE:
@@ -2306,15 +2347,15 @@ def phase7(torch, P):
                     "replaces": PRED_REPLACES, "launches": 0, "max_abs_err": 0.0,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": "bytes", "library_ms": None, "shape": row["shape"],
-                    "sweeps": sweeps,
+                    "work": work,
                 }
     finally:
         checker.uninstall()
     records["pred_plane_step"]["max_abs_err"] = checker.err["pred_plane_step"]
     records["pred_plane_step"]["uses"] = uses
     log(f"phase 7: every pred_plane_step call equal to its plain version "
-        f"(checked calls {checker.count}); sweeps of the timed dispatches "
-        f"{[u['sweeps'] for u in uses]}")
+        f"(checked calls {checker.count}); work of the timed dispatches "
+        f"{[u['work'] for u in uses]}")
     return records
 
 
@@ -2445,9 +2486,329 @@ def phase8(torch, P):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# the redesigned table and pred kernels at every path's shapes (phase 9;
+# alone: --redesign)
+# ---------------------------------------------------------------------------
+
+VOTE_SWEEP = (256, 512, 1024, 2048, 4096)  # rows of vote_runs' forms sweep
+HOT_KEY = 4096  # commands of the Caesar hot-key feed, all on one key
+HOT_CAP = 1 << 16  # its window (the grid form)
+PRED_FORM_FEEDS = (512, 1024, 2048, 4096)  # feeds of pred_plane_step's forms sweep
+PRED_REPLAYS = 50  # runs of each dispatch of phase 7's small window and steady shapes
+SORT_ROWS = 4096  # lex_sort's one-block path (graph_plane_step.cu RADIX_SMALL_N)
+
+
+def pred_work(P):
+    """The last pred dispatch's work: rows marked and pushed (the worklist
+    kernels) or sweeps (an older checkout's)."""
+    if hasattr(P, "last_work"):
+        return P.last_work()
+    return {"sweeps": P.last_sweeps()}
+
+
+def captured_calls(module, name, run):
+    """The arguments (clones) of every call of ``module.<name>`` while
+    ``run()`` runs."""
+    calls, real = [], getattr(module, name)
+
+    def record(*args):
+        calls.append(clone_args(args))
+        return real(*args)
+
+    setattr(module, name, record)
+    try:
+        run()
+    finally:
+        setattr(module, name, real)
+    return calls
+
+
+def vote_gid(torch, args):
+    """The sort keys of a ``vote_runs`` call (``tp_votes_gid``'s group, then
+    vstart)."""
+    frontier, vkey, vby, vstart, _vend, valid = args
+    n_keys, n = frontier.shape
+    return [torch.where(valid, vkey * n + vby, n_keys * n).to(torch.int32), vstart]
+
+
+def vote_record(torch, T, K, label, args):
+    """``stage_record`` of one ``vote_runs`` call, its bound the touched
+    cells' (``table_moved_bytes``), and the call of its sort alone for
+    ``count_ops`` (so the operations after the sort are known)."""
+    record, got, _ = stage_record(torch, T, "vote_runs", args)
+    nbytes = table_moved_bytes(torch, "vote_runs", args, got)
+    record["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    record["V"] = int(args[1].numel())
+    record["runs"] = int((got[3] != -(1 << 31)).sum())
+    sort = {"call": (K.lex_sort, (vote_gid(torch, args),), {})}
+    return record, sort
+
+
+def vote_forms(torch, T, K, rows, seed):
+    """``vote_runs`` on a Newt-like commit of ``rows`` rows (ranges on 4,096
+    keys by 3 processes, a fifth invalid) in both forms, one CTA (the gate
+    raised to the rows) and tiles (the gate lowered to 0), each held against
+    the plain version and timed single and in the loop; their calls are
+    counted on the card by ``count_ops`` (``FORM_REPEATS`` each).  Empty on
+    a checkout without the gate."""
+    if not hasattr(T, "VOTE_CTA_ROWS"):
+        return {}
+    rng = np.random.default_rng(seed)
+    start = rng.integers(1, 200, rows)
+    args = (torch.zeros((TABLE_KCAP, TABLE_N), dtype=torch.int32, device=CARD),
+            *(torch.tensor(a.astype(np.int32), device=CARD) for a in (
+                rng.integers(0, TABLE_KEYS, rows), rng.integers(0, TABLE_N, rows), start,
+                start + rng.integers(0, 8, rows))),
+            torch.tensor(rng.random(rows) < 0.8, device=CARD))
+    want = T.vote_runs_plain(*clone_args(args))
+    out = {}
+    for form, value in (("one_cta", rows), ("tiles", 0)):
+        call = gated(T, "VOTE_CTA_ROWS", value, T.vote_runs)
+        got = call(*clone_args(args))
+        err = max_abs_err(got, want, form)
+        assert err == 0.0, f"vote_runs, {rows} rows, {form}: differs"
+        out[f"ms_{form}"] = time_ms(call, args, {})
+        out[f"ms_loop_{form}"] = time_loop_ms(call, args, {})
+        out[f"runs_{form}"] = [{"call": (call, clone_args(args), {})}
+                               for _ in range(FORM_REPEATS)]
+    return out
+
+
+def negative_corner_votes(torch, rows, seed):
+    """A commit of ``rows`` rows where one group's 40% of the rows merge into
+    one run that crosses every tile boundary it meets and extends the
+    frontier, another group holds several runs (one below the frontier, one
+    that extends, two residual), a fifth of the rest are invalid, and
+    ``frontier[0, 0]`` starts at -7 with valid runs on cell (0, 0)."""
+    rng = np.random.default_rng(seed)
+    frontier = rng.integers(0, 30, (TABLE_KCAP, TABLE_N)).astype(np.int32)
+    key = rng.integers(1, TABLE_KEYS, rows)
+    by = rng.integers(0, TABLE_N, rows)
+    start = rng.integers(1, 60, rows)
+    end = start + rng.integers(0, 6, rows)
+    valid = rng.random(rows) >= 0.2
+    perm = rng.permutation(rows)
+    merge = perm[: rows * 2 // 5]
+    i = np.arange(len(merge))
+    key[merge], by[merge], valid[merge] = 3, 1, True
+    start[merge], end[merge] = 10 + i // 2, 12 + i // 2
+    frontier[3, 1] = 12
+    for at, (cell, s, e) in zip(perm[len(merge):], (
+            ((5, 0), 1, 3), ((5, 0), 6, 8), ((5, 0), 20, 25), ((5, 0), 40, 41),
+            ((0, 0), -8, -5), ((0, 0), -6, -2), ((0, 0), -1, 4), ((0, 0), 9, 9))):
+        key[at], by[at], start[at], end[at], valid[at] = *cell, s, e, True
+    frontier[5, 0], frontier[0, 0] = 5, -7
+    cols = [frontier, key, by, start, end]
+    return [torch.tensor(a.astype(np.int32), device=CARD) for a in cols] + [
+        torch.tensor(valid, device=CARD)]
+
+
+def pred_record(torch, P, label, args, reps=10):
+    """One ``pred_plane_step`` call held against its plain version, timed
+    (``reps`` single calls; the plain version twice where it sweeps long),
+    with its work and bound; ``call`` is counted on the card later."""
+    kernel, plain = P.pred_plane_step, P.pred_plane_step_plain
+    got_args, plain_args = clone_args(args), clone_args(args)
+    got = kernel(*got_args)
+    work = pred_work(P)
+    want = plain(*plain_args)
+    err = max(max_abs_err(got, want, label), max_abs_err(got_args, plain_args, label))
+    assert err == 0.0, f"{label}: kernel differs from its plain version"
+    cap, width = args[0].shape
+    return {
+        "use": label, "shape": describe(args), "C": cap, "W": width,
+        "ms": time_ms(kernel, args, {}, reps=reps),
+        "plain_ms": time_ms(plain, args, {}, reps=min(reps, 2)),
+        "bound_ms": pred_moved_bytes(torch, args, got) / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": err, "newly": int(got[5].sum()), "work": work,
+        "call": (kernel, clone_args(args), {}),
+    }
+
+
+def pred_forms(torch, P, args):
+    """One ``pred_plane_step`` dispatch in both forms, one CTA (the rows
+    gate raised to the window's, where the working set fits the
+    shared-memory gate) and the cooperative grid (the rows gate lowered to
+    0), each held against the plain version and timed single; their calls
+    are counted on the card by ``count_ops`` (``FORM_REPEATS`` each).
+    Empty on a checkout without the rows gate."""
+    if not hasattr(P, "ONE_CTA_ROWS"):
+        return {}
+    want = P.pred_plane_step_plain(*clone_args(args))
+    cap, width = args[0].shape
+    out = {}
+    for form, value in (("one_cta", cap), ("grid", 0)):
+        if form == "one_cta" and P.one_cta_smem_bytes(cap, width) > P.ONE_CTA_SMEM_BYTES:
+            continue
+        call = gated(P, "ONE_CTA_ROWS", value, P.pred_plane_step)
+        got = call(*clone_args(args))
+        assert max_abs_err(got, want, form) == 0.0, f"pred_plane_step, {form}: differs"
+        out[f"ms_{form}"] = time_ms(call, args, {})
+        out[f"runs_{form}"] = [{"call": (call, clone_args(args), {})}
+                               for _ in range(FORM_REPEATS)]
+    return out
+
+
+def pred_replays(P, dispatches):
+    """Each dispatch run ``PRED_REPLAYS`` times on clones of its arguments,
+    every run equal to the plain version: a race between the blocks of the
+    grid form shows in some run, not in every one (a scan whose threads
+    past their chunk also wrote the CSR's last end lost a window's last
+    row's waiters in most runs of one dispatch, not all).  Returns the
+    runs made."""
+    for i, args in enumerate(dispatches):
+        want = P.pred_plane_step_plain(*clone_args(args))
+        for run in range(PRED_REPLAYS):
+            got = P.pred_plane_step(*clone_args(args))
+            assert max_abs_err(got, want, "replay") == 0.0, (
+                f"pred_plane_step differs from its plain version, dispatch {i}, run {run}")
+    return len(dispatches) * PRED_REPLAYS
+
+
+def phase_redesign(torch, T, P, K, checks=True):
+    """``vote_runs`` and ``pred_plane_step`` at every shape their paths
+    give them, each call held against its plain version, timed single and
+    (``vote_runs``) in the loop beside its bound, and counted in operations
+    on the card by ``torch.profiler``: ``vote_runs`` at the Newt sim's
+    shapes (its calls captured from ``newt_sim("cpu")``, the first at each
+    row count), at phase 5's V = 2^19, on a commit whose merged group
+    crosses tile boundaries under a negative ``frontier[0, 0]`` (at 2,048
+    and 2^19 rows), and in both forms over 256-4,096 rows;
+    ``pred_plane_step`` at the Caesar sim's shapes (captured from
+    ``caesar_sim("cpu")``: at each window shape the dispatch that executes
+    the most rows), at phase 7's three shapes, and on a hot-key feed (4,096
+    commands on one key in a 2^16-slot window, the grid form), and at the
+    Caesar sim's shapes, phase 7's small window and windows of 1,024-8,192
+    rows in both forms; every dispatch of phase 7's small window and steady
+    shapes is also replayed ``PRED_REPLAYS`` times against the plain
+    version.  With
+    ``checks`` (the whole smoke; not on an older checkout) a ``vote_runs``
+    call is at most 3 operations on the card after its sort and 3 in all at
+    up to 2,048 rows, and each ``pred_plane_step`` dispatch is one."""
+    out = {"vote_runs": {}, "vote_forms": {}, "pred_plane_step": {}, "pred_forms": {}}
+    vote_sorts = {}
+    calls = captured_calls(T, "vote_runs", lambda: newt_sim("cpu"))
+    by_rows = {}
+    for args in calls:
+        by_rows.setdefault(int(args[1].numel()), []).append(args)
+    out["newt_sim_calls_by_rows"] = {rows: len(c) for rows, c in sorted(by_rows.items())}
+    for rows, same in sorted(by_rows.items()):
+        label = f"vote_runs, the Newt sim's V={rows} ({len(same)} calls)"
+        args = tuple(a.to(CARD) for a in same[0])
+        out["vote_runs"][label], vote_sorts[label] = vote_record(torch, T, K, label, args)
+    for label, args in (
+        (f"vote_runs, phase 5's contiguous round, V={TABLE_VCAP}",
+         [torch.zeros((TABLE_KCAP, TABLE_N), dtype=torch.int32, device=CARD)]
+         + [t.to(CARD) for t in table_round_votes()]),
+        ("vote_runs, a merge across tiles, frontier[0, 0] < 0, V=2048",
+         negative_corner_votes(torch, 2048, 5)),
+        (f"vote_runs, a merge across tiles, frontier[0, 0] < 0, V={TABLE_VCAP}",
+         negative_corner_votes(torch, TABLE_VCAP, 6)),
+    ):
+        args = tuple(args)
+        out["vote_runs"][label], vote_sorts[label] = vote_record(torch, T, K, label, args)
+    for rows in VOTE_SWEEP:
+        forms = vote_forms(torch, T, K, rows, rows)
+        if forms:
+            out["vote_forms"][rows] = forms
+    # pred_plane_step at the Caesar sim's shapes: at each window shape, the
+    # dispatch that executes the most rows
+    sim_calls = captured_calls(P, "pred_plane_step", lambda: caesar_sim("cpu"))
+    heaviest = {}
+    for i, args in enumerate(sim_calls):
+        shape = tuple(args[0].shape)
+        newly = int(P.pred_plane_step_plain(*clone_args(args))[5].sum())
+        if shape not in heaviest or newly > heaviest[shape][0]:
+            heaviest[shape] = (newly, i)
+    out["caesar_sim_calls_by_shape"] = {
+        f"{c} x {w}": sum(tuple(a[0].shape) == (c, w) for a in sim_calls)
+        for c, w in sorted(heaviest)}
+    for (cap, width), (_newly, i) in sorted(heaviest.items()):
+        args = tuple(a.to(CARD) for a in sim_calls[i])
+        label = f"pred_plane_step, the Caesar sim's {cap} x {width}, dispatch {i}"
+        out["pred_plane_step"][label] = pred_record(torch, P, label, args)
+        forms = pred_forms(torch, P, args)
+        if forms:
+            out["pred_forms"][label] = forms
+    out["pred_replays"] = {}
+    for use, batch, keys, feeds, capacity in PRED_SHAPES:
+        recorded = []
+        pred_plane_run(P, CARD, batch, keys, feeds, capacity, record=recorded)
+        if use != "full window":
+            out["pred_replays"][use] = pred_replays(P, [a for a, _w in recorded])
+        args = recorded[-1][0]
+        label = f"pred_plane_step, phase 7's {use}, last dispatch"
+        out["pred_plane_step"][label] = pred_record(torch, P, label, args)
+        forms = pred_forms(torch, P, args) if use == "small window" else {}
+        if forms:
+            out["pred_forms"][label] = forms
+    # both forms on bench_pred_path's generator at smaller feeds (3 of
+    # them, a command in 8 on each key): windows of 1,024-8,192 rows
+    for batch in PRED_FORM_FEEDS:
+        recorded = []
+        pred_plane_run(P, CARD, batch, batch // 8, 3, None, record=recorded)
+        args = recorded[-1][0]
+        cap, width = args[0].shape
+        forms = pred_forms(torch, P, args)
+        if forms:
+            label = f"pred_plane_step, C={cap} W={width}, 3 feeds of {batch}"
+            out["pred_forms"][label] = forms
+    recorded = []
+    _plane, order, _wall = pred_plane_run(P, CARD, HOT_KEY, 1, 1, HOT_CAP, record=recorded)
+    check_pred_order(order, HOT_KEY)
+    label = f"pred_plane_step, hot key: {HOT_KEY} commands on one key, C={HOT_CAP}"
+    out["pred_plane_step"][label] = pred_record(torch, P, label, recorded[-1][0], reps=3)
+    # every call counted on the card in one profiler session
+    counted = list(out["vote_runs"].values()) + list(vote_sorts.values())
+    counted += list(out["pred_plane_step"].values())
+    all_forms = list(out["vote_forms"].values()) + list(out["pred_forms"].values())
+    form_runs = [r for forms in all_forms for key in list(forms)
+                 if key.startswith("runs_") for r in forms[key]]
+    count_ops(torch, counted + form_runs)
+    for label, record in out["vote_runs"].items():
+        sort = vote_sorts[label]
+        record["sort_ops"], record["sort_device_ms"] = sort["device_ops"], sort["device_ms"]
+        record["ops_after_sort"] = record["device_ops"] - 1 - sort["device_ops"]
+    for forms in all_forms:
+        for key in [key for key in forms if key.startswith("runs_")]:
+            runs, form = forms.pop(key), key[len("runs_"):]
+            forms[f"device_ops_{form}"] = runs[0]["device_ops"]
+            forms[f"device_ms_{form}"] = float(np.median([r["device_ms"] for r in runs]))
+    if checks:
+        for label, record in out["vote_runs"].items():
+            assert record["ops_after_sort"] <= 3, (label, record["op_names"])
+            if record["V"] <= 2048:
+                assert record["device_ops"] <= 3, (label, record["op_names"])
+        for label, record in out["pred_plane_step"].items():
+            assert record["device_ops"] == 1, (label, record["op_names"])
+            assert record["work"]["marked"] == record["newly"], (label, record["work"])
+        for label, forms in out["pred_forms"].items():
+            assert all(forms[k] == 1 for k in forms if k.startswith("device_ops_")), (
+                label, forms)
+    log(json.dumps({"redesign": out}))
+    return out
+
+
+def phase_redesign_apart():
+    """Phase 9, with its asserts, in a process of its own
+    (``--redesign --checks``, the libraries already built): after phases
+    1-8, the profiler sessions of the same process lost two of their
+    separator kernels every time, also in sessions of 16 calls.  Its
+    output is passed on; returns its record."""
+    command = [sys.executable, str(ROOT / "chip_smoke.py"), "--redesign", "--checks"]
+    proc = subprocess.run(command, cwd=ROOT, capture_output=True, text=True)
+    sys.stdout.write(proc.stdout)
+    sys.stderr.write(proc.stderr)
+    assert proc.returncode == 0, f"phase 9 failed (rc {proc.returncode})"
+    found = [line for line in proc.stdout.splitlines() if line.startswith('{"redesign"')]
+    assert found, "phase 9 printed no record"
+    return json.loads(found[-1])["redesign"]
+
+
 # the kernels redesigned since the first slices, named in phase 0
 REDESIGNED = ("k_radix_", "k_stable_select", "k_affine_", "k_peel_stage", "k_mc_",
-              "k_prologue_")
+              "k_prologue_", "k_vr_", "k_one_cta", "k_grid")
 
 
 def ptxas_kernels(text):
@@ -2503,8 +2864,11 @@ def main():
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in (ROOT / "fantoch_tpu_torch" / "csrc").glob("*.cu"))
     chain_only = "--general-chain" in sys.argv[1:]
+    redesign_only = "--redesign" in sys.argv[1:]
     if chain_only:  # the general chain alone (also on an older checkout)
         sources = ["graph_general", "graph_plane_step"]
+    if redesign_only:  # phase 9 alone (also on an older checkout)
+        sources = ["graph_plane_step", "pred_plane", "table_plane"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
@@ -2526,6 +2890,10 @@ def main():
     walls = {"phase 0": time.perf_counter() - t0}
     if chain_only:
         phase_chain(torch, K, gp_module, one_launch=False)
+        log(card)
+        return 0
+    if redesign_only:
+        phase_redesign(torch, T, P, K, checks="--checks" in sys.argv[1:])
         log(card)
         return 0
 
@@ -2581,6 +2949,11 @@ def main():
             path: pred_paths[path]["variants"] for path in PRED_PATHS
         }
     records.update(pred_records)
+    redesign = timed("phase 9", phase_redesign_apart)
+    records["vote_runs"]["at_paths_shapes"] = redesign["vote_runs"]
+    records["vote_runs"]["forms"] = redesign["vote_forms"]
+    records["vote_runs"]["newt_sim_calls_by_rows"] = redesign["newt_sim_calls_by_rows"]
+    records["pred_plane_step"]["at_paths_shapes"] = redesign["pred_plane_step"]
     log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": list(records.values())}))
     log(card)

@@ -25,9 +25,12 @@ inline size_t g_smem_bytes = 0;
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
+#define __align__(n) alignas(n)
+#define __launch_bounds__(...)
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 #define cudaSuccess 0
+#define cudaErrorInvalidValue 1
 #define cudaErrorCooperativeLaunchTooLarge 720
 #define cudaErrorNotSupported 801
 inline int cudaGetLastError() { return 0; }
@@ -106,7 +109,13 @@ inline int __syncthreads_or(int v) {
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 template <class T> T atomicAdd(T* p, T v) { return std::atomic_ref<T>(*p).fetch_add(v); }
+template <class T> T atomicSub(T* p, T v) { return std::atomic_ref<T>(*p).fetch_sub(v); }
 template <class T> T atomicOr(T* p, T v) { return std::atomic_ref<T>(*p).fetch_or(v); }
+template <class T> T atomicCAS(T* p, T expected, T v) {
+  std::atomic_ref<T>(*p).compare_exchange_strong(expected, v);
+  return expected;  // the old value, whether or not it was replaced
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 template <class T> T atomicMax(T* p, T v) {
   std::atomic_ref<T> a(*p); T old = a.load();
   while (old < v && !a.compare_exchange_weak(old, v)) {}

@@ -49,7 +49,7 @@ __device__ __forceinline__ int wrap_mul(int a, int b) {
 }
 
 // ---------------------------------------------------------------------------
-// segmented running max (shared by clock_proposal and vote_runs)
+// segmented running max (clock_proposal)
 // ---------------------------------------------------------------------------
 // The combiner of table_ops._seg_max_combiner: (a, b) -> (b.seg, a.seg ==
 // b.seg ? max(a.val, b.val) : b.val).  It is associative when equal segment
@@ -141,63 +141,6 @@ static int seg_scan(const int32_t* seg, const int32_t* val, int32_t* out,
   k_seg_carry<<<1, SCAN_BLOCK, 0, stream>>>(tseg, tval, cseg, cval, nb);
   CHECK_LAUNCH();
   k_seg_apply<<<nb, SCAN_BLOCK, 0, stream>>>(seg, val, cseg, cval, out, n);
-  CHECK_LAUNCH();
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
-// inclusive count scan (the run ids of vote_runs)
-// ---------------------------------------------------------------------------
-
-__device__ int block_incl_sum(int x, int* sh) {
-  sh[threadIdx.x] = x;
-  __syncthreads();
-  for (int off = 1; off < (int)blockDim.x; off <<= 1) {
-    int y = threadIdx.x >= off ? sh[threadIdx.x - off] : 0;
-    __syncthreads();
-    sh[threadIdx.x] += y;
-    __syncthreads();
-  }
-  return sh[threadIdx.x];
-}
-
-__global__ void k_sum_reduce(const int32_t* x, int32_t* bsum, int n) {
-  __shared__ int sh[SCAN_BLOCK];
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int inc = block_incl_sum(i < n ? x[i] : 0, sh);
-  if (threadIdx.x == blockDim.x - 1) bsum[blockIdx.x] = inc;
-}
-
-__global__ void k_sum_carry(const int32_t* bsum, int32_t* carry, int nb) {
-  __shared__ int sh[SCAN_BLOCK];
-  int running = 0;
-  for (int base = 0; base < nb; base += blockDim.x) {
-    int t = base + threadIdx.x;
-    int x = t < nb ? bsum[t] : 0;
-    int inc = block_incl_sum(x, sh);
-    if (t < nb) carry[t] = running + inc - x;
-    running += sh[blockDim.x - 1];
-    __syncthreads();
-  }
-}
-
-__global__ void k_sum_apply(const int32_t* x, int32_t* y, const int32_t* carry, int n) {
-  __shared__ int sh[SCAN_BLOCK];
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int inc = block_incl_sum(i < n ? x[i] : 0, sh);
-  if (i < n) y[i] = inc + carry[blockIdx.x];
-}
-
-// y = inclusive prefix sum of x (counts: never past 2^31); scratch holds
-// 2 * nblocks ints
-static int count_scan(const int32_t* x, int32_t* y, int32_t* scratch, int n,
-                      cudaStream_t stream) {
-  int nb = (int)grid_for(n, SCAN_BLOCK);
-  k_sum_reduce<<<nb, SCAN_BLOCK, 0, stream>>>(x, scratch, n);
-  CHECK_LAUNCH();
-  k_sum_carry<<<1, SCAN_BLOCK, 0, stream>>>(scratch, scratch + nb, nb);
-  CHECK_LAUNCH();
-  k_sum_apply<<<nb, SCAN_BLOCK, 0, stream>>>(x, y, scratch + nb, n);
   CHECK_LAUNCH();
   return 0;
 }
@@ -297,6 +240,404 @@ extern "C" int tp_clock_bump(const int32_t* idx, const int32_t* val, int32_t* pr
 // ---------------------------------------------------------------------------
 // vote_runs (on the (group, start)-sorted vote ranges)
 // ---------------------------------------------------------------------------
+// After tp_votes_gid and lex_sort, three stages over tiles of VR_ROWS rows
+// (or run slots) a thread, each the reference's lines in order:
+//   1. gather: the sorted groups, starts and ends into scratch (the key,
+//      process and validity are read at the run heads alone, through the
+//      order), and each tile's aggregate of the group-segmented running max
+//      of the ends;
+//   2. runs: the running max end (the carry from the gather's aggregates of
+//      the tiles before), the run heads (a group head, or a start past the
+//      group's running max end + 1), and one scan of (run heads, max end
+//      since the last head, last head index): a run's last row knows its
+//      run id, head and end (the max of its ends, whatever their order
+//      against the starts), writes the run columns and residual, and keeps
+//      the frontier cell's value f0 for its slot;
+//   3. extend: the slots past the last run take the reference's fill (key
+//      and by 0, the first sorted start, end INT_MIN; a tile wholly past
+//      it only that, with no scan); every valid run
+//      computes what it raises its cell to (its end where it extends, else
+//      0), a max scan segmented by cell gives each cell's, and the cell's
+//      last run is its only writer: max(f0, that).  The slots that are not
+//      valid runs all raise frontier[0, 0] to at least 0 (the reference's
+//      .at[0, 0].max(0)): that is one write, folded into the writer of cell
+//      (0, 0) where a valid run has it, else made by slot V - 1.
+// Every read of the frontier (f0, stage 2) happens before any write
+// (stage 3): in the multi-block form the stages are separate launches on
+// one stream; in the one-CTA form a block barrier stands between them and
+// stage 3 reads each cell's f0 from its run slot, never from the frontier,
+// except in slot V - 1's write of cell (0, 0), which no other thread
+// writes or reads then.  No same-address atomic: a run slot is written by
+// its run's last row alone, a frontier cell by its last run alone.
+//
+// The forms: up to a one-CTA gate (the wrapper's), one block runs the three
+// stages with block barriers between them (one launch); above it each stage
+// is a launch of tiles, and the scans of stages 2 and 3 carry across tiles
+// by decoupled look-back (Merrill & Garland): a tile publishes its
+// aggregate, a warp combines its predecessors' (stopping at the nearest
+// inclusive prefix), then the tile publishes its inclusive prefix.  Tiles
+// take their index from a ticket (atomicAdd), so a tile waits only on
+// tiles that already run.  Stage 1 zeroes the status flags and tickets of
+// stages 2 and 3, so nothing is memset.
+
+#define VR_ROWS 4         // rows (or run slots) a thread
+#define VR_STATUS 8       // ints of a tile's look-back status
+#define VR_FLAG_AGG 1     // the tile's aggregate is published
+#define VR_FLAG_INCL 2    // its inclusive prefix is published
+#define VR_CTA_MAX 1024   // the one-CTA form's largest block
+
+// the group-segmented running max (segment ids contiguous): (segment id,
+// max since the segment's first row); `any` is false for the empty prefix
+struct SegMax {
+  int any, seg, val;
+  __device__ static SegMax none() { return {0, 0, 0}; }
+  __device__ static SegMax of(int seg, int val) { return {1, seg, val}; }
+  __device__ void put(int32_t* p) const {
+    p[0] = any;
+    p[1] = seg;
+    p[2] = val;
+  }
+  __device__ static SegMax get(const int32_t* p) {
+    const volatile int32_t* q = p;
+    return {q[0], q[1], q[2]};
+  }
+};
+__device__ __forceinline__ SegMax combine(SegMax a, SegMax b) {
+  if (!a.any) return b;
+  if (!b.any) return a;
+  return {1, b.seg, a.seg == b.seg ? max(a.val, b.val) : b.val};
+}
+__device__ __forceinline__ SegMax shfl(SegMax x, int src) {
+  return {__shfl_sync(0xffffffffu, x.any, src), __shfl_sync(0xffffffffu, x.seg, src),
+          __shfl_sync(0xffffffffu, x.val, src)};
+}
+
+// the run scan: run heads so far, the max end since the last head, the
+// last head's row
+struct RunScan {
+  int cnt, mx, head;
+  __device__ static RunScan none() { return {0, INT_MIN, -1}; }
+  __device__ void put(int32_t* p) const {
+    p[0] = cnt;
+    p[1] = mx;
+    p[2] = head;
+  }
+  __device__ static RunScan get(const int32_t* p) {
+    const volatile int32_t* q = p;
+    return {q[0], q[1], q[2]};
+  }
+};
+__device__ __forceinline__ RunScan combine(RunScan a, RunScan b) {
+  return {a.cnt + b.cnt, b.cnt ? b.mx : max(a.mx, b.mx), max(a.head, b.head)};
+}
+__device__ __forceinline__ RunScan shfl(RunScan x, int src) {
+  return {__shfl_sync(0xffffffffu, x.cnt, src), __shfl_sync(0xffffffffu, x.mx, src),
+          __shfl_sync(0xffffffffu, x.head, src)};
+}
+
+// the exclusive scan of x over the block (threads in order), and the block's
+// total; blockDim.x a multiple of 32, every thread must call it.  sh holds
+// 32 states.
+template <class S>
+__device__ S block_exclusive(S x, S* sh, S* total) {
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  S inc = x;
+  for (int d = 1; d < 32; d <<= 1) {
+    S y = shfl(inc, lane >= d ? lane - d : lane);
+    if (lane >= d) inc = combine(y, inc);
+  }
+  S ex = shfl(inc, lane > 0 ? lane - 1 : 0);
+  if (lane == 0) ex = S::none();
+  if (lane == 31) sh[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    S w = lane < nw ? sh[lane] : S::none();
+    for (int d = 1; d < 32; d <<= 1) {
+      S y = shfl(w, lane >= d ? lane - d : lane);
+      if (lane >= d) w = combine(y, w);
+    }
+    sh[lane] = w;
+  }
+  __syncthreads();
+  S pre = warp > 0 ? sh[warp - 1] : S::none();
+  *total = sh[nw - 1];
+  __syncthreads();
+  return combine(pre, ex);
+}
+
+// decoupled look-back for tile `tile` of total `total`: publishes the
+// aggregate, combines the tiles before it (a warp reads 32 statuses at a
+// time, back to the nearest inclusive prefix), publishes the inclusive
+// prefix and returns the exclusive one to every thread of the block.
+// status: VR_STATUS ints a tile (flag, aggregate, inclusive prefix),
+// flags zeroed before the launch.
+template <class S>
+__device__ S look_back(int32_t* status, int tile, S total, S* sh) {
+  int32_t* mine = status + (long)tile * VR_STATUS;
+  if (threadIdx.x == 0) {
+    total.put(mine + 1);
+    __threadfence();
+    *(volatile int32_t*)mine = VR_FLAG_AGG;
+  }
+  if (threadIdx.x < 32) {
+    int lane = threadIdx.x;
+    S acc = S::none();
+    for (int base = tile - 1;; base -= 32) {
+      int j = base - lane;
+      int flag = VR_FLAG_INCL;
+      S v = S::none();
+      if (j >= 0) {
+        const int32_t* st = status + (long)j * VR_STATUS;
+        while ((flag = *(const volatile int32_t*)st) == 0) {
+        }
+        __threadfence();
+        v = S::get(st + (flag == VR_FLAG_INCL ? 4 : 1));
+      }
+      unsigned incl = __ballot_sync(0xffffffffu, flag == VR_FLAG_INCL);
+      int stop = incl ? __ffs(incl) - 1 : 31;
+      if (lane > stop) v = S::none();
+      // lane 0 takes the window's combination, the farthest tile first
+      for (int d = 1; d < 32; d <<= 1) {
+        S y = shfl(v, lane + d < 32 ? lane + d : lane);
+        if (lane + d < 32) v = combine(y, v);
+      }
+      acc = combine(shfl(v, 0), acc);
+      if (incl) break;
+    }
+    if (lane == 0) {
+      combine(acc, total).put(mine + 4);
+      __threadfence();
+      *(volatile int32_t*)mine = VR_FLAG_INCL;
+      sh[0] = acc;
+    }
+  }
+  __syncthreads();
+  S out = sh[0];
+  __syncthreads();
+  return out;
+}
+
+// a tile's index in the multi-block form: from the stage's ticket
+__device__ int take_tile(int32_t* ticket) {
+  __shared__ int tile;
+  if (threadIdx.x == 0) tile = atomicAdd(ticket, 1);
+  __syncthreads();
+  int t = tile;
+  __syncthreads();
+  return t;
+}
+
+// the call's columns, outputs and scratch
+struct VoteRuns {
+  const int32_t *order, *gid, *vkey, *vby, *vstart, *vend;
+  const uint8_t* valid;
+  int32_t* frontier;
+  int32_t *run_key, *run_by, *run_start, *run_end;
+  uint8_t* residual;
+  // scratch: the sorted groups, starts and ends, f0 per run slot, the
+  // gather's tile aggregates, the run count, the look-back statuses and
+  // tickets of stages 2 and 3; each run slot's validity
+  int32_t *g, *s, *e, *f0;
+  int32_t *agg_seg, *agg_val, *num_runs, *status2, *status3, *tickets;
+  uint8_t* rv;
+  int V, n;
+};
+
+// stage 1: the tile's sorted rows and its aggregate of the running max end;
+// zeroes the tile's status flags of stages 2 and 3 (and tile 0 the tickets)
+__device__ void vr_gather(const VoteRuns& c, int tile) {
+  __shared__ SegMax sh[32];
+  long base = ((long)tile * blockDim.x + threadIdx.x) * VR_ROWS;
+  SegMax agg = SegMax::none();
+  for (int k = 0; k < VR_ROWS; ++k) {
+    long i = base + k;
+    if (i >= c.V) break;
+    int j = c.order[i];
+    int gi = c.gid[j], ei = c.vend[j];
+    c.g[i] = gi;
+    c.s[i] = c.vstart[j];
+    c.e[i] = ei;
+    agg = combine(agg, SegMax::of(gi, ei));
+  }
+  SegMax total;
+  block_exclusive(agg, sh, &total);
+  if (threadIdx.x == 0) {
+    c.agg_seg[tile] = total.seg;
+    c.agg_val[tile] = total.val;
+    c.status2[(long)tile * VR_STATUS] = 0;
+    c.status3[(long)tile * VR_STATUS] = 0;
+    if (tile == 0) c.tickets[0] = c.tickets[1] = 0;
+  }
+}
+
+// the max of x over the block; every thread must call it
+__device__ int block_max(int x) {
+  __shared__ SegMax sh[32];
+  SegMax total;
+  block_exclusive(SegMax::of(0, x), sh, &total);
+  return total.val;
+}
+
+// stage 2: run heads, run ids, the run columns, residual and f0
+__device__ void vr_runs(const VoteRuns& c, int tile, bool multi) {
+  __shared__ SegMax sh1[32];
+  __shared__ RunScan sh2[32];
+  // the running max end at the row before the tile: the gather's aggregates
+  // of the tiles before it on the last one's segment (segments are
+  // contiguous, so those tiles hold nothing but it after their first row of
+  // it, and each aggregate is its max there)
+  SegMax carry = SegMax::none();
+  if (tile > 0) {
+    int seg = c.agg_seg[tile - 1];
+    int m = INT_MIN;
+    for (int j = threadIdx.x; j < tile; j += blockDim.x)
+      if (c.agg_seg[j] == seg) m = max(m, c.agg_val[j]);
+    carry = SegMax::of(seg, block_max(m));
+  }
+  long base = ((long)tile * blockDim.x + threadIdx.x) * VR_ROWS;
+  int gk[VR_ROWS], sk[VR_ROWS], ek[VR_ROWS];
+  SegMax t1 = SegMax::none();
+  for (int k = 0; k < VR_ROWS; ++k) {
+    long i = base + k;
+    gk[k] = i < c.V ? c.g[i] : 0;
+    sk[k] = i < c.V ? c.s[i] : 0;
+    ek[k] = i < c.V ? c.e[i] : 0;
+    if (i < c.V) t1 = combine(t1, SegMax::of(gk[k], ek[k]));
+  }
+  SegMax tot1;
+  SegMax prev = combine(carry, block_exclusive(t1, sh1, &tot1));
+  // the run heads (the group head masks row 0's wrapped prev_max, as
+  // jnp.roll's); rme: the running max end at each row
+  int rme[VR_ROWS];
+  RunScan t2 = RunScan::none();
+  bool nr[VR_ROWS];
+  for (int k = 0; k < VR_ROWS; ++k) {
+    long i = base + k;
+    if (i >= c.V) break;
+    bool head = !prev.any || prev.seg != gk[k];
+    nr[k] = head || sk[k] > wrap_add(prev.val, 1);
+    prev = combine(prev, SegMax::of(gk[k], ek[k]));
+    rme[k] = prev.val;
+    t2 = combine(t2, nr[k] ? RunScan{1, ek[k], (int)i} : RunScan{0, ek[k], -1});
+  }
+  RunScan tot2;
+  RunScan run = block_exclusive(t2, sh2, &tot2);
+  if (multi) run = combine(look_back(c.status2, tile, tot2, sh2), run);
+  for (int k = 0; k < VR_ROWS; ++k) {
+    long i = base + k;
+    if (i >= c.V) break;
+    run = combine(run, nr[k] ? RunScan{1, ek[k], (int)i} : RunScan{0, ek[k], -1});
+    bool last = i == c.V - 1 || c.g[i + 1] != gk[k] || c.s[i + 1] > wrap_add(rme[k], 1);
+    if (!last) continue;
+    int r = run.cnt - 1, h = run.head, jh = c.order[h];
+    bool valid = c.valid[jh];
+    int key = valid ? c.vkey[jh] : 0, by = valid ? c.vby[jh] : 0;
+    int start = c.s[h], end = run.mx;
+    int f0 = c.frontier[(long)key * c.n + by];
+    int f1 = wrap_add(f0, 1);
+    c.run_key[r] = key;
+    c.run_by[r] = by;
+    c.run_start[r] = start;
+    c.run_end[r] = end;
+    c.residual[r] = valid && start > f1 && end > f0;
+    c.f0[r] = f0;
+    c.rv[r] = valid;
+    if (i == c.V - 1) *c.num_runs = run.cnt;
+  }
+}
+
+// stage 3: the fill of the slots past the last run, and the frontier
+__device__ void vr_extend(const VoteRuns& c, int tile, bool multi) {
+  __shared__ SegMax sh[32];
+  int runs = *c.num_runs;
+  // some slot is not a valid run (the invalid group sorts last)
+  bool spare = runs < c.V || !c.rv[runs - 1];
+  bool cell0 = c.rv[0] && c.run_key[0] == 0 && c.run_by[0] == 0;
+  long first = (long)tile * blockDim.x * VR_ROWS;
+  if (multi && first >= runs) {
+    // a tile past the last run (as every later one): the reference's fill,
+    // slots striped over the threads so the stores coalesce, and no scan,
+    // since no tile after it reads its prefix
+    long last = first + (long)blockDim.x * VR_ROWS;
+    last = last < c.V ? last : c.V;
+    int start0 = c.s[0];
+    for (long r = first + threadIdx.x; r < last; r += blockDim.x) {
+      c.run_key[r] = 0;
+      c.run_by[r] = 0;
+      c.run_start[r] = start0;
+      c.run_end[r] = INT_MIN;
+      c.residual[r] = 0;
+    }
+    if (threadIdx.x == 0 && last == c.V && spare && !cell0 && c.frontier[0] < 0)
+      c.frontier[0] = 0;
+    return;
+  }
+  long base = first + (long)threadIdx.x * VR_ROWS;
+  SegMax el[VR_ROWS];
+  SegMax t = SegMax::none();
+  for (int k = 0; k < VR_ROWS; ++k) {
+    long r = base + k;
+    el[k] = SegMax::none();
+    if (r >= c.V) break;
+    if (r >= runs) {
+      c.run_key[r] = 0;
+      c.run_by[r] = 0;
+      c.run_start[r] = c.s[0];
+      c.run_end[r] = INT_MIN;
+      c.residual[r] = 0;
+      el[k] = SegMax::of(-1, 0);
+    } else if (!c.rv[r]) {
+      el[k] = SegMax::of(-1, 0);
+    } else {
+      int f0 = c.f0[r], end = c.run_end[r];
+      bool extends = c.run_start[r] <= wrap_add(f0, 1) && end > f0;
+      el[k] = SegMax::of(c.run_key[r] * c.n + c.run_by[r], extends ? end : 0);
+    }
+    t = combine(t, el[k]);
+  }
+  SegMax total;
+  SegMax acc = block_exclusive(t, sh, &total);
+  if (multi) acc = combine(look_back(c.status3, tile, total, sh), acc);
+  for (int k = 0; k < VR_ROWS; ++k) {
+    long r = base + k;
+    if (r >= c.V) break;
+    acc = combine(acc, el[k]);
+    if (r < runs && c.rv[r]) {
+      int cell = acc.seg;
+      bool last = r == runs - 1 || !c.rv[r + 1] ||
+                  c.run_key[r + 1] * c.n + c.run_by[r + 1] != cell;
+      if (last) {
+        int f0 = c.f0[r];
+        int raised = max(f0, acc.val);
+        if (cell == 0 && spare) raised = max(raised, 0);
+        if (raised != f0) c.frontier[(long)c.run_key[r] * c.n + c.run_by[r]] = raised;
+      }
+    }
+    if (r == c.V - 1 && spare && !cell0 && c.frontier[0] < 0) c.frontier[0] = 0;
+  }
+}
+
+__global__ void __launch_bounds__(VR_CTA_MAX) k_vr_gather(VoteRuns c) {
+  vr_gather(c, blockIdx.x);
+}
+
+__global__ void __launch_bounds__(VR_CTA_MAX) k_vr_runs(VoteRuns c) {
+  vr_runs(c, take_tile(c.tickets), true);
+}
+
+__global__ void __launch_bounds__(VR_CTA_MAX) k_vr_extend(VoteRuns c) {
+  vr_extend(c, take_tile(c.tickets + 1), true);
+}
+
+// one CTA: the three stages in one launch, block barriers between them (the
+// kernels are bounded for blocks of VR_CTA_MAX threads)
+__global__ void __launch_bounds__(VR_CTA_MAX) k_vr_cta(VoteRuns c) {
+  vr_gather(c, 0);
+  __syncthreads();
+  vr_runs(c, 0, false);
+  __syncthreads();
+  vr_extend(c, 0, false);
+}
 
 // the sort group: key * n + by, invalid rows one shared group K * n
 __global__ void k_votes_gid(const int32_t* vkey, const int32_t* vby,
@@ -314,125 +655,66 @@ extern "C" int tp_votes_gid(const int32_t* vkey, const int32_t* vby, const uint8
   return (int)cudaGetLastError();
 }
 
-__global__ void k_votes_gather(const int32_t* order, const int32_t* gid,
-                               const int32_t* vstart, const int32_t* vend,
-                               const uint8_t* valid, const int32_t* vkey,
-                               const int32_t* vby, int32_t* g, int32_t* s, int32_t* e,
-                               uint8_t* vs, int32_t* ko, int32_t* bo, int V) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= V) return;
-  int j = order[i];
-  g[i] = gid[j];
-  s[i] = vstart[j];
-  e[i] = vend[j];
-  vs[i] = valid[j];
-  ko[i] = vkey[j];
-  bo[i] = vby[j];
-}
-
-// a run starts at a group head or where the start clears the group's
-// running max end by more than one (prev_max wraps at row 0 like jnp.roll;
-// the group head masks it there)
-__global__ void k_votes_newrun(const int32_t* g, const int32_t* s, const int32_t* rme,
-                               int32_t* nr, int32_t* run_end, int32_t* run_head, int V) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= V) return;
-  bool head = i == 0 || g[i] != g[i - 1];
-  int prev = rme[i == 0 ? V - 1 : i - 1];
-  nr[i] = head || s[i] > wrap_add(prev, 1) ? 1 : 0;
-  run_end[i] = INT_MIN;
-  run_head[i] = 0;
-}
-
-__global__ void k_votes_scatter(const int32_t* cnt, const int32_t* e, const int32_t* nr,
-                                int32_t* run_end, int32_t* run_head, int V) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= V) return;
-  int r = cnt[i] - 1;  // the run id
-  atomicMax(&run_end[r], e[i]);
-  atomicMax(&run_head[r], nr[i] ? i : 0);
-}
-
-// one thread per run slot: the run columns, f0 (read before any frontier
-// write: the update is the next launch), extends and residual
-__global__ void k_votes_runs(const int32_t* cnt, const int32_t* run_head,
-                             const int32_t* run_end, const uint8_t* vs,
-                             const int32_t* ko, const int32_t* bo, const int32_t* s,
-                             const int32_t* frontier, int32_t* run_key,
-                             int32_t* run_by, int32_t* run_start, int32_t* ext,
-                             uint8_t* residual, int V, int n) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= V) return;
-  int num_runs = cnt[V - 1];
-  int h = run_head[r];
-  bool valid = r < num_runs && vs[h];
-  int k = valid ? ko[h] : 0;
-  int b = valid ? bo[h] : 0;
-  int st = s[h];
-  int re = run_end[r];
-  int f0 = frontier[(long)k * n + b];
-  int f1 = wrap_add(f0, 1);
-  bool extends = valid && st <= f1 && re > f0;
-  run_key[r] = k;
-  run_by[r] = b;
-  run_start[r] = st;
-  ext[r] = extends ? re : 0;
-  residual[r] = valid && st > f1 && re > f0;
-}
-
-// frontier.at[run_key, run_by].max(where(extends, run_end, 0)), every slot
-// (slots that are not runs scatter 0 into frontier[0, 0], as the reference)
-__global__ void k_votes_extend(const int32_t* run_key, const int32_t* run_by,
-                               const int32_t* ext, int32_t* frontier, int V, int n) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < V) atomicMax(&frontier[(long)run_key[r] * n + run_by[r]], ext[r]);
-}
-
-// order: the (gid, vstart) lexsort permutation (lex_sort).  scratch: the
-// sorted columns g, s, e, ko, bo, the running max end, nr, cnt, ext,
-// run_head (10 * V ints), vs (V bytes, after them) and 4 * nblocks for
-// the scans
+// order: the (gid, vstart) lexsort permutation (lex_sort).  cta: one block
+// for the three stages (V <= VR_CTA_MAX * VR_ROWS), else tiles of `block`
+// threads (a multiple of 32, at most 1024).  scratch: 4 * V + 18 * tiles +
+// 3 ints, then V bytes
 extern "C" int tp_vote_runs(const int32_t* order, const int32_t* gid,
                             const int32_t* vkey, const int32_t* vby,
                             const int32_t* vstart, const int32_t* vend,
                             const uint8_t* valid, int32_t* frontier, int32_t* run_key,
                             int32_t* run_by, int32_t* run_start, int32_t* run_end,
-                            uint8_t* residual, int32_t* scratch, int V, int n,
-                            cudaStream_t stream) {
+                            uint8_t* residual, int32_t* scratch, int V, int n, int cta,
+                            int block, cudaStream_t stream) {
   if (V <= 0) return 0;
-  int32_t* g = scratch;
-  int32_t* s = scratch + 1L * V;
-  int32_t* e = scratch + 2L * V;
-  int32_t* ko = scratch + 3L * V;
-  int32_t* bo = scratch + 4L * V;
-  int32_t* rme = scratch + 5L * V;
-  int32_t* nr = scratch + 6L * V;
-  int32_t* cnt = scratch + 7L * V;
-  int32_t* ext = scratch + 8L * V;
-  int32_t* run_head = scratch + 9L * V;
-  int32_t* scan_tmp = scratch + 10L * V;
-  uint8_t* vs = (uint8_t*)(scan_tmp + 4L * grid_for(V, SCAN_BLOCK));
-  unsigned grid = grid_for(V, EW_BLOCK);
-  k_votes_gather<<<grid, EW_BLOCK, 0, stream>>>(order, gid, vstart, vend, valid, vkey,
-                                                vby, g, s, e, vs, ko, bo, V);
-  CHECK_LAUNCH();
-  int err = seg_scan(g, e, rme, scan_tmp, V, stream);
-  if (err) return err;
-  k_votes_newrun<<<grid, EW_BLOCK, 0, stream>>>(g, s, rme, nr, run_end, run_head, V);
-  CHECK_LAUNCH();
-  err = count_scan(nr, cnt, scan_tmp, V, stream);
-  if (err) return err;
-  k_votes_scatter<<<grid, EW_BLOCK, 0, stream>>>(cnt, e, nr, run_end, run_head, V);
-  CHECK_LAUNCH();
-  k_votes_runs<<<grid, EW_BLOCK, 0, stream>>>(cnt, run_head, run_end, vs, ko, bo, s,
-                                              frontier, run_key, run_by, run_start, ext,
-                                              residual, V, n);
-  CHECK_LAUNCH();
-  k_votes_extend<<<grid, EW_BLOCK, 0, stream>>>(run_key, run_by, ext, frontier, V, n);
-  CHECK_LAUNCH();
+  if (cta) {
+    block = 32;
+    while (block * VR_ROWS < V && block < VR_CTA_MAX) block *= 2;
+    if (block * VR_ROWS < V) return (int)cudaErrorInvalidValue;
+  } else if (block <= 0 || block % 32 || block > 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
+  long tiles = cta ? 1 : (V + (long)block * VR_ROWS - 1) / ((long)block * VR_ROWS);
+  VoteRuns c;
+  c.order = order;
+  c.gid = gid;
+  c.vkey = vkey;
+  c.vby = vby;
+  c.vstart = vstart;
+  c.vend = vend;
+  c.valid = valid;
+  c.frontier = frontier;
+  c.run_key = run_key;
+  c.run_by = run_by;
+  c.run_start = run_start;
+  c.run_end = run_end;
+  c.residual = residual;
+  c.g = scratch;
+  c.s = c.g + V;
+  c.e = c.s + V;
+  c.f0 = c.e + V;
+  c.agg_seg = c.f0 + V;
+  c.agg_val = c.agg_seg + tiles;
+  c.status2 = c.agg_val + tiles;
+  c.status3 = c.status2 + tiles * VR_STATUS;
+  c.num_runs = c.status3 + tiles * VR_STATUS;
+  c.tickets = c.num_runs + 1;
+  c.rv = (uint8_t*)(c.tickets + 2);
+  c.V = V;
+  c.n = n;
+  if (cta) {
+    k_vr_cta<<<1, block, 0, stream>>>(c);
+    CHECK_LAUNCH();
+  } else {
+    k_vr_gather<<<(unsigned)tiles, block, 0, stream>>>(c);
+    CHECK_LAUNCH();
+    k_vr_runs<<<(unsigned)tiles, block, 0, stream>>>(c);
+    CHECK_LAUNCH();
+    k_vr_extend<<<(unsigned)tiles, block, 0, stream>>>(c);
+    CHECK_LAUNCH();
+  }
   return (int)cudaGetLastError();
 }
-
 // ---------------------------------------------------------------------------
 // stable_rows: the (n - threshold)-th smallest frontier of each key, with
 // the table round's dense vote update before it and executable after it

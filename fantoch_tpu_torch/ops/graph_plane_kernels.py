@@ -112,14 +112,12 @@ _SIGNATURES = {
     "tp_clock_proposal": ("table_plane", "p" * 7 + "i"),
     "tp_clock_bump": ("table_plane", "ppp" + "i"),
     "tp_votes_gid": ("table_plane", "pppp" + "iii"),
-    "tp_vote_runs": ("table_plane", "p" * 14 + "ii"),
+    "tp_vote_runs": ("table_plane", "p" * 14 + "iiii"),
     "tp_stable_only": ("table_plane", "pp" + "iii"),
     "tp_stable_rows": ("table_plane", "p" * 9 + "i" * 5),
     # the predecessors plane's launchers (wrapper in ops/pred_kernels.py)
-    "pp_one_cta": ("pred_plane", "p" * 14 + "iiii"),
-    "pp_grid_prepare": ("pred_plane", "p" * 14 + "iiii"),
-    "pp_grid_sweeps": ("pred_plane", "ppp" + "iii"),
-    "pp_grid_finish": ("pred_plane", "ppp" + "i"),
+    "pp_one_cta": ("pred_plane", "p" * 15 + "iiii"),
+    "pp_grid": ("pred_plane", "p" * 15 + "i" * 5),
 }
 _lib_handles: Dict[str, ctypes.CDLL] = {}
 

@@ -5,16 +5,17 @@ These replace the TPU kernel ``pred_plane_step_pallas``
 the Pallas twin of ``resolve_pred_plane_step_xla`` in
 fantoch_tpu/ops/pred_resolve.py:123).  On the TPU it is one program whose
 whole window sits in VMEM; on an H100 ``pred_plane_step`` runs
-``csrc/pred_plane.cu`` in one of two variants:
+``csrc/pred_plane.cu`` as one launch a dispatch, in one of two forms of
+the same phases:
 
-* **one CTA** when the fixpoint's working set (a wait target per dep cell
-  and a state byte per row) fits :data:`ONE_CTA_SMEM_BYTES` of shared
-  memory: one launch installs, patches, prepares and sweeps to the
-  fixpoint inside the block;
-* **grid-wide** above that: install, patch and prepare as three launches,
-  then sweeps of one thread a row, :data:`SWEEPS_PER_READ` enqueued
-  between host reads of their change flags (each returns at once once a
-  sweep changed nothing), then the finish.
+* **one CTA** up to :data:`ONE_CTA_ROWS` rows, where its working set
+  (:func:`one_cta_smem_bytes`: the counts, the reverse-edge CSR, the
+  worklist and the state bytes) fits :data:`ONE_CTA_SMEM_BYTES` of shared
+  memory (each row's packed clock, src, occupancy and state, and each
+  cell's edge target, kept between two passes, in device memory);
+* **grid** above that: one cooperative launch of :data:`GRID_BLOCK`-thread
+  blocks clamped to the co-resident grid, a grid barrier between phases,
+  the working set in one scratch allocation a dispatch.
 
 As in ``ops/graph_plane_kernels.py`` the wrapper has a plain PyTorch
 version (``pred_plane_step_plain``) that it runs for CPU tensors and that
@@ -37,18 +38,17 @@ which the plane never sends).  A dep index at or past ``C`` reads row
 Bound: bytes.  The step must read the feed, write the installed rows and
 patched cells, read every pending row's dep cells and its targets' clock,
 src and occupancy, read ``executed`` and write ``executed`` and
-``newly``; with ``never_blocks`` computed once a dispatch, each further
-sweep costs a pending row's wait targets and their state bytes.  The
-number of sweeps grows with the longest dependency chain the dispatch
-completes (a same-key chain finishes up to one link a sweep where the
-blocks run side by side, several where one thread walks the chain's rows
-in order), so a hot-key feed costs many sweeps: ``last_sweeps`` reports
-them.  Design: the wait targets are computed once (``never_blocks``
-folded into a -1 target); the one-CTA variant keeps them and the state
-bytes in shared memory and needs one launch and no host read; the
-grid-wide variant keeps them in device memory, skips non-pending rows
-with one byte read, and pays one host read every
-:data:`SWEEPS_PER_READ` sweeps.
+``newly``.  Design: the least fixpoint as propagation along reverse
+edges instead of sweeps of the whole window.  Each pending row counts its
+wait cells whose target is not done; the cells whose target is pending
+are the reverse edges, built as a CSR (a degree a target, a scan, a fill).
+Rows with a count of 0 are the seeds; a thread marking a row done takes
+one from each waiter's count, marks the first waiter it takes to 0 itself
+and carries on down the chain, and pushes the others onto a worklist all
+threads drain.  A same-key chain is thus walked at memory latency, one
+link after another, where a sweep advanced it by about a link over the
+whole window.  ``last_work`` reports the rows the propagation marked (the
+dispatch's ``newly`` rows) and the rows it pushed onto the worklist.
 """
 
 from __future__ import annotations
@@ -63,18 +63,26 @@ TERMINAL = K.TERMINAL
 MISSING = K.MISSING
 
 LAUNCHES: Dict[str, int] = {"pred_plane_step": 0}
-# launches by variant (a breakdown of LAUNCHES["pred_plane_step"])
+# launches by form (a breakdown of LAUNCHES["pred_plane_step"])
 VARIANT_LAUNCHES: Dict[str, int] = {"one_cta": 0, "grid": 0}
 
-# the one-CTA variant's shared-memory gate (the card allows 227 KB of
-# dynamic shared memory a block; the rest is slack)
+# the one-CTA form's gates: its working set within this much shared memory
+# (the card allows 227 KB of dynamic shared memory a block; the rest is
+# slack), and at most ONE_CTA_ROWS rows, the crossover chip_smoke.py phase 9
+# measures (both forms on the same dispatches, on an H100: one CTA ahead
+# at 1,024 and 2,048 rows; at 4,096 ahead by 3% in one run and behind by
+# 17% in two; the grid ahead at 8,192)
 ONE_CTA_SMEM_BYTES = 200 * 1024
-# grid-wide sweeps enqueued between two host reads of their flags
-SWEEPS_PER_READ = 16
+ONE_CTA_ROWS = 2048
+# threads a block of the grid form (a multiple of 32)
+GRID_BLOCK = 256
+# most blocks of the grid form (csrc/pred_plane.cu PP_PARTS): the scratch
+# holds a partial sum for each
+_GRID_PARTS = 4096
 
-# the last dispatch's sweep count: an int, or the one-CTA variant's device
-# counter (read on demand by last_sweeps, so the launch stays asynchronous)
-_last_sweeps = {"value": 0}
+# the last dispatch's device counter (marked, pushed), read on demand by
+# last_work so the launch stays asynchronous
+_last_work = {"value": (0, 0)}
 
 
 def reset_launch_counts() -> None:
@@ -83,20 +91,24 @@ def reset_launch_counts() -> None:
             table[name] = 0
 
 
-def last_sweeps() -> int:
-    """Sweeps the last kernel dispatch ran, the last (unchanging) one
-    included."""
-    value = _last_sweeps["value"]
+def last_work() -> Dict[str, int]:
+    """The last kernel dispatch's propagation: ``marked``, the rows it marked
+    done (the dispatch's ``newly`` rows), and ``pushed``, the rows of those
+    that went through the worklist rather than being walked on from the
+    row that readied them (0 along a chain)."""
+    value = _last_work["value"]
     if isinstance(value, torch.Tensor):
-        value = int(value.item())
-        _last_sweeps["value"] = value
-    return value
+        value = tuple(int(x) for x in value.tolist())
+        _last_work["value"] = value
+    return {"marked": value[0], "pushed": value[1]}
 
 
 def one_cta_smem_bytes(cap: int, width: int) -> int:
-    """Shared memory of the one-CTA variant: a wait target per dep cell and
-    a state byte per row."""
-    return cap * width * 4 + cap
+    """Shared memory of the one-CTA form (``csrc/pred_plane.cu``
+    ``one_cta_smem``): 64 ints for reductions, the CSR ends (C + 1), the
+    counts (C), head and tail as ints; the 16-bit adjacency (C * W) and
+    worklist (C); a state byte a row."""
+    return 4 * (64 + 2 * cap + 1 + 2) + 2 * (cap * width + cap) + cap
 
 
 def pred_plane_step_plain(
@@ -165,28 +177,23 @@ def pred_plane_step(
     for t, name in ((p_row, "p_row"), (p_col, "p_col"), (p_val, "p_val")):
         K._check(t, torch.int32, name, P)
     newly = K._b(cap, device)
+    work = K._i32(2, device)
     state = (deps, clock, src, occ, executed)
     feed = (u_row, u_deps, u_clock, u_src, p_row, p_col, p_val)
-    if one_cta_smem_bytes(cap, width) <= ONE_CTA_SMEM_BYTES:
-        sweeps = K._i32(1, device, 0)
-        K._launch("pp_one_cta", device, *state, *feed, newly, sweeps, cap, width, U, P)
-        _last_sweeps["value"] = sweeps
+    if cap <= ONE_CTA_ROWS and one_cta_smem_bytes(cap, width) <= ONE_CTA_SMEM_BYTES:
+        scratch = K._i32(4 * cap + cap * width, device)
+        K._launch("pp_one_cta", device, *state, *feed, newly, work, scratch, cap, width,
+                  U, P)
         VARIANT_LAUNCHES["one_cta"] += 1
     else:
-        wait = K._i32(cap * width, device)
-        st = torch.empty(cap, dtype=torch.uint8, device=device)
-        K._launch("pp_grid_prepare", device, *state, *feed, wait, st, cap, width, U, P)
-        flags = K._i32(SWEEPS_PER_READ + 1, device)
-        total = 0
-        while True:
-            K._launch("pp_grid_sweeps", device, wait, st, flags, cap, width,
-                      SWEEPS_PER_READ)
-            host = flags.to("cpu").tolist()
-            total += sum(1 for f in host[:SWEEPS_PER_READ] if f)
-            if not host[SWEEPS_PER_READ]:
-                break
-        K._launch("pp_grid_finish", device, st, executed, newly, cap)
-        _last_sweeps["value"] = total
+        if GRID_BLOCK <= 0 or GRID_BLOCK % 32:
+            raise ValueError(
+                f"GRID_BLOCK must be a positive multiple of 32 (got {GRID_BLOCK})")
+        scratch = K._i32(
+            7 * cap + 1 + 2 * cap * width + 2 + _GRID_PARTS + (cap + 3) // 4, device)
+        K._launch("pp_grid", device, *state, *feed, newly, work, scratch, cap, width,
+                  U, P, GRID_BLOCK)
         VARIANT_LAUNCHES["grid"] += 1
+    _last_work["value"] = work
     LAUNCHES["pred_plane_step"] += 1
     return deps, clock, src, occ, executed, newly

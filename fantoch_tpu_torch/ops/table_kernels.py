@@ -166,16 +166,30 @@ def clock_bump(prior, idx, clock):
 #    (fantoch_tpu/ops/table_ops.py:260-345)
 # ---------------------------------------------------------------------------
 # Bound: bytes — the five vote columns read, the five run columns written,
-# a gather and a scatter-max of one frontier cell per run.  Design: one
-# launch forms the sort group key * n + by (invalid rows share K * n);
-# lex_sort orders (group, start, index); then one gather of the sorted
-# columns, the segmented running max end (the block scan above), a
-# launch flagging run heads, an inclusive count scan for the run ids,
-# atomicMax scatters of each run's end (from INT32_MIN) and head (from 0),
-# one launch per run slot for the run columns and the extend/residual
-# flags (reading the frontier before any write), and a last launch for the
-# frontier scatter-max.  Slots that are not runs scatter 0 into
-# ``frontier[0, 0]``, as the reference's do.
+# a gather and a write of one frontier cell per run.  Design: one launch
+# forms the sort group key * n + by (invalid rows share K * n); lex_sort
+# orders (group, start, index); then three stages, each a scan of four rows
+# a thread (``csrc/table_plane.cu`` §vote_runs): the gather of the sorted
+# groups, starts and ends (three random reads a row; key, process and
+# validity are read at run heads alone) with each tile's aggregate of the
+# group-segmented running max end; the run heads and one scan of (heads,
+# max end since the last head, last head), whose run-last rows write the
+# run columns, residual and the frontier value f0 their run read; the slots past the last run, and the
+# frontier, each cell written once by its last run (a max scan over the
+# runs segmented by cell) and frontier[0, 0] raised to at least 0 in one
+# write where some slot is not a valid run.  No same-address atomic.  Up to
+# :data:`VOTE_CTA_ROWS` rows one block runs the three stages with block
+# barriers between them: one launch.  Above, each stage is a launch of
+# tiles of :data:`VOTE_BLOCK` threads, the scans carried across tiles by
+# decoupled look-back; one scratch allocation a call, no memset.
+
+# one CTA wherever it fits (1,024 threads of four rows): on an H100 it was
+# ahead of the tiles at every row count it takes, 256 to 4,096
+# (chip_smoke.py phase 9)
+VOTE_CTA_ROWS = 4096
+# threads a tile of the multi-block form (a multiple of 32, at most 1,024)
+VOTE_BLOCK = 1024
+VOTE_ROWS = 4  # rows a thread (csrc/table_plane.cu VR_ROWS)
 
 
 def vote_runs_plain(frontier, vkey, vby, vstart, vend, valid):
@@ -234,10 +248,14 @@ def vote_runs(frontier, vkey, vby, vstart, vend, valid):
     order = K.lex_sort([gid, vstart])
     run_key, run_by, run_start, run_end = (K._i32(V, device) for _ in range(4))
     residual = K._b(V, device)
-    scratch = K._i32(10 * V + 4 * K._blocks(V) + (V + 3) // 4, device)
+    cta = V <= VOTE_CTA_ROWS
+    tile = VOTE_BLOCK * VOTE_ROWS
+    tiles = 1 if cta else -(-V // tile)
+    scratch = K._i32(4 * V + 18 * tiles + 3 + (V + 3) // 4, device)
     K._launch(
         "tp_vote_runs", device, order, gid, vkey, vby, vstart, vend, valid,
         frontier, run_key, run_by, run_start, run_end, residual, scratch, V, n,
+        int(cta), VOTE_BLOCK,
     )
     LAUNCHES["vote_runs"] += 1
     return run_key, run_by, run_start, run_end, residual

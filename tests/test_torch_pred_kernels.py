@@ -6,16 +6,18 @@
 ``pred_plane_step`` call is held against ``pred_plane_step_plain`` by
 ``chip_smoke.Checker`` — the five state tensors updated in place and
 ``newly``, exactly — as ``chip_smoke.py`` does on the card.  Both
-variants run: the one-CTA kernel at the default shared-memory gate, and
-the grid-wide sweeps with the gate lowered to 0.  The feeds reach every
+forms run, each one launch a dispatch: the one-CTA kernel at the default
+shared-memory gate, and the cooperative grid with the gate lowered to 0,
+in blocks of 256 threads and, so that the emulated card's four blocks
+split the rows, of 64.  The feeds reach every
 branch: pad install rows and patch cells, patches on rows the same
 dispatch installs, MISSING cells, dep targets that are higher or lower in
 (clock, src), equal clocks told apart by src, a self-dependency, a dep
 index past the window (read as row C - 1), and a same-key chain in
-descending slot order woken by a later patch, run with one grid-wide sweep
-between host reads of the change flags so the wrapper reads them more
-than once a dispatch.  The emulator cannot show what nvcc refuses
-or races between blocks; the card run does.
+descending slot order woken by a later patch, walked in one pass down
+the chain (every row marked, none pushed onto the worklist).  The
+emulator cannot show what nvcc refuses or memory-ordering faults across
+SMs; the card run does.
 
 One collected item on purpose (ROADMAP.md Queue C); no JAX call here.
 """
@@ -118,7 +120,8 @@ def case_chain_and_wake():
     newly = step(state, feed(cap, width, [n], np.full((1, width), TERMINAL), [1], [2],
                              patches=[(slots[0], 0, n)]))
     assert int(newly.sum()) == n + 1
-    assert P.last_sweeps() >= 2  # a sweep that changed, one that did not
+    # one walk down the chain: every row marked, none through the worklist
+    assert P.last_work() == {"marked": n + 1, "pushed": 0}, P.last_work()
 
 
 def test_pred_kernels_match_plain_version(monkeypatch):
@@ -136,15 +139,15 @@ def test_pred_kernels_match_plain_version(monkeypatch):
     with emulated():
         checker.install()
         try:
-            for variant, limit, per_read in (
-                ("one_cta", P.ONE_CTA_SMEM_BYTES, P.SWEEPS_PER_READ),
-                ("grid", 0, P.SWEEPS_PER_READ),
-                ("grid, one sweep a read", 0, 1),
+            for variant, limit, block in (
+                ("one_cta", P.ONE_CTA_SMEM_BYTES, P.GRID_BLOCK),
+                ("grid", 0, P.GRID_BLOCK),
+                ("grid, 64-thread blocks", 0, 64),
             ):
                 monkeypatch.setattr(P, "ONE_CTA_SMEM_BYTES", limit)
-                monkeypatch.setattr(P, "SWEEPS_PER_READ", per_read)
+                monkeypatch.setattr(P, "GRID_BLOCK", block)
                 try:
-                    if per_read > 1:
+                    if block != 64:
                         case_random(rng)
                     case_chain_and_wake()
                 except AssertionError as exc:
@@ -159,8 +162,7 @@ def test_pred_kernels_match_plain_version(monkeypatch):
     # every checked call launched its kernels, in both variants
     assert P.LAUNCHES == checker.count == {"pred_plane_step": 14}, checker.count
     assert P.VARIANT_LAUNCHES == {"one_cta": 6, "grid": 8}, P.VARIANT_LAUNCHES
+    # one launch a dispatch in either form, whatever the chain length
     assert launched.count("pp_one_cta") == 6
-    assert launched.count("pp_grid_prepare") == launched.count("pp_grid_finish") == 8
-    # one sweep a read: the chain's two dispatches read their flags at
-    # least twice each
-    assert launched.count("pp_grid_sweeps") >= 6 + 2 * 2, launched
+    assert launched.count("pp_grid") == 8
+    assert len(launched) == 14, launched
