@@ -128,7 +128,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    over a sweep of sizes; it asserts at most 3 operations on the card
    after ``vote_runs``' sort (3 in all up to 2,048 rows), one a
    ``pred_plane_step`` dispatch, and the dispatch's marked rows equal to
-   its ``newly`` rows.
+   its ``newly`` rows;
+10. the two kernels redesigned last, in a process of its own as phase 9:
+   ``link_scan`` at the sims' calls (EPaxos and Atlas through
+   ``Runner(device="cpu")``, captured), at 2^20 rows (the north-star
+   workload in one window) and on edge cases (n = 1, 2 and 3,001, the
+   tile's size and twice it +-1, one key across tiles with bad links on
+   tiles' first rows, every row its own key, a run across tiles), in both
+   forms (one block, tiles) over 256-4,096 rows; ``peel_compact`` at every
+   call of phase 4's ``general_resident`` dispatches (``GraphExecutor`` on
+   the card, captured: init, compactions, terminal publish), at a 2^20 x 4
+   resolve and on a compaction that closes the publish gate; every call held
+   against its plain version and replayed 50 times, timed single and in
+   the loop beside its bound and counted in operations on the card: one a
+   ``link_scan`` call, an init and a publish, at most two a compaction,
+   none a memset or fill (asserted).  Also the one-block ``lex_sort`` at
+   4,096 rows beside ``torch.sort`` and ``stable_rows`` at the Newt sim's
+   shape beside ``kthvalue``.
 
 Each phase reports its wall time.  The last lines are the
 ``{"kernels": [...]}`` record, the card line and
@@ -147,6 +163,13 @@ phase 9 alone, without its asserts (with ``--checks``, with them: the
 whole smoke runs phase 9 so, in a process of its own), then prints the
 card line; copied into an older checkout it times that checkout's
 ``vote_runs`` and ``pred_plane_step`` at the same shapes.
+
+    python3 chip_smoke.py --scans
+
+builds the graph and table sources and runs phase 10 alone, as
+``--redesign`` runs phase 9 (``--checks`` adds its asserts); copied into
+an older checkout it times that checkout's ``link_scan`` and
+``peel_compact`` at the same shapes.
 """
 
 import json
@@ -2510,11 +2533,17 @@ def pred_work(P):
 def captured_calls(module, name, run):
     """The arguments (clones) of every call of ``module.<name>`` while
     ``run()`` runs."""
+    return [args for args, _kwargs in captured_kw(module, name, run)]
+
+
+def captured_kw(module, name, run):
+    """``(args, kwargs)`` (clones) of every call of ``module.<name>`` while
+    ``run()`` runs."""
     calls, real = [], getattr(module, name)
 
-    def record(*args):
-        calls.append(clone_args(args))
-        return real(*args)
+    def record(*args, **kwargs):
+        calls.append((clone_args(args), dict(kwargs)))
+        return real(*args, **kwargs)
 
     setattr(module, name, record)
     try:
@@ -2790,25 +2819,338 @@ def phase_redesign(torch, T, P, K, checks=True):
     return out
 
 
-def phase_redesign_apart():
-    """Phase 9, with its asserts, in a process of its own
-    (``--redesign --checks``, the libraries already built): after phases
-    1-8, the profiler sessions of the same process lost two of their
-    separator kernels every time, also in sessions of 16 calls.  Its
-    output is passed on; returns its record."""
-    command = [sys.executable, str(ROOT / "chip_smoke.py"), "--redesign", "--checks"]
+def phase_apart(flag, record):
+    """A phase with its asserts in a process of its own (``flag``
+    ``--checks``, the libraries already built): after phases 1-8, the
+    profiler sessions of the same process lost two of their separator
+    kernels every time, also in sessions of 16 calls.  Its output is passed
+    on; returns the record of its ``{record: ...}`` line."""
+    command = [sys.executable, str(ROOT / "chip_smoke.py"), flag, "--checks"]
     proc = subprocess.run(command, cwd=ROOT, capture_output=True, text=True)
     sys.stdout.write(proc.stdout)
     sys.stderr.write(proc.stderr)
-    assert proc.returncode == 0, f"phase 9 failed (rc {proc.returncode})"
-    found = [line for line in proc.stdout.splitlines() if line.startswith('{"redesign"')]
-    assert found, "phase 9 printed no record"
-    return json.loads(found[-1])["redesign"]
+    assert proc.returncode == 0, f"{flag} failed (rc {proc.returncode})"
+    found = [line for line in proc.stdout.splitlines()
+             if line.startswith('{"%s"' % record)]
+    assert found, f"{flag} printed no record"
+    return json.loads(found[-1])[record]
+
+
+# ---------------------------------------------------------------------------
+# link_scan and peel_compact at every shape their paths give them (phase
+# 10; alone: --scans)
+# ---------------------------------------------------------------------------
+
+SCAN_REPLAYS = 50  # runs of each phase 10 call against the plain version
+LINK_TILE_ROWS = 2048  # the link scan's tile (K.LINK_TILE), for the edge cases
+LINK_SWEEP = (256, 512, 1024, 2048, 3072, 4096)  # rows of link_scan's forms sweep
+GATE_ROWS = 1 << 14  # the cycle-rich resolve whose first compaction closes the gate
+
+
+def to_card(value):
+    """``value`` (tensors, nested in tuples and lists) on the card."""
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return value.to(CARD)
+    if isinstance(value, (list, tuple)):
+        return type(value)(to_card(v) for v in value)
+    return value
+
+
+def keyed_window(torch, key, dep, order=None):
+    """``link_scan``'s inputs for a window whose row s holds command
+    ``order[s]`` (the identity by default): its key, its dependency's row
+    (TERMINAL where it has none), and the rows stably sorted by key."""
+    n = len(key)
+    order = np.arange(n) if order is None else order
+    row = np.empty(n, np.int64)
+    row[order] = np.arange(n)
+    dep = dep[order]
+    col = np.where(dep >= 0, row[np.maximum(dep, 0)], -1)
+    pk = key[order]
+    pos = np.argsort(pk, kind="stable")
+    return [torch.tensor(a.astype(np.int32), device=CARD) for a in (pk, col, pos)]
+
+
+def chain_window(torch, n, keys, seed, bad=0.0):
+    """A window of ``n`` rows on ``keys`` keys in arrival order (every link
+    verifies), a fraction ``bad`` of the dependencies then set MISSING."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, keys, n).astype(np.int32)
+    dep = np.full(n, -1, np.int64)
+    last = {}
+    for i, k in enumerate(key.tolist()):
+        dep[i] = last.get(k, -1)
+        last[k] = i
+    pk, col, pos = keyed_window(torch, key, dep)
+    hit = torch.tensor(rng.random(n) < bad, device=CARD)
+    return [pk, torch.where(hit, -2, col).to(torch.int32), pos]
+
+
+def link_edge_cases(torch):
+    """``link_scan``'s edge cases: n = 1 (a TERMINAL head, a MISSING one),
+    2 and 3,001; the tile's size and twice it, each +-1; every row on one
+    key (a chain across tiles; then a bad link on the first row of the
+    second and third tiles); every row its own key, half the heads
+    TERMINAL; a run across several tiles among other keys with a bad link
+    on a tile's first row."""
+    T = LINK_TILE_ROWS
+    cases = {}
+
+    def put(label, pk, col, pos=None):
+        pk = np.asarray(pk, np.int64)
+        if pos is None:
+            pos = np.argsort(pk, kind="stable")
+        cases[label] = [torch.tensor(np.asarray(a).astype(np.int32), device=CARD)
+                        for a in (pk, col, pos)]
+
+    put("n = 1, a TERMINAL head", [7], [-1])
+    put("n = 1, a MISSING head", [7], [-2])
+    put("n = 2, one chain", [3, 3], [-1, 0])
+    for n in (3001, T - 1, T, T + 1, 2 * T - 1, 2 * T + 1):
+        cases[f"n = {n}, 64 keys, 1% MISSING"] = chain_window(torch, n, 64, n, 0.01)
+    n = 3 * T + 5
+    chain = np.arange(n) - 1
+    put(f"one key, n = {n}, every link verifies", np.zeros(n), chain)
+    broken = chain.copy()
+    broken[[T, 2 * T]] = -2
+    put(f"one key, n = {n}, bad links on the first rows of tiles 2 and 3", np.zeros(n),
+        broken)
+    rng = np.random.default_rng(9)
+    n = 3 * T + 7
+    put(f"every row its own key, n = {n}, half the heads TERMINAL",
+        rng.permutation(n), np.where(rng.random(n) < 0.5, -1, -2))
+    # key 1 holds sorted rows [T - 100, 3T + 100): a run across three tiles
+    n = 4 * T
+    key = np.where((np.arange(n) >= T - 100) & (np.arange(n) < 3 * T + 100), 1,
+                   np.where(np.arange(n) < T - 100, 0, 2))
+    col = np.arange(n) - 1
+    col[[0, T - 100, 3 * T + 100]] = -1
+    col[2 * T] = 5  # a bad link on the third tile's first row, inside the run
+    put(f"a run across tiles 1-3, a bad link on tile 3's first row, n = {n}", key, col)
+    return cases
+
+
+def link_forms(torch, K, rows):
+    """``link_scan`` on a sim-like window of ``rows`` rows (commands on
+    rows // 4 keys, arrival shuffled in windows of 64, so some links fail)
+    in both forms, one block (the gate raised) and tiles (the gate at 0),
+    each held against the plain version and timed single and in the loop;
+    their calls are counted on the card (``FORM_REPEATS`` each).  Empty on a
+    checkout without the gate."""
+    if not hasattr(K, "LINK_CTA_ROWS"):
+        return {}
+    key, dep, _src, _seq = build_workload(rows, CONFLICT, clients=max(rows // 4, 1),
+                                          seed=rows)
+    args = keyed_window(torch, key, dep, arrival(rows, rows, rows, 64, rows))
+    want = K.link_scan_plain(*clone_args(args))
+    out = {"bound_ms": moved_bytes(K, "link_scan", args, {}, want) / HBM_BYTES_PER_S * 1e3}
+    for form, value in (("one_cta", rows), ("tiles", 0)):
+        call = gated(K, "LINK_CTA_ROWS", value, K.link_scan)
+        assert max_abs_err(call(*clone_args(args)), want, form) == 0.0, (
+            f"link_scan, {rows} rows, {form}: differs")
+        out[f"ms_{form}"] = time_ms(call, args, {})
+        out[f"ms_loop_{form}"] = time_loop_ms(call, args, {})
+        out[f"runs_{form}"] = [{"call": (call, clone_args(args), {})}
+                               for _ in range(FORM_REPEATS)]
+    return out
+
+
+def scan_replays(K, name, calls):
+    """Each call ``(args, kwargs)`` run ``SCAN_REPLAYS`` times on clones of
+    its arguments, every run equal to the plain version (outputs and
+    arguments updated in place): a race between the tiles of a look-back
+    shows in some run, not in every one.  Returns the runs made."""
+    kernel, plain = getattr(K, name), getattr(K, f"{name}_plain")
+    for i, (args, kwargs) in enumerate(calls):
+        plain_args = clone_args(args)
+        want = plain(*plain_args, **kwargs)
+        for run in range(SCAN_REPLAYS):
+            got_args = clone_args(args)
+            got = kernel(*got_args, **kwargs)
+            err = max(max_abs_err(got, want, name), max_abs_err(got_args, plain_args, name))
+            assert err == 0.0, f"{name} differs from its plain version, call {i}, run {run}"
+    return len(calls) * SCAN_REPLAYS
+
+
+def general_path_calls(torch, K, name, Config, Command, Rifl, KVOp, RunTime,
+                       GraphExecutor, GraphAddBatch):
+    """The calls (clones of the arguments) of ``K.<name>`` while
+    ``GraphExecutor`` on the card takes phase 4's 2^20 multi-key commands."""
+    n = BIG
+    keys, deps, src0, seq0 = general_workload(n)
+    order = arrival(n, EXECUTOR_BATCH, 4096, 64, SEED + 1)
+    cols = general_columns(deps, src0, seq0, order)
+    cmds = [
+        Command.from_keys(Rifl(int(s), int(q)), 0,
+                          {f"g{k}": (KVOp.put(""),) for k in keys[int(q) - 1].tolist()})
+        for s, q in zip(cols[0].tolist(), cols[1].tolist())
+    ]
+    executor = GraphExecutor(1, 0, Config(5, 2, batched_graph_executor=True,
+                                          device_graph_plane=True))
+    calls = captured_kw(K, name, lambda: drive(executor, cols, cmds, RunTime, GraphAddBatch))
+    del executor, cmds
+    return calls
+
+
+def compact_label(args, kwargs):
+    mode = kwargs["mode"]
+    if mode == "init":
+        return f"init, {' x '.join(map(str, args[0].shape))}"
+    rows = " x ".join(map(str, args[0].shape))
+    if mode == "publish":
+        return f"publish (terminal), {rows} into {args[6].numel()}"
+    return f"compact, {rows} to {kwargs['half']}"
+
+
+def phase_scans(torch, K, T, gp_module, Config, Command, Rifl, KVOp, RunTime,
+                GraphExecutor, GraphAddBatch, checks=True):
+    """``link_scan`` and ``peel_compact`` at every shape their paths give
+    them, each call held against its plain version, replayed
+    ``SCAN_REPLAYS`` times, timed single and in the loop beside its bound
+    and counted in operations on the card by ``torch.profiler``:
+    ``link_scan`` at the sims' calls (EPaxos and Atlas through
+    ``Runner(device="cpu")``, the first call at each row count timed, all
+    replayed), at 2^20 (the north-star workload's 2^20 commands in one
+    window, shuffled around the feed edges as phase 1's second case) and
+    on ``link_edge_cases``, and in both forms over 256-4,096 rows;
+    ``peel_compact`` at phase 4's calls (``GraphExecutor`` on the 2^20
+    multi-key commands: each dispatch's init, compactions and terminal
+    publish; the first call at each shape timed, all replayed), at a 2^20 x
+    4 resolve and on a cycle-rich resolve of ``GATE_ROWS`` rows whose first
+    compaction closes the gate.  Also
+    ``lex_sort`` at ``SORT_ROWS`` (its one-block path) beside
+    ``torch.sort``, and ``stable_rows`` at the Newt sim's shapes beside
+    ``kthvalue``.  With ``checks`` (the whole smoke; not on an older
+    checkout) a ``link_scan`` call is one operation on the card, a
+    compaction at most two, an init and a publish one, none a memset or a
+    fill."""
+    from fantoch_tpu_torch.ops import graph_resolve
+
+    out = {"link_scan": {}, "peel_compact": {}, "link_forms": {}, "replays": {},
+           "others": {}}
+    sim_calls = []
+    for name in ("EPaxos", "Atlas"):
+        sim_calls += captured_kw(K, "link_scan", lambda: sim_run("cpu", name))
+    sim_calls = [(to_card(args), kw) for args, kw in sim_calls]
+    by_rows = {}
+    for args, _kw in sim_calls:
+        by_rows.setdefault(int(args[0].numel()), []).append(args)
+    out["sims_link_scan_calls_by_rows"] = {n: len(c) for n, c in sorted(by_rows.items())}
+    link_cases = {}
+    for n, same in sorted(by_rows.items()):
+        link_cases[f"the sims' n = {n} ({len(same)} calls)"] = same[0]
+    key, dep, _src, _seq = build_workload(BIG, CONFLICT)
+    link_cases["north star, 2^20 rows, shuffled around the feed edges"] = keyed_window(
+        torch, key, dep, arrival(BIG, FEED, 8192, 128, SEED))
+    link_cases.update(link_edge_cases(torch))
+    for label, args in link_cases.items():
+        record, got, _ = stage_record(torch, K, "link_scan", tuple(args))
+        record["n"] = int(args[0].numel())
+        record["n_residual"] = int(got[3].item())
+        out["link_scan"][label] = record
+    replay = sim_calls + [(tuple(a), {}) for a in link_cases.values()]
+    out["replays"]["link_scan"] = scan_replays(K, "link_scan", replay)
+    for rows in LINK_SWEEP:
+        forms = link_forms(torch, K, rows)
+        if forms:
+            out["link_forms"][rows] = forms
+
+    path_calls = general_path_calls(torch, K, "peel_compact", Config, Command, Rifl, KVOp,
+                                    RunTime, GraphExecutor, GraphAddBatch)
+    out["phase4_peel_compact_calls"] = {
+        "calls": len(path_calls),
+        "dispatches": sum(kw["mode"] == "init" for _a, kw in path_calls),
+        "shapes": sorted({compact_label(a, kw) for a, kw in path_calls})}
+    # the first call at each shape; then phase 3's 2^20 x 4 resolve (bench.py's
+    # general generator, shuffled around the feed edges, in one window)
+    first = {}
+    for args, kwargs in path_calls:
+        first.setdefault(compact_label(args, kwargs), (args, kwargs))
+    order = arrival(BIG, FEED, 8192, 128, SEED)
+    row = np.empty(BIG, np.int64)
+    row[order] = np.arange(BIG)
+    deps = general_workload(BIG)[1][order]
+    deps = np.where(deps >= 0, row[np.maximum(deps, 0)], deps).astype(np.int32)
+    seq = torch.arange(BIG, dtype=torch.int32, device=CARD)
+    big_calls = captured_kw(K, "peel_compact", lambda: graph_resolve.resolve_general_resident(
+        torch.tensor(deps, device=CARD), seq, seq))
+    for args, kwargs in big_calls:
+        if kwargs["mode"] != "compact" or args[0].shape[0] == BIG:
+            first.setdefault(compact_label(args, kwargs), (args, kwargs))
+    cyc = torch.tensor(cycle_rich(GATE_ROWS, GENERAL_FEED)[1], device=CARD)
+    seq = torch.arange(GATE_ROWS, dtype=torch.int32, device=CARD)
+    gate_calls = captured_kw(K, "peel_compact", lambda: graph_resolve.resolve_general_resident(
+        cyc, seq, seq, min_size=GATE_ROWS // 4))
+    gate = [(a, kw) for a, kw in gate_calls if kw["mode"] == "compact"][0]
+    plain_args = clone_args(gate[0])
+    K.peel_compact_plain(*plain_args, **gate[1])
+    assert int(plain_args[9][0]) == 1 and int(gate[0][9][0]) == 0, "the gate did not close"
+    cases = [(label, a, kw) for label, (a, kw) in first.items()]
+    cases.append((f"gate closes: {compact_label(*gate)}, cycle-rich", *gate))
+    for label, args, kwargs in cases:
+        record, _got, _ = stage_record(torch, K, "peel_compact", args, kwargs)
+        record["mode"] = kwargs["mode"]
+        out["peel_compact"][label] = record
+    out["replays"]["peel_compact"] = scan_replays(
+        K, "peel_compact", path_calls + big_calls + [(gate[0], gate[1])])
+    del path_calls, big_calls, first
+
+    # the one-block sort beside torch.sort, stable_rows at the Newt sim's shapes
+    sort_args = ([torch.tensor(np.random.default_rng(4).integers(0, 1 << 20, SORT_ROWS)
+                               .astype(np.int32), device=CARD)],)
+    record, _got, _ = stage_record(torch, K, "lex_sort", sort_args)
+    library = sort_library(torch, sort_args, {})
+    record["library"], record["library_ms"] = library[0], time_ms(library[1], library[2], {})
+    record["library_ms_loop"] = time_loop_ms(library[1], library[2], {})
+    out["others"][f"lex_sort, one key, n = {SORT_ROWS}"] = record
+    stable = captured_calls(T, "stable_rows", lambda: newt_sim("cpu"))
+    shapes = {}
+    for args in stable:
+        shapes.setdefault(tuple(args[0].shape), []).append(args)
+    out["newt_sim_stable_rows_by_shape"] = {
+        " x ".join(map(str, s)): len(c) for s, c in sorted(shapes.items())}
+    for shape, same in sorted(shapes.items()):
+        args = to_card(same[0])
+        record, got, _ = stage_record(torch, T, "stable_rows", args)
+        record["bound_ms"] = (table_moved_bytes(torch, "stable_rows", args, got)
+                              / HBM_BYTES_PER_S * 1e3)
+        lib = lambda *a: table_library_call(torch, "stable_rows", a)  # noqa: E731
+        record["library"] = "torch.kthvalue"
+        record["library_ms"] = time_ms(lib, args, {})
+        record["library_ms_loop"] = time_loop_ms(lib, args, {})
+        out["others"][f"stable_rows, the Newt sim's {' x '.join(map(str, shape))} "
+                      f"({len(same)} calls)"] = record
+
+    counted = [r for group in ("link_scan", "peel_compact", "others")
+               for r in out[group].values()]
+    all_forms = list(out["link_forms"].values())
+    form_runs = [r for forms in all_forms for key in list(forms)
+                 if key.startswith("runs_") for r in forms[key]]
+    count_ops(torch, counted + form_runs)
+    for forms in all_forms:
+        for key in [key for key in forms if key.startswith("runs_")]:
+            runs, form = forms.pop(key), key[len("runs_"):]
+            forms[f"device_ops_{form}"] = runs[0]["device_ops"]
+            forms[f"device_ms_{form}"] = float(np.median([r["device_ms"] for r in runs]))
+    if checks:
+        for group in ("link_scan", "peel_compact"):
+            for label, record in out[group].items():
+                most = 2 if record.get("mode") == "compact" else 1
+                assert record["device_ops"] <= most and record["device_ops"] >= 1, (
+                    label, record["op_names"])
+                if group == "link_scan" or record["mode"] != "compact":
+                    assert record["device_ops"] == 1, (label, record["op_names"])
+                assert not any(f in n.lower() for n in record["op_names"]
+                               for f in ("memset", "fill")), (label, record["op_names"])
+    log(json.dumps({"scans": out}))
+    return out
 
 
 # the kernels redesigned since the first slices, named in phase 0
 REDESIGNED = ("k_radix_", "k_stable_select", "k_affine_", "k_peel_stage", "k_mc_",
-              "k_prologue_", "k_vr_", "k_one_cta", "k_grid")
+              "k_prologue_", "k_vr_", "k_one_cta", "k_grid", "k_link_scan", "k_pc_")
 
 
 def ptxas_kernels(text):
@@ -2865,10 +3207,13 @@ def main():
     sources = sorted(p.stem for p in (ROOT / "fantoch_tpu_torch" / "csrc").glob("*.cu"))
     chain_only = "--general-chain" in sys.argv[1:]
     redesign_only = "--redesign" in sys.argv[1:]
+    scans_only = "--scans" in sys.argv[1:]
     if chain_only:  # the general chain alone (also on an older checkout)
         sources = ["graph_general", "graph_plane_step"]
     if redesign_only:  # phase 9 alone (also on an older checkout)
         sources = ["graph_plane_step", "pred_plane", "table_plane"]
+    if scans_only:  # phase 10 alone (also on an older checkout)
+        sources = ["graph_general", "graph_plane_step", "table_plane"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
@@ -2894,6 +3239,11 @@ def main():
         return 0
     if redesign_only:
         phase_redesign(torch, T, P, K, checks="--checks" in sys.argv[1:])
+        log(card)
+        return 0
+    if scans_only:
+        phase_scans(torch, K, T, gp_module, Config, Command, Rifl, KVOp, RunTime,
+                    GraphExecutor, GraphAddBatch, checks="--checks" in sys.argv[1:])
         log(card)
         return 0
 
@@ -2949,11 +3299,22 @@ def main():
             path: pred_paths[path]["variants"] for path in PRED_PATHS
         }
     records.update(pred_records)
-    redesign = timed("phase 9", phase_redesign_apart)
+    redesign = timed("phase 9", phase_apart, "--redesign", "redesign")
     records["vote_runs"]["at_paths_shapes"] = redesign["vote_runs"]
     records["vote_runs"]["forms"] = redesign["vote_forms"]
     records["vote_runs"]["newt_sim_calls_by_rows"] = redesign["newt_sim_calls_by_rows"]
     records["pred_plane_step"]["at_paths_shapes"] = redesign["pred_plane_step"]
+    scans = timed("phase 10", phase_apart, "--scans", "scans")
+    for name in ("link_scan", "peel_compact"):
+        records[name]["at_paths_shapes"] = scans[name]
+        records[name]["replays"] = scans["replays"][name]
+    records["link_scan"]["forms"] = scans["link_forms"]
+    records["link_scan"]["sims_calls_by_rows"] = scans["sims_link_scan_calls_by_rows"]
+    records["peel_compact"]["phase4_calls"] = scans["phase4_peel_compact_calls"]
+    for label, record in scans["others"].items():
+        name = label.split(",")[0]
+        records[name].setdefault("other_shapes", {})[label] = record
+    records["stable_rows"]["newt_sim_calls_by_shape"] = scans["newt_sim_stable_rows_by_shape"]
     log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": list(records.values())}))
     log(card)

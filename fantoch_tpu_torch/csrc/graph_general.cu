@@ -41,8 +41,7 @@ namespace cg = cooperative_groups;
 #define FROZEN (-3)
 #define UNRESOLVED_RANK INT_MAX
 
-#define EW_BLOCK 256     // per-row kernels (a power of two: block_sum)
-#define SCAN_BLOCK 1024  // block scans of the compaction
+#define EW_BLOCK 256     // per-row kernels
 #define LOOP_CTA 1024    // the one-CTA kernels' largest block
 #define COMP_NONE INT_MIN  // a composition column's "not composable"
 #define CHUNK 4  // the loops take a row's cells four at a time: loads first
@@ -61,40 +60,6 @@ namespace cg = cooperative_groups;
 
 static inline unsigned grid_for(long n, int block) {
   return (unsigned)((n + block - 1) / block);
-}
-
-// block-wide sum (blockDim.x a power of two, at most SCAN_BLOCK); every
-// thread of the block must call it
-__device__ int block_sum(int x) {
-  __shared__ int sh_sum[SCAN_BLOCK];
-  sh_sum[threadIdx.x] = x;
-  __syncthreads();
-  for (int off = blockDim.x / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) sh_sum[threadIdx.x] += sh_sum[threadIdx.x + off];
-    __syncthreads();
-  }
-  int total = sh_sum[0];
-  __syncthreads();
-  return total;
-}
-
-// one atomicAdd per block of the block's sum; every thread must call it
-__device__ void count_into(int32_t* dst, int x) {
-  int total = block_sum(x);
-  if (threadIdx.x == 0 && total) atomicAdd(dst, total);
-}
-
-// block-wide inclusive sum scan (Hillis-Steele in shared memory)
-__device__ int block_incl_sum(int x, int* sh) {
-  sh[threadIdx.x] = x;
-  __syncthreads();
-  for (int off = 1; off < blockDim.x; off <<= 1) {
-    int y = threadIdx.x >= off ? sh[threadIdx.x - off] : 0;
-    __syncthreads();
-    if (threadIdx.x >= off) sh[threadIdx.x] += y;
-    __syncthreads();
-  }
-  return sh[threadIdx.x];
 }
 
 // ---------------------------------------------------------------------------
@@ -766,162 +731,415 @@ extern "C" int gg_peel_stage(const int32_t* tgt0, const int32_t* floor0,
 // ---------------------------------------------------------------------------
 // 12. peel compact: init, publish, compaction (graph_resolve.py:772-846)
 // ---------------------------------------------------------------------------
+// Init and publish are one operation on the card each, the compaction two;
+// none has a memset.
+//   init (mode 0): one cooperative launch; block 0 zeroes `live` before the
+//     grid barrier, every block adds its count of live rows after it.
+//   publish (mode 1, the terminal stage): one cooperative launch; the
+//     stage's rows are published, then after a grid barrier stuck =
+//     ~out_final & ~out_miss over the whole batch.
+//   compact (mode 2): the publish (gated by the `dead` the stage found),
+//     then the stable live-first partition: the first `half` rows kept,
+//     the gate closed when more than `half` rows are live, the kept rows
+//     gathered with their targets remapped, finalized targets folded into
+//     the floor, missing ones into miss, and the new live count.  A kept
+//     row's targets need the position of any row, so every position must
+//     be known first: a grid-wide dependency, met by two launches.  The
+//     partition: tiles of PC_TILE rows publish their rows, count their
+//     live rows and carry the count across tiles by decoupled look-back
+//     (epoch-tagged flags and a ticket, as §3 of graph_plane_step.cu: no
+//     memset, see the note there), and place their rows; the last tile
+//     writes the live total and closes the gate, and tile 0 zeroes
+//     `live`.  To place a row is to write one word for it (pc_place:
+//     final, missing, and its rank or the live rows before it) and, if it
+//     is kept, its stage row at its position.  Then the gather reads one
+//     word a target and computes the target's position on demand.  (One
+//     cooperative launch, placing after a grid barrier and gathering after
+//     another, was level with these two launches up to 32,768 rows and
+//     behind them from 65,536 on, on an H100: it was not kept.)
+//     The publish reads the `dead` of the stage before: every tile reads
+//     it before it publishes its aggregate, which the last tile waits for
+//     before it writes.
+// Bound: bytes — the stage's [S, W] matrix and columns read once, the
+// half-size state and the published rows written once.
 
-// the padded stage-0 state (pads start final), fresh outputs, dead = 0
-__global__ void k_pc_init(const int32_t* deps, int32_t* tgt, int32_t* floor,
-                          uint8_t* miss, uint8_t* fin, int32_t* rank, int32_t* orig,
-                          uint8_t* out_final, uint8_t* out_miss, int32_t* out_rank,
-                          int32_t* dead, int32_t* live, int B, int S, int W) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  int lv = 0;
-  if (v < S) {
-    bool m = false;
-    for (int w = 0; w < W; ++w) {
-      int t = TERMINAL;
-      if (v < B) {
-        t = deps[(long)v * W + w];
-        if (t == v) t = TERMINAL;  // self-dependencies are no-ops
-      }
-      tgt[(long)v * W + w] = t;
-      m = m || t == MISSING;
-    }
-    bool f = v >= B;
-    floor[v] = 0;
-    miss[v] = m;
-    fin[v] = f;
-    rank[v] = 0;
-    orig[v] = v < B ? v : B;
-    if (v < B) {
-      out_final[v] = 0;
-      out_miss[v] = 0;
-      out_rank[v] = UNRESOLVED_RANK;
-    }
-    if (v == 0) dead[0] = 0;
-    lv = (!f && !m) ? 1 : 0;
+#define PC_THREADS 256
+#define PC_ITEMS 8
+#define PC_TILE (PC_THREADS * PC_ITEMS)
+#define PC_WARPS (PC_THREADS / 32)
+#define LB_HEAD 16    // ints before the first tile's status: [0] is the ticket
+#define LB_STATUS 16  // ints of a tile's status: flag, aggregate, inclusive
+#define LB_AGG 1
+#define LB_INCL 2
+
+// the call's columns, outputs and scratch
+struct PeelCompact {
+  const int32_t *tgt, *floor, *rank, *orig;
+  const uint8_t *miss, *fin;
+  uint8_t *out_final, *out_miss;
+  int32_t *out_rank, *dead;
+  int32_t *ntgt, *nfloor, *nrank, *norig;
+  uint8_t *nmiss, *nfin, *stuck;
+  int32_t *live, *scratch, *status;
+  int B, S, W, half, epoch;
+};
+
+// a value another block wrote earlier in the same launch: past L1
+template <class T>
+__device__ __forceinline__ T ld_fresh(const T* p) {
+  return *(const volatile T*)p;
+}
+
+// a stage row's columns the publish and the partition read, loaded
+// before any store (a store could alias a later load, which would then
+// wait for it)
+struct PcRow {
+  int orig, rank;
+  uint8_t fin, miss;
+  __device__ static PcRow load(const PeelCompact& c, long v) {
+    return {c.orig[v], c.rank[v], c.fin[v], c.miss[v]};
   }
-  count_into(live, lv);
+  __device__ int live() const { return (!fin && !miss) ? 1 : 0; }
+};
+
+// publish a stage row into the batch outputs; orig == B (pads) is
+// dropped, and orig values are distinct
+__device__ __forceinline__ void pc_publish(const PeelCompact& c, const PcRow& x) {
+  if (x.orig < 0 || x.orig >= c.B) return;
+  c.out_final[x.orig] = x.fin;
+  c.out_miss[x.orig] = x.miss;
+  c.out_rank[x.orig] = x.fin ? x.rank : UNRESOLVED_RANK;
 }
 
-// publish the stage's rows unless the gate is closed; orig == B (pads)
-// is dropped, and orig values are distinct
-__global__ void k_pc_publish(const uint8_t* fin, const uint8_t* miss,
-                             const int32_t* rank, const int32_t* orig,
-                             uint8_t* out_final, uint8_t* out_miss, int32_t* out_rank,
-                             const int32_t* dead, int B, int S) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= S || dead[0]) return;
-  int o = orig[v];
-  if (o < 0 || o >= B) return;
-  out_final[o] = fin[v];
-  out_miss[o] = miss[v];
-  out_rank[o] = fin[v] ? rank[v] : UNRESOLVED_RANK;
-}
+// a stage row as the gather reads it at a target, one word: bit 31 final,
+// bit 30 missing, bits 0-29 the rank (a final row) or the live rows before
+// the row (any other, whose position follows from the live total).  A
+// rank is a chain length, below the batch, and batches stay below 2^30.
+#define CODE_FIN (1u << 31)
+#define CODE_MISS (1u << 30)
+#define CODE_LOW ((1u << 30) - 1)
 
-__global__ void k_pc_stuck(const uint8_t* out_final, const uint8_t* out_miss,
-                           uint8_t* stuck, int B) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= B) return;
-  stuck[v] = !out_final[v] && !out_miss[v];
-}
-
-__device__ int row_live(const uint8_t* fin, const uint8_t* miss, int v, int S) {
-  return (v < S && !fin[v] && !miss[v]) ? 1 : 0;
-}
-
-// per-block live counts (SCAN_BLOCK rows a block)
-__global__ void k_pc_count(const uint8_t* fin, const uint8_t* miss, int32_t* bcount,
-                           int S) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  int c = block_sum(row_live(fin, miss, v, S));
-  if (threadIdx.x == 0) bcount[blockIdx.x] = c;
-}
-
-// one block: exclusive scan of the block counts, their total, and the
-// gate: more live rows than the next stage holds means a fixpoint with
-// every survivor permanently blocked
-__global__ void k_pc_carry(const int32_t* bcount, int32_t* bcarry, int32_t* total,
-                           int32_t* dead, int nb, int half) {
-  __shared__ int sh[SCAN_BLOCK];
-  int running = 0;
-  for (int base = 0; base < nb; base += blockDim.x) {
-    int t = base + threadIdx.x;
-    int x = t < nb ? bcount[t] : 0;
-    int inc = block_incl_sum(x, sh);
-    if (t < nb) bcarry[t] = running + inc - x;
-    running += sh[blockDim.x - 1];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    *total = running;
-    if (running > half) dead[0] = 1;
-  }
-}
-
-// positions of the stable live-first partition; the first half is kept,
-// every other row's targets become FROZEN
-__global__ void k_pc_place(const uint8_t* fin, const uint8_t* miss,
-                           const int32_t* bcarry, const int32_t* total,
-                           int32_t* remap, int32_t* keep, int S, int half) {
-  __shared__ int sh[SCAN_BLOCK];
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  int l = row_live(fin, miss, v, S);
-  int inc = block_incl_sum(l, sh);
-  if (v < S) {
-    int before = bcarry[blockIdx.x] + inc - l;  // live rows before v
-    int pos = l ? before : *total + (v - before);
-    if (pos < half) {
-      remap[v] = pos;
-      keep[pos] = v;
-    } else {
-      remap[v] = FROZEN;
-    }
+// stage row v, with `before` live rows ahead of it: its code, and the row
+// at its position if it is kept (live rows in keep_live, the others by
+// their rank among them in keep_dead)
+__device__ __forceinline__ void pc_place(const PeelCompact& c, const PcRow& x, long v,
+                                         int before, int32_t* code, int32_t* keep_live,
+                                         int32_t* keep_dead) {
+  unsigned low = x.fin ? (unsigned)x.rank & CODE_LOW : (unsigned)before;
+  code[v] = (int32_t)(low | (x.fin ? CODE_FIN : 0u) | (x.miss ? CODE_MISS : 0u));
+  if (x.live()) {
+    if (before < c.half) keep_live[before] = (int)v;
+  } else if (v - before < c.half) {
+    keep_dead[v - before] = (int)v;
   }
 }
 
-// the kept rows at half size: targets remapped, finalized targets folded
-// into the floor, missing targets into miss; the new live count
-__global__ void k_pc_gather(const int32_t* tgt, const int32_t* floor,
-                            const uint8_t* miss, const uint8_t* fin,
-                            const int32_t* rank, const int32_t* orig,
-                            const int32_t* remap, const int32_t* keep, int32_t* ntgt,
-                            int32_t* nfloor, uint8_t* nmiss, uint8_t* nfin,
-                            int32_t* nrank, int32_t* norig, int32_t* live, int half,
-                            int W) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  int lv = 0;
-  if (r < half) {
-    int v = keep[r];
-    int lift = 0;
-    bool m = miss[v];
-    for (int w = 0; w < W; ++w) {
-      int t = tgt[(long)v * W + w], nt = t;
-      if (t >= 0) {
-        if (fin[t]) {
-          lift = max(lift, rank[t] + 1);
+// kept row r at half size, given the live `total` and the partition's
+// code and keep columns: targets remapped (FROZEN past the half),
+// finalized targets folded into the floor, missing ones into miss; returns
+// whether the new row is live.  A row's cells are taken CHUNK at a time,
+// their loads, then their targets' codes, before any store.
+__device__ int pc_gather(const PeelCompact& c, int r, int total, const int32_t* code,
+                         const int32_t* keep_live, const int32_t* keep_dead) {
+  const int v = r < total ? keep_live[r] : keep_dead[r - total];
+  int lift = 0;
+  bool m = c.miss[v];
+  const int f0 = c.floor[v], rank0 = c.rank[v], orig0 = c.orig[v];
+  const uint8_t fin0 = c.fin[v];
+  for (int w0 = 0; w0 < c.W; w0 += CHUNK) {
+    int t[CHUNK];
+    unsigned x[CHUNK];
+#pragma unroll
+    for (int k = 0; k < CHUNK; ++k)
+      t[k] = w0 + k < c.W ? c.tgt[(long)v * c.W + w0 + k] : TERMINAL;
+#pragma unroll
+    for (int k = 0; k < CHUNK; ++k) x[k] = t[k] >= 0 ? (unsigned)code[t[k]] : 0u;
+#pragma unroll
+    for (int k = 0; k < CHUNK; ++k) {
+      if (w0 + k >= c.W) break;
+      int nt = t[k];
+      if (nt >= 0) {
+        bool mt = x[k] & CODE_MISS;
+        if (x[k] & CODE_FIN) {
+          lift = max(lift, (int)(x[k] & CODE_LOW) + 1);
           nt = TERMINAL;
         } else {
-          nt = remap[t];
+          int before = (int)(x[k] & CODE_LOW);
+          int pos = mt ? total + (t[k] - before) : before;
+          nt = pos < c.half ? pos : FROZEN;
         }
-        m = m || miss[t];
+        m = m || mt;
       }
-      ntgt[(long)r * W + w] = nt;
+      c.ntgt[(long)r * c.W + w0 + k] = nt;
     }
-    nfloor[r] = max(floor[v], lift);
-    nmiss[r] = m;
-    nfin[r] = fin[v];
-    nrank[r] = rank[v];
-    norig[r] = orig[v];
-    lv = (!fin[v] && !m) ? 1 : 0;
   }
-  count_into(live, lv);
+  c.nfloor[r] = max(f0, lift);
+  c.nmiss[r] = m;
+  c.nfin[r] = fin0;
+  c.nrank[r] = rank0;
+  c.norig[r] = orig0;
+  return (!fin0 && !m) ? 1 : 0;
 }
 
-// mode 0 (init): deps in p0, the padded state out in n*, outputs and dead
+// block-wide exclusive sum of x (threads in order) and, in *total, the
+// block's sum; blockDim.x a multiple of 32, sh 32 ints of shared memory
+// (dynamic in a cooperative kernel); every thread must call it
+__device__ int block_excl_sum(int x, int* sh, int* total) {
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  int inc = x;
+  for (int d = 1; d < 32; d <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += y;
+  }
+  if (lane == 31) sh[warp] = inc;
+  __syncthreads();
+  int pre = 0, all = 0;
+  for (int w = 0; w < nw; ++w) {
+    int s = sh[w];
+    if (w < warp) pre += s;
+    all += s;
+  }
+  __syncthreads();
+  *total = all;
+  return pre + inc - x;
+}
+
+// mode 0: the padded stage-0 state (pads start final), fresh outputs,
+// dead = 0 and live = the state's live count; deps in c.tgt
+__global__ void k_pc_init(PeelCompact c) {
+  extern __shared__ int32_t pc_smem[];  // 32 ints: block_excl_sum's
+  if (blockIdx.x == 0 && threadIdx.x == 0) c.live[0] = 0;
+  int lv = 0;
+  FOR_ROWS(v, c.S) {
+    bool m = false;
+    for (int w0 = 0; w0 < c.W; w0 += CHUNK) {
+      int t[CHUNK];
+#pragma unroll
+      for (int k = 0; k < CHUNK; ++k) {
+        t[k] = v < c.B && w0 + k < c.W ? c.tgt[v * c.W + w0 + k] : TERMINAL;
+        if (t[k] == v) t[k] = TERMINAL;  // self-dependencies are no-ops
+      }
+#pragma unroll
+      for (int k = 0; k < CHUNK; ++k) {
+        if (w0 + k >= c.W) break;
+        c.ntgt[v * c.W + w0 + k] = t[k];
+        m = m || t[k] == MISSING;
+      }
+    }
+    bool f = v >= c.B;
+    c.nfloor[v] = 0;
+    c.nmiss[v] = m;
+    c.nfin[v] = f;
+    c.nrank[v] = 0;
+    c.norig[v] = v < c.B ? (int)v : c.B;
+    if (v < c.B) {
+      c.out_final[v] = 0;
+      c.out_miss[v] = 0;
+      c.out_rank[v] = UNRESOLVED_RANK;
+    }
+    if (v == 0) c.dead[0] = 0;
+    lv += (!f && !m) ? 1 : 0;
+  }
+  int total;
+  block_excl_sum(lv, pc_smem, &total);
+  cg::this_grid().sync();  // live is zeroed
+  if (threadIdx.x == 0 && total) atomicAdd(c.live, total);
+}
+
+// mode 1: publish the terminal stage, then stuck over the batch
+__global__ void k_pc_publish(PeelCompact c) {
+  if (!ld_fresh(c.dead)) {
+    FOR_ROWS(v, c.S) pc_publish(c, PcRow::load(c, v));
+  }
+  cg::this_grid().sync();
+  // four rows a thread where the three columns are 4-byte aligned (bool
+  // columns hold 0 or 1), then the rest a row a thread
+  bool aligned = (((uintptr_t)c.out_final | (uintptr_t)c.out_miss | (uintptr_t)c.stuck) & 3) == 0;
+  const long words = aligned ? c.B / 4 : 0;
+  FOR_ROWS(i, words) {
+    uint32_t f = ld_fresh((const uint32_t*)c.out_final + i);
+    uint32_t m = ld_fresh((const uint32_t*)c.out_miss + i);
+    ((uint32_t*)c.stuck)[i] = (f | m) ^ 0x01010101u;
+  }
+  FOR_ROWS(o, c.B - words * 4) {
+    long at = words * 4 + o;
+    c.stuck[at] = !ld_fresh(c.out_final + at) && !ld_fresh(c.out_miss + at);
+  }
+}
+
+// the compaction's scratch: the code of each stage row, the kept rows
+// (keep_live, keep_dead) and the live total
+struct PcScratch {
+  int32_t *code, *keep_live, *keep_dead, *total;
+  __device__ PcScratch(const PeelCompact& c)
+      : code(c.scratch),
+        keep_live(c.scratch + c.S),
+        keep_dead(keep_live + c.half),
+        total(keep_dead + c.half) {}
+};
+
+// the live count of a tile, carried by look-back
+struct Count {
+  int n;
+  __device__ static Count none() { return {0}; }
+  __device__ void put(int32_t* p) const { p[0] = n; }
+  __device__ static Count get(const int32_t* p) { return {*(const volatile int32_t*)p}; }
+};
+__device__ __forceinline__ Count combine(Count a, Count b) { return {a.n + b.n}; }
+__device__ __forceinline__ Count shfl(Count x, int src) {
+  return {__shfl_sync(0xffffffffu, x.n, src)};
+}
+
+// decoupled look-back for tile `tile` of aggregate `agg` in this call's
+// `epoch`: publishes the aggregate, combines the tiles before it (a warp
+// reads 32 statuses at a time, back to the nearest inclusive prefix),
+// publishes the inclusive prefix and returns the exclusive one to every
+// thread.  `status` is the call's look-back buffer (LB_HEAD ints, then
+// LB_STATUS a tile); *sh is block-shared.
+template <class S>
+__device__ S look_back(int32_t* status, int tile, S agg, int epoch, S* sh) {
+  int32_t* mine = status + LB_HEAD + (long)tile * LB_STATUS;
+  const int agg_flag = epoch * 4 + LB_AGG, incl_flag = epoch * 4 + LB_INCL;
+  if (threadIdx.x == 0) {
+    agg.put(mine + 1);
+    __threadfence();
+    *(volatile int32_t*)mine = agg_flag;
+  }
+  if (threadIdx.x < 32) {
+    int lane = threadIdx.x;
+    S acc = S::none();
+    for (int base = tile - 1;; base -= 32) {
+      int j = base - lane;
+      int flag = incl_flag;
+      S v = S::none();
+      if (j >= 0) {
+        const int32_t* st = status + LB_HEAD + (long)j * LB_STATUS;
+        do {
+          flag = *(const volatile int32_t*)st;
+        } while (flag != agg_flag && flag != incl_flag);
+        __threadfence();
+        v = S::get(st + (flag == incl_flag ? 8 : 1));
+      }
+      unsigned incl = __ballot_sync(0xffffffffu, flag == incl_flag);
+      int stop = incl ? __ffs(incl) - 1 : 31;
+      if (lane > stop) v = S::none();
+      // lane 0 takes the window's combination, the farthest tile first
+      for (int d = 1; d < 32; d <<= 1) {
+        S y = shfl(v, lane + d < 32 ? lane + d : lane);
+        if (lane + d < 32) v = combine(y, v);
+      }
+      acc = combine(shfl(v, 0), acc);
+      if (incl) break;
+    }
+    if (lane == 0) {
+      combine(acc, agg).put(mine + 8);
+      __threadfence();
+      *(volatile int32_t*)mine = incl_flag;
+      *sh = acc;
+    }
+  }
+  __syncthreads();
+  S out = *sh;
+  __syncthreads();
+  return out;
+}
+
+// a tile's index: from the ticket; the last one sets it back to 0
+__device__ int take_tile(int32_t* ticket, int tiles, int* sh) {
+  if (threadIdx.x == 0) {
+    int t = atomicAdd(ticket, 1);
+    if (t == tiles - 1) atomicCAS(ticket, tiles, 0);
+    *sh = t;
+  }
+  __syncthreads();
+  int t = *sh;
+  __syncthreads();
+  return t;
+}
+
+
+// mode 2, launch 1: the partition
+__global__ void __launch_bounds__(PC_THREADS) k_pc_partition(PeelCompact c) {
+  __shared__ int sh_row[PC_TILE];  // live flags, then live rows before each row
+  __shared__ int sh_warp[PC_WARPS];
+  __shared__ Count sh_prefix;
+  __shared__ int sh_tile, sh_dead;
+  PcScratch sc(c);
+  const int tid = threadIdx.x;
+  int tiles = (int)(((long)c.S + PC_TILE - 1) / PC_TILE);
+  if (tid == 0) sh_dead = ld_fresh(c.dead);
+  int tile = take_tile(c.status, tiles, &sh_tile);  // barriers: sh_dead is seen
+  const long base = (long)tile * PC_TILE;
+  const int cnt = (int)min((long)PC_TILE, c.S - base);
+  const bool dead = sh_dead != 0;
+  PcRow x[PC_ITEMS];
+#pragma unroll
+  for (int i = 0; i < PC_ITEMS; ++i) {
+    int r = i * PC_THREADS + tid;
+    x[i] = r < cnt ? PcRow::load(c, base + r) : PcRow{0, 0, 1, 0};
+  }
+#pragma unroll
+  for (int i = 0; i < PC_ITEMS; ++i) {
+    int r = i * PC_THREADS + tid;
+    if (r < cnt) {
+      if (!dead) pc_publish(c, x[i]);
+      sh_row[r] = x[i].live();
+    }
+  }
+  __syncthreads();
+  int mine = 0;
+#pragma unroll
+  for (int k = 0; k < PC_ITEMS; ++k) {
+    int r = tid * PC_ITEMS + k;
+    mine += r < cnt ? sh_row[r] : 0;
+  }
+  int count;
+  int ex = block_excl_sum(mine, sh_warp, &count);
+  Count prior = look_back(c.status, tile, Count{count}, c.epoch, &sh_prefix);
+  int run = prior.n + ex;
+#pragma unroll
+  for (int k = 0; k < PC_ITEMS; ++k) {
+    int r = tid * PC_ITEMS + k;
+    if (r < cnt) {
+      int l = sh_row[r];
+      sh_row[r] = run;
+      run += l;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < PC_ITEMS; ++i) {
+    int r = i * PC_THREADS + tid;
+    if (r < cnt) pc_place(c, x[i], base + r, sh_row[r], sc.code, sc.keep_live, sc.keep_dead);
+  }
+  if (tid == 0 && tile == 0) c.live[0] = 0;
+  if (tid == 0 && tile == tiles - 1) {
+    int total = prior.n + count;
+    *sc.total = total;
+    if (total > c.half) c.dead[0] = 1;
+  }
+}
+
+// mode 2, launch 2: the gather
+__global__ void k_pc_gather(PeelCompact c) {
+  __shared__ int sh_warp[EW_BLOCK / 32];
+  PcScratch sc(c);
+  int total = *sc.total;
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  int lv = 0;
+  if (r < c.half) lv = pc_gather(c, r, total, sc.code, sc.keep_live, sc.keep_dead);
+  int count;
+  block_excl_sum(lv, sh_warp, &count);
+  if (threadIdx.x == 0 && count) atomicAdd(c.live, count);  // tile 0 zeroed it
+}
+
+// mode 0 (init): deps in tgt, the padded state out in n*, outputs and dead
 //   initialised, live = its live count;
 // mode 1 (publish): publish the state, then stuck = ~out_final & ~out_miss;
 // mode 2 (compact): publish, then the half-size state in n*, dead updated,
-//   live = the new state's live count.
-// scratch (mode 2): 2 * S + 2 * ceil(S / SCAN_BLOCK) + 1 ints
+//   live = the new state's live count; scratch S + 2 * half + 1 ints;
+//   status and epoch as gp_link_scan's.
+// block: threads a block of the cooperative launches (modes 0 and 1)
 extern "C" int gg_peel_compact(const int32_t* tgt, const int32_t* floor,
                                const uint8_t* miss, const uint8_t* fin,
                                const int32_t* rank, const int32_t* orig,
@@ -929,51 +1147,37 @@ extern "C" int gg_peel_compact(const int32_t* tgt, const int32_t* floor,
                                int32_t* out_rank, int32_t* dead, int32_t* ntgt,
                                int32_t* nfloor, uint8_t* nmiss, uint8_t* nfin,
                                int32_t* nrank, int32_t* norig, int32_t* live,
-                               uint8_t* stuck, int32_t* scratch, int mode, int B,
-                               int S, int W, int half, cudaStream_t stream) {
+                               uint8_t* stuck, int32_t* scratch, int32_t* status, int mode,
+                               int B, int S, int W, int half, int epoch, int block,
+                               cudaStream_t stream) {
+  PeelCompact c = {tgt,   floor, rank,  orig,  miss,  fin,     out_final, out_miss,
+                   out_rank, dead, ntgt, nfloor, nrank, norig, nmiss, nfin,
+                   stuck, live, scratch, status, B, S, W, half, epoch};
+  void* args[] = {&c};
+  size_t smem = 32 * sizeof(int32_t);
+  int grid = 0;
   if (mode == 0) {
-    CHECK_CALL(cudaMemsetAsync(live, 0, sizeof(int32_t), stream));
     if (S <= 0) return 0;
-    k_pc_init<<<grid_for(S, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-        tgt, ntgt, nfloor, nmiss, nfin, nrank, norig, out_final, out_miss, out_rank,
-        dead, live, B, S, W);
-    CHECK_LAUNCH();
+    int e = coop_grid(k_pc_init, block, smem, ((long)S + block - 1) / block, &grid);
+    if (e) return e;
+    CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_pc_init, dim3(grid), dim3(block),
+                                           args, smem, stream));
     return (int)cudaGetLastError();
-  }
-  if (S > 0) {
-    k_pc_publish<<<grid_for(S, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-        fin, miss, rank, orig, out_final, out_miss, out_rank, dead, B, S);
-    CHECK_LAUNCH();
   }
   if (mode == 1) {
-    if (B > 0) {
-      k_pc_stuck<<<grid_for(B, EW_BLOCK), EW_BLOCK, 0, stream>>>(out_final, out_miss,
-                                                                stuck, B);
-      CHECK_LAUNCH();
-    }
+    long rows = S > B ? S : B;
+    if (rows <= 0) return 0;
+    int e = coop_grid(k_pc_publish, block, smem, (rows + block - 1) / block, &grid);
+    if (e) return e;
+    CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_pc_publish, dim3(grid),
+                                           dim3(block), args, smem, stream));
     return (int)cudaGetLastError();
   }
-  CHECK_CALL(cudaMemsetAsync(live, 0, sizeof(int32_t), stream));
-  if (S <= 0) return 0;
-  int nb = (int)grid_for(S, SCAN_BLOCK);
-  int32_t* remap = scratch;
-  int32_t* keep = scratch + S;
-  int32_t* bcount = scratch + 2L * S;
-  int32_t* bcarry = bcount + nb;
-  int32_t* total = bcarry + nb;
-  k_pc_count<<<nb, SCAN_BLOCK, 0, stream>>>(fin, miss, bcount, S);
+  if (S <= 0 || half <= 0) return (int)cudaErrorInvalidValue;
+  k_pc_partition<<<grid_for(S, PC_TILE), PC_THREADS, 0, stream>>>(c);
   CHECK_LAUNCH();
-  k_pc_carry<<<1, SCAN_BLOCK, 0, stream>>>(bcount, bcarry, total, dead, nb, half);
+  k_pc_gather<<<grid_for(half, EW_BLOCK), EW_BLOCK, 0, stream>>>(c);
   CHECK_LAUNCH();
-  k_pc_place<<<nb, SCAN_BLOCK, 0, stream>>>(fin, miss, bcarry, total, remap, keep, S,
-                                            half);
-  CHECK_LAUNCH();
-  if (half > 0) {
-    k_pc_gather<<<grid_for(half, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-        tgt, floor, miss, fin, rank, orig, remap, keep, ntgt, nfloor, nmiss, nfin,
-        nrank, norig, live, half, W);
-    CHECK_LAUNCH();
-  }
   return (int)cudaGetLastError();
 }
 

@@ -522,7 +522,9 @@ extern "C" int gp_lex_sort(const void* col0, const void* col1, const void* col2,
 }
 
 // ---------------------------------------------------------------------------
-// block max-scan (inclusive cummax) with carried block totals
+// block max-scan (inclusive cummax) with carried block totals: reduce, a
+// one-block carry, apply.  group_scan's (§5) two scans; its redesign, as
+// link_scan's single pass (§3), waits in ROADMAP.md Queue B.
 // ---------------------------------------------------------------------------
 
 // Hillis-Steele inclusive max over the block; every thread must call it
@@ -583,54 +585,377 @@ static int cummax(const int32_t* x, int32_t* y, int32_t* scratch, int n,
 }
 
 // ---------------------------------------------------------------------------
-// 3. link scan
+// 3. link scan: one launch
 // ---------------------------------------------------------------------------
+// Row p of the key-sorted order (j = pos_s[p]) is a run head when its key
+// differs from row p - 1's; its link is ok when a head's dependency is
+// TERMINAL and any other row's is row p - 1's position.  run_start is the
+// running max of head positions, lastbad that of rows whose link is not
+// ok, chain_ok[p] = lastbad[p] < run_start[p], and n_residual counts the
+// rows that are not chain_ok (fantoch_tpu/ops/graph_resolve.py:263-273).
+//
+// One pass over tiles of LS_TILE rows.  A tile loads its rows striped
+// (pos_s, then pk and col through it; one extra read of row base - 1 for
+// the first row's predecessor), keeps keys and positions in shared memory,
+// scans them blocked, LS_ITEMS consecutive rows a thread, and carries one
+// aggregate across tiles (LinkAgg): the last head and the last bad row, and
+// the count of rows that are not chain_ok as a function of the rows before
+// the tile.  That count splits at the tile's first head: the rows after it
+// do not depend on what came before; the L rows before it are all not ok
+// when the run they continue is already broken (its last bad row at or
+// past its head) and otherwise all but the first f (the rows before the
+// first bad one).  So (h, b, c, L, f) composes associatively, and the last
+// tile writes n_residual itself: no fill and no atomicAdd.
+//
+// Forms: up to the wrapper's gate (LINK_CTA_ROWS) one block walks the
+// tiles in order and carries the aggregate in registers.  Above it every
+// tile is a block, and the aggregate crosses tiles by decoupled look-back
+// (Merrill & Garland): a tile publishes its aggregate, a warp combines its
+// predecessors' back to the nearest inclusive prefix, then the tile
+// publishes its own.  Tiles take their index from a ticket, so a tile only
+// waits on tiles already running; the block that takes the last ticket
+// sets the ticket back to 0 for the next call (every other block took its
+// ticket before it).
+//
+// No memset: the status words live in a buffer the wrapper allocates
+// zeroed once per device and keeps (ops/graph_plane_kernels.py
+// _lookback), and each call passes a new epoch (1, 2, ...; the buffer is
+// replaced before the epoch would reach 2^29).  A flag is epoch * 4 +
+// LB_AGG or + LB_INCL, so a flag any earlier call left (a smaller epoch,
+// or the zeroed 0) never equals a flag of this call, and a tile spins
+// until its predecessor wrote this call's flag.  Values go out before
+// their flag, a __threadfence between them, and are read after the flag,
+// a __threadfence between them.  Calls on one buffer follow each other on
+// one stream (the port uses one stream a device).
+//
+// Bound: bytes (pos_s streamed, pk and col gathered through it, dep_s,
+// run_start and chain_ok written once).
 
-__global__ void k_link_pre(const int32_t* pk, const int32_t* col, const int32_t* pos_s,
-                           int32_t* dep_s, int32_t* x_head, int32_t* x_bad, int n) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  int j = pos_s[p];
-  int k = pk[j];
-  int d = col[j];
-  dep_s[p] = d;
-  bool head = p == 0 || pk[pos_s[p - 1]] != k;
-  bool ok = head ? d == TERMINAL : d == pos_s[p - 1];
-  x_head[p] = head ? p : 0;
-  x_bad[p] = ok ? -1 : p;
-}
+#define LS_THREADS 256
+#define LS_ITEMS 8
+#define LS_TILE (LS_THREADS * LS_ITEMS)
+#define LS_WARPS (LS_THREADS / 32)
+#define LB_HEAD 16     // ints before the first tile's status: [0] is the ticket
+#define LB_STATUS 16   // ints of a tile's status: flag, aggregate, inclusive
+#define LB_AGG 1       // the tile's aggregate is published
+#define LB_INCL 2      // its inclusive prefix is published
 
-__global__ void k_link_post(const int32_t* run_start, const int32_t* lastbad,
-                            uint8_t* chain_ok, int32_t* n_residual, int n) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  int bad = 0;
-  if (p < n) {
-    bool c = lastbad[p] < run_start[p];
-    chain_ok[p] = c;
-    bad = c ? 0 : 1;
+struct LinkAgg {
+  int h, b, c, L, f;  // last head, last bad row, not-ok count, lead rows, lead rows before a bad one
+  __device__ static LinkAgg none() { return {-1, -1, 0, 0, 0}; }
+  __device__ void put(int32_t* p) const {
+    p[0] = h;
+    p[1] = b;
+    p[2] = c;
+    p[3] = L;
+    p[4] = f;
   }
-  bad = __reduce_add_sync(0xffffffffu, bad);
-  if ((threadIdx.x & 31) == 0 && bad) atomicAdd(n_residual, bad);
+  __device__ static LinkAgg get(const int32_t* p) {
+    const volatile int32_t* q = p;
+    return {q[0], q[1], q[2], q[3], q[4]};
+  }
+};
+
+// a then b (b's rows follow a's)
+__device__ __forceinline__ LinkAgg combine(LinkAgg a, LinkAgg b) {
+  if (a.h >= 0) {
+    int lead = a.b >= a.h ? b.L : b.L - b.f;  // b's lead rows that are not ok
+    return {max(a.h, b.h), max(a.b, b.b), a.c + b.c + lead, a.L, a.f};
+  }
+  return {b.h, max(a.b, b.b), a.c + b.c, a.L + b.L, a.f < a.L ? a.f : a.L + b.f};
 }
 
-// scratch: 2n + 4 * nblocks ints; n_residual zeroed by the caller
+__device__ __forceinline__ LinkAgg shfl(LinkAgg x, int src) {
+  return {__shfl_sync(FULL_MASK, x.h, src), __shfl_sync(FULL_MASK, x.b, src),
+          __shfl_sync(FULL_MASK, x.c, src), __shfl_sync(FULL_MASK, x.L, src),
+          __shfl_sync(FULL_MASK, x.f, src)};
+}
+
+// decoupled look-back for tile `tile` of aggregate `agg` in this call's
+// `epoch`: publishes the aggregate, combines the tiles before it (a warp
+// reads 32 statuses at a time, back to the nearest inclusive prefix),
+// publishes the inclusive prefix and returns the exclusive one to every
+// thread.  `status` is the call's look-back buffer (LB_HEAD ints, then
+// LB_STATUS a tile); *sh is block-shared.
+template <class S>
+__device__ S look_back(int32_t* status, int tile, S agg, int epoch, S* sh) {
+  int32_t* mine = status + LB_HEAD + (long)tile * LB_STATUS;
+  const int agg_flag = epoch * 4 + LB_AGG, incl_flag = epoch * 4 + LB_INCL;
+  if (threadIdx.x == 0) {
+    agg.put(mine + 1);
+    __threadfence();
+    *(volatile int32_t*)mine = agg_flag;
+  }
+  if (threadIdx.x < 32) {
+    int lane = threadIdx.x;
+    S acc = S::none();
+    for (int base = tile - 1;; base -= 32) {
+      int j = base - lane;
+      int flag = incl_flag;
+      S v = S::none();
+      if (j >= 0) {
+        const int32_t* st = status + LB_HEAD + (long)j * LB_STATUS;
+        do {
+          flag = *(const volatile int32_t*)st;
+        } while (flag != agg_flag && flag != incl_flag);
+        __threadfence();
+        v = S::get(st + (flag == incl_flag ? 8 : 1));
+      }
+      unsigned incl = __ballot_sync(FULL_MASK, flag == incl_flag);
+      int stop = incl ? __ffs(incl) - 1 : 31;
+      if (lane > stop) v = S::none();
+      // lane 0 takes the window's combination, the farthest tile first
+      for (int d = 1; d < 32; d <<= 1) {
+        S y = shfl(v, lane + d < 32 ? lane + d : lane);
+        if (lane + d < 32) v = combine(y, v);
+      }
+      acc = combine(shfl(v, 0), acc);
+      if (incl) break;
+    }
+    if (lane == 0) {
+      combine(acc, agg).put(mine + 8);
+      __threadfence();
+      *(volatile int32_t*)mine = incl_flag;
+      *sh = acc;
+    }
+  }
+  __syncthreads();
+  S out = *sh;
+  __syncthreads();
+  return out;
+}
+
+// a tile's index: from the ticket; the last one sets it back to 0
+__device__ int take_tile(int32_t* ticket, int tiles, int* sh) {
+  if (threadIdx.x == 0) {
+    int t = atomicAdd(ticket, 1);
+    if (t == tiles - 1) atomicCAS(ticket, tiles, 0);
+    *sh = t;
+  }
+  __syncthreads();
+  int t = *sh;
+  __syncthreads();
+  return t;
+}
+
+struct LinkShared {
+  int key[LS_TILE];
+  int pos[LS_TILE];
+  int dep[LS_TILE];
+  uint8_t bits[LS_TILE];  // a row's head (1) and bad (2) bits
+  int w[5][LS_WARPS];  // per-warp partials
+  LinkAgg prefix;
+  int prev_key, prev_pos, tile;
+};
+
+// warp max of x and of y, min of u and v, sum of s
+__device__ __forceinline__ void warp_fold(int& x, int& y, int& u, int& v, int& s) {
+  for (int d = 16; d > 0; d >>= 1) {
+    int lane = threadIdx.x & 31;
+    int src = lane + d < 32 ? lane + d : lane;
+    int x2 = __shfl_sync(FULL_MASK, x, src), y2 = __shfl_sync(FULL_MASK, y, src);
+    int u2 = __shfl_sync(FULL_MASK, u, src), v2 = __shfl_sync(FULL_MASK, v, src);
+    int s2 = __shfl_sync(FULL_MASK, s, src);
+    if (lane + d < 32) {
+      x = max(x, x2);
+      y = max(y, y2);
+      u = min(u, u2);
+      v = min(v, v2);
+      s += s2;
+    }
+  }
+}
+
+// one tile: dep_s, run_start and chain_ok of its rows; returns the tile's
+// inclusive prefix (the rows before it and its own).  `tiled`: the prefix
+// comes by look-back; otherwise it is `prefix`, carried by the one block.
+__device__ LinkAgg link_tile(const int32_t* pk, const int32_t* col, const int32_t* pos_s,
+                             int32_t* dep_s, int32_t* run_start, uint8_t* chain_ok,
+                             int32_t* status, int n, int epoch, int tile, bool tiled,
+                             LinkAgg prefix, LinkShared& sh) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long base = (long)tile * LS_TILE;
+  const int cnt = (int)min((long)LS_TILE, n - base);
+  // striped loads, consecutive threads on consecutive rows: every load
+  // of the tile issued before any store (a store could alias a later
+  // load, which would then wait for it)
+  int jj[LS_ITEMS], kk[LS_ITEMS], dd[LS_ITEMS];
+#pragma unroll
+  for (int i = 0; i < LS_ITEMS; ++i) {
+    int r = i * LS_THREADS + tid;
+    jj[i] = r < cnt ? pos_s[base + r] : 0;
+  }
+  int jp = tid == 0 && base > 0 ? pos_s[base - 1] : 0;
+#pragma unroll
+  for (int i = 0; i < LS_ITEMS; ++i) {
+    int r = i * LS_THREADS + tid;
+    kk[i] = r < cnt ? pk[jj[i]] : 0;
+    dd[i] = r < cnt ? col[jj[i]] : 0;
+  }
+  int kp = tid == 0 && base > 0 ? pk[jp] : 0;
+#pragma unroll
+  for (int i = 0; i < LS_ITEMS; ++i) {
+    int r = i * LS_THREADS + tid;
+    if (r < cnt) {
+      sh.pos[r] = jj[i];
+      sh.key[r] = kk[i];
+      sh.dep[r] = dd[i];
+      dep_s[base + r] = dd[i];
+    }
+  }
+  if (tid == 0) {
+    sh.prev_pos = jp;
+    sh.prev_key = kp;
+  }
+  __syncthreads();
+  // blocked, LS_ITEMS consecutive rows a thread: each row's head and bad
+  // bits (shared memory), and the thread's last head and last bad row
+  int hh = -1, bb = -1, first_head = INT_MAX, first_bad = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < LS_ITEMS; ++k) {
+    int r = tid * LS_ITEMS + k;
+    int bits = 0;
+    if (r < cnt) {
+      long p = base + r;
+      int pkey = r ? sh.key[r - 1] : sh.prev_key;
+      int ppos = r ? sh.pos[r - 1] : sh.prev_pos;
+      bool head = p == 0 || pkey != sh.key[r];
+      int d = sh.dep[r];
+      bool ok = head ? d == TERMINAL : d == ppos;
+      bits = (head ? 1 : 0) | (ok ? 0 : 2);
+      if (head) {
+        hh = (int)p;
+        first_head = min(first_head, r);
+      }
+      if (!ok) {
+        bb = (int)p;
+        first_bad = min(first_bad, r);
+      }
+    }
+    sh.bits[tid * LS_ITEMS + k] = (uint8_t)bits;
+  }
+  // exclusive max-scan of (hh, bb) over the threads, in order
+  int ih = hh, ib = bb;
+  for (int d = 1; d < 32; d <<= 1) {
+    int h2 = __shfl_up_sync(FULL_MASK, ih, d), b2 = __shfl_up_sync(FULL_MASK, ib, d);
+    if (lane >= d) {
+      ih = max(ih, h2);
+      ib = max(ib, b2);
+    }
+  }
+  if (lane == 31) {
+    sh.w[0][warp] = ih;
+    sh.w[1][warp] = ib;
+  }
+  int eh = __shfl_up_sync(FULL_MASK, ih, 1), eb = __shfl_up_sync(FULL_MASK, ib, 1);
+  if (lane == 0) eh = eb = -1;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) {
+    eh = max(eh, sh.w[0][w]);
+    eb = max(eb, sh.w[1][w]);
+  }
+  // the tile's aggregate: rows at or after the tile's first head that are
+  // not ok do not depend on the rows before the tile
+  int c = 0;
+  {
+    int h = eh, b = eb;
+#pragma unroll
+    for (int k = 0; k < LS_ITEMS; ++k) {
+      int r = tid * LS_ITEMS + k;
+      int bits = sh.bits[r];
+      if (bits & 1) h = (int)base + r;
+      if (bits & 2) b = (int)base + r;
+      if (r < cnt && h >= 0 && b >= h) ++c;
+    }
+  }
+  int th = hh, tb = bb;
+  warp_fold(th, tb, first_head, first_bad, c);
+  __syncthreads();  // every thread has read sh.w
+  if (lane == 0) {
+    sh.w[0][warp] = th;
+    sh.w[1][warp] = tb;
+    sh.w[2][warp] = first_head;
+    sh.w[3][warp] = first_bad;
+    sh.w[4][warp] = c;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int h = -1, b = -1, fh = INT_MAX, fb = INT_MAX, cc = 0;
+    for (int w = 0; w < LS_WARPS; ++w) {
+      h = max(h, sh.w[0][w]);
+      b = max(b, sh.w[1][w]);
+      fh = min(fh, sh.w[2][w]);
+      fb = min(fb, sh.w[3][w]);
+      cc += sh.w[4][w];
+    }
+    int L = fh == INT_MAX ? cnt : fh;
+    sh.prefix = {h, b, cc, L, min(fb, L)};  // the tile's aggregate, for now
+  }
+  __syncthreads();
+  LinkAgg agg = sh.prefix;
+  __syncthreads();
+  LinkAgg before = tiled ? look_back(status, tile, agg, epoch, &sh.prefix) : prefix;
+  // outputs, staged in shared memory (the keys and dependencies are no
+  // longer read) and stored striped
+  {
+    int h = max(before.h, eh), b = max(before.b, eb);
+#pragma unroll
+    for (int k = 0; k < LS_ITEMS; ++k) {
+      int r = tid * LS_ITEMS + k;
+      int bits = sh.bits[r];
+      if (bits & 1) h = (int)base + r;
+      if (bits & 2) b = (int)base + r;
+      if (r < cnt) {
+        sh.key[r] = h;
+        sh.dep[r] = b < h;
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < LS_ITEMS; ++i) {
+    int r = i * LS_THREADS + tid;
+    if (r < cnt) {
+      run_start[base + r] = sh.key[r];
+      chain_ok[base + r] = (uint8_t)sh.dep[r];
+    }
+  }
+  __syncthreads();
+  return combine(before, agg);
+}
+
+// tiled: a block a tile; one_cta: one block walks every tile in order
+__global__ void __launch_bounds__(LS_THREADS)
+    k_link_scan(const int32_t* pk, const int32_t* col, const int32_t* pos_s, int32_t* dep_s,
+                int32_t* run_start, uint8_t* chain_ok, int32_t* n_residual,
+                int32_t* status, int n, int epoch, int one_cta) {
+  __shared__ LinkShared sh;
+  int tiles = (int)(((long)n + LS_TILE - 1) / LS_TILE);
+  if (one_cta) {
+    LinkAgg acc = LinkAgg::none();
+    for (int t = 0; t < tiles; ++t)
+      acc = link_tile(pk, col, pos_s, dep_s, run_start, chain_ok, status, n, epoch, t,
+                      false, acc, sh);
+    if (threadIdx.x == 0) n_residual[0] = acc.c;
+    return;
+  }
+  int tile = take_tile(status, tiles, &sh.tile);
+  LinkAgg incl = link_tile(pk, col, pos_s, dep_s, run_start, chain_ok, status, n, epoch,
+                           tile, true, LinkAgg::none(), sh);
+  if (tile == tiles - 1 && threadIdx.x == 0) n_residual[0] = incl.c;
+}
+
+// status: the call's look-back buffer (LB_HEAD + LB_STATUS ints a tile,
+// zeroed once when allocated; unused by the one-CTA form); epoch: this
+// call's, above every earlier call's on the same buffer
 extern "C" int gp_link_scan(const int32_t* pk, const int32_t* col, const int32_t* pos_s,
                             int32_t* dep_s, int32_t* run_start, uint8_t* chain_ok,
-                            int32_t* n_residual, int32_t* scratch, int n,
-                            cudaStream_t stream) {
-  if (n <= 0) return 0;
-  int32_t* x_head = scratch;
-  int32_t* x_bad = scratch + n;
-  int32_t* scan_tmp = scratch + 2L * n;
-  k_link_pre<<<grid_for(n, EW_BLOCK), EW_BLOCK, 0, stream>>>(pk, col, pos_s, dep_s,
-                                                             x_head, x_bad, n);
-  CHECK_LAUNCH();
-  int err = cummax(x_head, run_start, scan_tmp, n, stream);
-  if (err) return err;
-  err = cummax(x_bad, x_bad, scan_tmp, n, stream);  // lastbad, in place
-  if (err) return err;
-  k_link_post<<<grid_for(n, EW_BLOCK), EW_BLOCK, 0, stream>>>(run_start, x_bad,
-                                                              chain_ok, n_residual, n);
+                            int32_t* n_residual, int32_t* status, int n, int epoch,
+                            int one_cta, cudaStream_t stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  unsigned grid = one_cta || n == 0 ? 1 : grid_for(n, LS_TILE);  // n = 0: n_residual = 0
+  k_link_scan<<<grid, LS_THREADS, 0, stream>>>(pk, col, pos_s, dep_s, run_start, chain_ok,
+                                               n_residual, status, n, epoch, one_cta);
   CHECK_LAUNCH();
   return (int)cudaGetLastError();
 }

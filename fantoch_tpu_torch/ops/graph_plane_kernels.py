@@ -95,7 +95,7 @@ def num_doubling_steps(batch: int) -> int:
 # cudaError_t
 _SIGNATURES = {
     "gp_lex_sort": ("graph_plane_step", "p" * 11 + "i" * 10),
-    "gp_link_scan": ("graph_plane_step", "p" * 8 + "i"),
+    "gp_link_scan": ("graph_plane_step", "p" * 8 + "iii"),
     "gp_residual_view": ("graph_plane_step", "p" * 13 + "iii"),
     "gp_group_scan": ("graph_plane_step", "pppp" + "i"),
     "gp_pointer_doubling": ("graph_plane_step", "p" * 7 + "ii"),
@@ -105,7 +105,7 @@ _SIGNATURES = {
     "gg_mutual_collapse": ("graph_general", "p" * 7 + "i" * 5),
     "gg_affine_loop": ("graph_general", "p" * 12 + "i" * 5),
     "gg_peel_stage": ("graph_general", "p" * 14 + "i" * 5),
-    "gg_peel_compact": ("graph_general", "p" * 19 + "iiiii"),
+    "gg_peel_compact": ("graph_general", "p" * 20 + "i" * 7),
     # an empty kernel: the launch floor chip_smoke.py times
     "gg_empty": ("graph_general", ""),
     # the votes-table plane's launchers (wrappers in ops/table_kernels.py)
@@ -383,10 +383,40 @@ def lex_sort(
 # ---------------------------------------------------------------------------
 # 3. link scan: run heads, link check, run_start/lastbad cummax, chain_ok
 # ---------------------------------------------------------------------------
-# Bound: bytes (gathers of pk/col through the sort permutation, then two
-# streaming scans).  Design: block-wide Hillis-Steele max scans in shared
-# memory with carried block totals (reduce, one-block carry scan, apply);
-# the residual count is a warp-reduced atomicAdd, exact for integers.
+# Bound: bytes (pos_s streamed, pk and col gathered through it, the three
+# outputs written once).  Design (``csrc/graph_plane_step.cu`` §3): one
+# launch, one pass over tiles of ``LINK_TILE`` rows that carries the last
+# head, the last bad row and the count of rows that are not chain_ok (as a
+# function of the rows before the tile) in one aggregate; up to
+# ``LINK_CTA_ROWS`` one block walks the tiles in order, above it the tiles
+# run as blocks and carry the aggregate by decoupled look-back.  The last
+# tile writes ``n_residual``: no fill, no atomic, no memset.
+
+LINK_TILE = 2048  # rows a tile (csrc LS_TILE)
+# the one-block form's gate, at the crossover chip_smoke.py measures (both
+# forms on the same calls, 256-4,096 rows)
+LINK_CTA_ROWS = 2048
+
+# the look-back buffers of link_scan and the compaction: one a device,
+# allocated zeroed once and kept (its ticket is set back to 0 by the block
+# that takes the last one); each call takes the next epoch, which tags the
+# status flags it writes, so no flag of an earlier call reads as current.
+# Past LOOKBACK_EPOCHS a new zeroed buffer replaces it.
+LOOKBACK_HEAD = LOOKBACK_STATUS = 16  # ints (csrc LB_HEAD, LB_STATUS)
+LOOKBACK_EPOCHS = 1 << 29
+_lookbacks: Dict[str, list] = {}
+
+
+def _lookback(device, tiles: int) -> Tuple[torch.Tensor, int]:
+    """The look-back buffer on ``device`` for ``tiles`` tiles, and this
+    call's epoch."""
+    key = str(device)
+    entry = _lookbacks.get(key)
+    ints = LOOKBACK_HEAD + max(tiles, 1024) * LOOKBACK_STATUS
+    if entry is None or entry[0].numel() < ints or entry[1] + 1 >= LOOKBACK_EPOCHS:
+        entry = _lookbacks[key] = [torch.zeros(ints, dtype=torch.int32, device=device), 0]
+    entry[1] += 1
+    return entry[0], entry[1]
 
 
 def link_scan_plain(pk, col, pos_s):
@@ -417,11 +447,11 @@ def link_scan(pk, col, pos_s):
     dep_s = _i32(n, device)
     run_start = _i32(n, device)
     chain_ok = _b(n, device)
-    n_residual = _i32(1, device, 0)
-    scratch = _i32(2 * n + 4 * _blocks(n), device)
+    n_residual = _i32(1, device)
+    status, epoch = _lookback(device, -(-n // LINK_TILE))
     _launch(
         "gp_link_scan", device, pk, col, pos_s, dep_s, run_start, chain_ok,
-        n_residual, scratch, n,
+        n_residual, status, n, epoch, int(n <= LINK_CTA_ROWS),
     )
     LAUNCHES["link_scan"] += 1
     return dep_s, run_start, chain_ok, n_residual
@@ -1049,18 +1079,25 @@ def peel_stage(tgt, floor, miss, final, rank, live, *, run_to_fixpoint):
 #     (graph_resolve.py:772-846)
 # ---------------------------------------------------------------------------
 # Bound: bytes — the stage's [S, W] matrix and columns read once, the
-# half-size state and the published rows written once.  Design:
+# half-size state and the published rows written once.  Design
+# (``csrc/graph_general.cu`` §12), no memset:
 # ``init`` pads the window to a power of two (pad rows start final) with
-# self-dependencies pruned; ``publish`` scatters the stage's rows into
-# the full-batch outputs unless the device ``dead`` gate is closed
-# (``orig == batch`` pads dropped; orig values are distinct, so no two
-# threads write one cell) and, for the terminal stage, writes ``stuck``;
-# ``compact`` publishes, then partitions live rows to the front stably —
-# a block scan of the live flags (per-block counts, one block scanning
-# the block totals, then the per-row positions), as link_scan's max-scan
-# — closes the gate when more than ``half`` rows are live, and gathers
-# the kept rows with their targets remapped (``FROZEN`` for cut rows),
-# finalized targets folded into the floor, and the new live count.
+# self-dependencies pruned, one cooperative launch whose block 0 zeroes
+# the live count before the grid barrier that precedes the blocks' adds;
+# ``publish`` (the terminal stage) scatters the stage's rows into the
+# full-batch outputs unless the device ``dead`` gate is closed (``orig ==
+# batch`` pads dropped; orig values are distinct) and, after a grid
+# barrier, writes ``stuck``: one cooperative launch; ``compact``
+# publishes, then partitions live rows to the front stably, closes the
+# gate when more than ``half`` rows are live, and gathers the kept rows
+# with their targets remapped (``FROZEN`` for cut rows), finalized
+# targets folded into the floor, and the new live count.  The gather needs
+# the position of any row, a grid-wide dependency: two launches, a
+# single-pass partition whose live count crosses tiles of
+# ``COMPACT_TILE`` rows by decoupled look-back, then the gather, which
+# reads one word a target and computes its position on demand.
+
+COMPACT_TILE = 2048  # rows a tile of the partition (csrc PC_TILE)
 
 
 def peel_compact_plain(*arrays, mode, half=0):
@@ -1164,8 +1201,8 @@ def peel_compact(*arrays, mode, half=0):
         live = _i32(1, device)
         _launch(
             "gg_peel_compact", device, deps, None, None, None, None, None,
-            *outs, *state, live, None, None,
-            0, batch, size, width, 0,
+            *outs, *state, live, None, None, None,
+            0, batch, size, width, 0, 0, _loop_block(size),
         )
         LAUNCHES["peel_compact"] += 1
         return state, outs, live
@@ -1186,8 +1223,8 @@ def peel_compact(*arrays, mode, half=0):
         _launch(
             "gg_peel_compact", device, tgt, floor, miss, final, rank, orig,
             out_final, out_miss, out_rank, dead,
-            None, None, None, None, None, None, None, stuck, None,
-            1, batch, size, width, 0,
+            None, None, None, None, None, None, None, stuck, None, None,
+            1, batch, size, width, 0, 0, _loop_block(max(size, batch)),
         )
         LAUNCHES["peel_compact"] += 1
         return stuck
@@ -1196,14 +1233,14 @@ def peel_compact(*arrays, mode, half=0):
              _i32(half, device), _b(half, device), _b(half, device),
              _i32(half, device), _i32(half, device))
     live = _i32(1, device)
-    # remap + per-block live counts + their scan + keep
-    nb = _blocks(size)
-    scratch = _i32(2 * size + 2 * nb + 1, device)
+    # a word a row, the kept rows by position, the live total
+    scratch = _i32(size + 2 * half + 1, device)
+    status, epoch = _lookback(device, -(-size // COMPACT_TILE))
     _launch(
         "gg_peel_compact", device, tgt, floor, miss, final, rank, orig,
         out_final, out_miss, out_rank, dead,
-        *state, live, None, scratch,
-        2, batch, size, width, half,
+        *state, live, None, scratch, status,
+        2, batch, size, width, half, epoch, 0,
     )
     LAUNCHES["peel_compact"] += 1
     return state, live
