@@ -144,7 +144,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``link_scan`` call, an init and a publish, at most two a compaction,
    none a memset or fill (asserted).  Also the one-block ``lex_sort`` at
    4,096 rows beside ``torch.sort`` and ``stable_rows`` at the Newt sim's
-   shape beside ``kthvalue``.
+   shape beside ``kthvalue``;
+11. the two kernels redesigned last, in a process of its own as phases 9
+   and 10: ``pointer_doubling`` at every call of phase 2's shuffled run
+   (``GraphExecutor`` on the card, each dispatch's branch, fast path,
+   residual or overflow, and time recorded: the keyed p50), at phase 1's
+   three cases' calls, at 2^20 (the north-star window) and on edge cases
+   (n = 1, 2, 3 and 3,001, every gate +-1, the functional-graph kinds:
+   all TERMINAL, all MISSING, MISSING mid-chain, self-loops, 2-cycles,
+   one cycle through every row, tails into short cycles, a random graph,
+   chains whose ids rise and fall, a 2^19-row hot-key chain with one
+   break), and in both forms (one block, cooperative) over 2^10 to 2^20
+   rows; ``clock_proposal`` at phase 5's call, at phase 6's (the
+   steady rounds and the fused chain, captured) and on edge cases (B = 1,
+   every tile and gate size +-1, one key, a key a row, clocks that wrap,
+   ``min_clock`` above and below ``prior + 1``), each call's operations
+   split into its sort's and the rest, and in both forms (one block,
+   tiles) over 256-8,192 rows; every call held against its plain version
+   and replayed 50 times, timed single and in the loop beside its bound
+   and counted in operations on the card: one a ``pointer_doubling``
+   call, at most 2 after a ``clock_proposal``'s sort, none of them a
+   memset or fill (asserted).
+   Also the operations and device time of ``residual_view``,
+   ``group_scan``, ``emit_scatter``, ``plane_epilogue`` (2^20 and the
+   sims' 1,024) and ``clock_bump`` at their paths' shapes, and the Newt
+   steady round and the fused chain as phase 6 times them.
 
 Each phase reports its wall time.  The last lines are the
 ``{"kernels": [...]}`` record, the card line and
@@ -170,6 +194,12 @@ builds the graph and table sources and runs phase 10 alone, as
 ``--redesign`` runs phase 9 (``--checks`` adds its asserts); copied into
 an older checkout it times that checkout's ``link_scan`` and
 ``peel_compact`` at the same shapes.
+
+    python3 chip_smoke.py --doubling
+
+runs phase 11 alone in the same way; copied into an older checkout it
+times that checkout's ``pointer_doubling`` and ``clock_proposal`` (and
+the wrappers phase 11 counts beside them) at the same shapes.
 """
 
 import json
@@ -1497,7 +1527,7 @@ def stage_record(torch, K, name, args, kwargs=None):
     return record, got, got_args
 
 
-OPS_LISTED = 40  # a call's operations listed one by one (op_ms) up to this many
+OPS_LISTED = 48  # a call's operations listed one by one (op_ms) up to this many
 
 
 def count_ops(torch, records):
@@ -1852,12 +1882,43 @@ def fused_chain(torch, table_ops, keys, mins, threshold):
                                         threshold=threshold, voters=TABLE_N)
 
 
+def table_draws(torch):
+    """Phase 5's seeded inputs (CPU tensors), drawn in one order: ``big``
+    (vote_runs and stable_rows grid-wide: K = V = ``TABLE_BIG``, n = 5),
+    ``prop`` (clock_proposal: B = ``FUSED_BATCH`` over K = ``TABLE_KCAP``,
+    ``CONFLICT`` of it on key 0) and ``bump`` (clock_bump: M = 4,096)."""
+    rng = np.random.default_rng(SEED)
+    big_k, big_n, big_v = TABLE_BIG, 5, TABLE_BIG
+    big_start = rng.integers(1, 64, big_v)
+    big = [
+        torch.tensor(rng.integers(0, 16, (big_k, big_n)).astype(np.int32)),
+        torch.tensor(rng.integers(0, big_k, big_v).astype(np.int32)),
+        torch.tensor(rng.integers(0, big_n, big_v).astype(np.int32)),
+        torch.tensor(big_start.astype(np.int32)),
+        torch.tensor((big_start + rng.integers(0, 8, big_v)).astype(np.int32)),
+        torch.tensor(rng.random(big_v) < 0.9),
+    ]
+    hot = np.where(rng.random(FUSED_BATCH) < CONFLICT, 0,
+                   rng.integers(1, TABLE_KEYS, FUSED_BATCH)).astype(np.int32)
+    prop = [
+        torch.tensor(rng.integers(0, 50, TABLE_KCAP).astype(np.int32)),
+        torch.tensor(hot),
+        torch.tensor(np.where(rng.random(FUSED_BATCH) < 0.1, 60, 0).astype(np.int32)),
+    ]
+    bump_m = 4096
+    bump = [
+        torch.tensor(rng.integers(0, 100, TABLE_KCAP).astype(np.int32)),
+        torch.tensor(rng.integers(0, TABLE_KCAP - 1, bump_m).astype(np.int32)),
+        torch.tensor(rng.integers(0, 200, bump_m).astype(np.int32)),
+    ]
+    return big, prop, bump
+
+
 def phase5(torch, T, table_ops):
     """The table kernels against their plain versions on the card."""
     from fantoch_tpu_torch.core import Config
 
     dev = torch.device(CARD)
-    rng = np.random.default_rng(SEED)
     _fast, _write, threshold = Config(TABLE_N, 1).newt_quorum_sizes()
 
     def cuda(tensors):
@@ -1867,28 +1928,8 @@ def phase5(torch, T, table_ops):
     commit_gaps = cuda(table_round_votes(gap_rate=0.05))
     zeros3 = torch.zeros((TABLE_KCAP, TABLE_N), dtype=torch.int32, device=dev)
     big_k, big_n, big_v = TABLE_BIG, 5, TABLE_BIG
-    big_start = rng.integers(1, 64, big_v)
-    big = cuda([
-        torch.tensor(rng.integers(0, 16, (big_k, big_n)).astype(np.int32)),
-        torch.tensor(rng.integers(0, big_k, big_v).astype(np.int32)),
-        torch.tensor(rng.integers(0, big_n, big_v).astype(np.int32)),
-        torch.tensor(big_start.astype(np.int32)),
-        torch.tensor((big_start + rng.integers(0, 8, big_v)).astype(np.int32)),
-        torch.tensor(rng.random(big_v) < 0.9),
-    ])
-    hot = np.where(rng.random(FUSED_BATCH) < CONFLICT, 0,
-                   rng.integers(1, TABLE_KEYS, FUSED_BATCH)).astype(np.int32)
-    prop = cuda([
-        torch.tensor(rng.integers(0, 50, TABLE_KCAP).astype(np.int32)),
-        torch.tensor(hot),
-        torch.tensor(np.where(rng.random(FUSED_BATCH) < 0.1, 60, 0).astype(np.int32)),
-    ])
-    bump_m = 4096
-    bump = cuda([
-        torch.tensor(rng.integers(0, 100, TABLE_KCAP).astype(np.int32)),
-        torch.tensor(rng.integers(0, TABLE_KCAP - 1, bump_m).astype(np.int32)),
-        torch.tensor(rng.integers(0, 200, bump_m).astype(np.int32)),
-    ])
+    big, prop, bump = (cuda(t) for t in table_draws(torch))
+    bump_m = int(bump[1].numel())
     round_keys, round_mins = fused_chain_inputs(torch, dev)
     prior0 = torch.zeros(TABLE_KCAP, dtype=torch.int32, device=dev)
     # the inputs of stable_rows' round mode on the first round
@@ -3148,9 +3189,461 @@ def phase_scans(torch, K, T, gp_module, Config, Command, Rifl, KVOp, RunTime,
     return out
 
 
+# ---------------------------------------------------------------------------
+# pointer_doubling and clock_proposal at every shape their paths give them,
+# and the device time of the keyed and table wrappers not yet redesigned
+# (phase 11; alone: --doubling)
+# ---------------------------------------------------------------------------
+
+DOUBLING_REPLAYS = 50  # runs of each phase 11 call against the plain version
+DOUBLING_SWEEP = tuple(1 << k for k in range(10, 21))  # rows of the forms' sweep
+PROP_SWEEP = (256, 512, 1024, 2048, 4096, 8192)  # rows of clock_proposal's forms sweep
+HOT_CHAIN = 1 << 19  # the hot-key chain with one break
+GRAPH_ROWS = 4096  # rows of the functional-graph kinds
+SIM_EPILOGUE_ROWS = 1024  # the sims' keyed window (plane_epilogue's small shape)
+
+
+def functional_graphs(n, seed):
+    """Out-degree-<=1 graphs of ``n`` rows (``dep`` columns, TERMINAL -1 and
+    MISSING -2 sentinels) of each kind ``pointer_doubling`` must resolve."""
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n)
+    chain = idx - 1  # row 0 TERMINAL, every other row on the row before it
+    mid = chain.copy()
+    mid[n // 2] = -2
+    two = idx ^ 1
+    if n % 2:
+        two[-1] = -1
+    # tails into short cycles: cycles of 1-8 rows, every other row on a row
+    # before it or on a cycle
+    tails = np.full(n, -1)
+    heads = max(n // 64, 1)
+    start = 0
+    for _ in range(heads):
+        length = int(rng.integers(1, 9))
+        stop = min(start + length, n)
+        tails[start:stop] = np.roll(np.arange(start, stop), -1)
+        start = stop
+        if start >= n:
+            break
+    for i in range(start, n):
+        tails[i] = int(rng.integers(0, i))
+    lab = rng.permutation(n)  # relabel, so ids do not follow the walk
+    relabeled = np.empty(n, np.int64)
+    relabeled[lab] = np.where(tails >= 0, lab[np.maximum(tails, 0)], tails)
+    tails = relabeled
+    rising = chain.copy()
+    rising[:: max(n // 16, 1)] = -1  # 16 chains whose ids rise along the walk
+    falling = idx + 1  # the walk goes to higher ids: ids fall towards the end
+    falling[-1] = -1
+    falling[max(n // 16, 1) - 1 :: max(n // 16, 1)] = -1
+    random = rng.integers(0, n, n)
+    random[rng.random(n) < 0.05] = -1
+    graphs = {
+        "all TERMINAL": np.full(n, -1),
+        "all MISSING": np.full(n, -2),
+        "MISSING mid-chain": mid,
+        "self-loops": idx,
+        "2-cycles": two,
+        "one cycle through all rows": np.roll(idx, -1),
+        "long tails into short cycles": tails,
+        "a random functional graph, 5% TERMINAL": random,
+        "chains whose ids rise along the walk": rising,
+        "chains whose ids fall along the walk": falling,
+    }
+    return {label: dep.astype(np.int32) for label, dep in graphs.items()}
+
+
+def doubling_edge_cases(torch, K):
+    """``pointer_doubling``'s edge cases: n = 1, 2, 3 and 3,001; a block's
+    threads (``K.LOOP_BLOCK``) +-1; each kind of ``functional_graphs`` at
+    ``GRAPH_ROWS``; a ``HOT_CHAIN``-row hot-key chain with one break."""
+    cases = {}
+    rng = np.random.default_rng(3)
+    for n in (1, 2, 3, 3001):
+        dep = rng.integers(-2, n, n).astype(np.int32)
+        cases[f"n = {n}, random"] = dep
+    for n in (K.LOOP_BLOCK - 1, K.LOOP_BLOCK, K.LOOP_BLOCK + 1):
+        cases[f"block {K.LOOP_BLOCK}: n = {n}, tails into short cycles"] = functional_graphs(
+            n, n)["long tails into short cycles"]
+    for label, dep in functional_graphs(GRAPH_ROWS, 5).items():
+        cases[f"{label}, n = {GRAPH_ROWS}"] = dep
+    hot = np.arange(HOT_CHAIN, dtype=np.int64) - 1
+    hot[HOT_CHAIN // 3] = -2
+    cases[f"hot-key chain, n = {HOT_CHAIN}, one break"] = hot.astype(np.int32)
+    return {label: (torch.tensor(dep, device=CARD),) for label, dep in cases.items()}
+
+
+def proposal_edge_cases(torch, T):
+    """``clock_proposal``'s edge cases: B = 1; the wrapper's tile size +-1
+    and twice it +1; all rows on one key; every row on its own key; priors
+    at INT32_MAX - 3, so that clocks wrap (and at INT32_MAX, so that prior +
+    1 wraps); ``min_clock`` above and below ``prior + 1``."""
+    K_ = TABLE_KCAP
+    rng = np.random.default_rng(8)
+    cases = {}
+
+    def put(label, prior, key, mins):
+        cases[label] = tuple(torch.tensor(np.asarray(a).astype(np.int32), device=CARD)
+                             for a in (prior, key, mins))
+
+    def mixed(b, seed):
+        r = np.random.default_rng(seed)
+        key = np.where(r.random(b) < CONFLICT, 0, r.integers(1, K_, b))
+        return r.integers(0, 50, K_), key, np.where(r.random(b) < 0.1, 60, 0)
+
+    put("B = 1", [5] * K_, [3], [0])
+    sizes = [T.PROP_TILE] if hasattr(T, "PROP_TILE") else []
+    for size in sizes:
+        for b in (size - 1, size, size + 1, 2 * size + 1):
+            if b > 0:
+                put(f"size {size}: B = {b}, half on one key", *mixed(b, b))
+    b = 5000
+    put(f"B = {b}, all rows on one key", rng.integers(0, 50, K_), np.full(b, 7),
+        rng.integers(0, 80, b))
+    put(f"B = {K_}, every row its own key", rng.integers(0, 50, K_),
+        rng.permutation(K_), rng.integers(0, 80, K_))
+    top = (1 << 31) - 1
+    put(f"B = {b}, priors at INT32_MAX - 3, clocks wrap",
+        np.full(K_, top - 3), np.where(rng.random(b) < 0.5, 1, rng.integers(0, 64, b)),
+        np.zeros(b))
+    put(f"B = {b}, priors at INT32_MAX and INT32_MIN + 2, prior + 1 wraps",
+        np.where(np.arange(K_) % 2 == 0, top, -top + 1),
+        np.where(rng.random(b) < 0.5, 2, rng.integers(0, 64, b)),
+        np.where(rng.random(b) < 0.3, -top - 1, 0))
+    put(f"B = {b}, min_clock above prior + 1", rng.integers(0, 50, K_),
+        np.where(rng.random(b) < 0.5, 0, rng.integers(1, 64, b)), rng.integers(100, 200, b))
+    put(f"B = {b}, min_clock below prior + 1", rng.integers(1000, 2000, K_),
+        np.where(rng.random(b) < 0.5, 0, rng.integers(1, 64, b)), rng.integers(0, 900, b))
+    return cases
+
+
+def table_record(torch, T, name, args):
+    """``stage_record`` for a table wrapper, its bound the table's bytes."""
+    record, got, got_args = stage_record(torch, T, name, args)
+    record["bound_ms"] = table_moved_bytes(torch, name, args, got) / HBM_BYTES_PER_S * 1e3
+    return record, got, got_args
+
+
+def replays(module, name, calls):
+    """Each call ``(args, kwargs)`` run ``DOUBLING_REPLAYS`` times on clones
+    of its arguments, every run equal to the plain version (outputs and
+    arguments updated in place)."""
+    kernel, plain = getattr(module, name), getattr(module, f"{name}_plain")
+    for i, (args, kwargs) in enumerate(calls):
+        plain_args = clone_args(args)
+        want = plain(*plain_args, **kwargs)
+        for run in range(DOUBLING_REPLAYS):
+            got_args = clone_args(args)
+            got = kernel(*got_args, **kwargs)
+            err = max(max_abs_err(got, want, name), max_abs_err(got_args, plain_args, name))
+            assert err == 0.0, f"{name} differs from its plain version, call {i}, run {run}"
+    return len(calls) * DOUBLING_REPLAYS
+
+
+def keyed_path_calls(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
+                     GraphExecutor, GraphAddBatch):
+    """Phase 2's shuffled run (``GraphExecutor`` on the card, 1M single-key
+    commands) with each dispatch timed as phase 2 times it: every dispatch's
+    branch (fast path, residual, overflow) and time, and the calls (clones,
+    made after the dispatch's timing) of the keyed wrappers inside it."""
+    n = BIG
+    order = arrival(n, EXECUTOR_BATCH, 4096, 64, SEED + 1)
+    src, seq, key, packed, key_of = columns(n, order)
+    cmds = [
+        Command.from_keys(Rifl(int(s), int(q)), 0, {f"k{k}": (KVOp.put(""),)})
+        for s, q, k in zip(src.tolist(), seq.tolist(), key.tolist())
+    ]
+    executor = GraphExecutor(1, 0, Config(5, 2, batched_graph_executor=True,
+                                          device_graph_plane=True))
+    names = ("pointer_doubling", "residual_view", "group_scan", "emit_scatter",
+             "plane_epilogue")
+    seen, reals = [], {name: getattr(K, name) for name in names}
+    dispatches, calls = [], {name: [] for name in names}
+    outside = {name: 0 for name in names}  # calls outside a plane dispatch
+
+    def recorder(name):
+        def record(*args, **kwargs):
+            if seen and seen[0] is None:
+                seen.append((name, args, kwargs))
+            else:
+                outside[name] += 1
+            return reals[name](*args, **kwargs)
+        return record
+
+    real_step = gp_module.resolve_graph_plane_step
+
+    def timed_step(*args, mode):
+        seen[:] = [None]
+        t = time.perf_counter()
+        try:
+            out = real_step(*args, mode=mode)
+            torch.cuda.synchronize()
+        finally:
+            ms = (time.perf_counter() - t) * 1e3
+            inside = seen[1:]
+            seen.clear()
+        cap = int(args[0].shape[0])
+        names_seen = [s[0] for s in inside]
+        doubling = [int(a[0].numel()) for s, a, _kw in inside if s == "pointer_doubling"]
+        branch = ("overflow" if cap in doubling else
+                  "residual" if "residual_view" in names_seen else "fast path")
+        dispatches.append({"ms": ms, "branch": branch, "window": cap, "mode": mode,
+                           "doubling_rows": doubling})
+        for name, a, kw in inside:
+            calls[name].append((clone_args(a), dict(kw), branch))
+        return out
+
+    gp_module.resolve_graph_plane_step = timed_step
+    for name in names:
+        setattr(K, name, recorder(name))
+    try:
+        executed, wall_s = drive(executor, (src, seq, key, packed), cmds, RunTime,
+                                 GraphAddBatch)
+    finally:
+        gp_module.resolve_graph_plane_step = real_step
+        for name, real in reals.items():
+            setattr(K, name, real)
+    check_chain_order(executed, key_of, n)
+    p50 = float(np.median([d["ms"] for d in dispatches]))
+    return {"dispatches": dispatches, "p50_dispatch_ms": p50,
+            "commands_per_s": n / wall_s, "calls_outside_dispatches": outside}, calls
+
+
+def phase1_doubling_calls(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
+    """The ``pointer_doubling`` and ``plane_epilogue`` calls (clones) of
+    phase 1's three cases (device graph planes fed 4 feeds each)."""
+    cases = (
+        ("chain C=2^20", BIG, FEED, arrival(BIG, FEED, 0, 1, SEED)),
+        ("shuffled C=2^20", BIG, FEED, arrival(BIG, FEED, 8192, 128, SEED)),
+        ("overflow C=2^16", 1 << 16, 1 << 15, arrival(1 << 16, 1 << 15, 1 << 16, 64, SEED)),
+    )
+    out = {"pointer_doubling": [], "plane_epilogue": []}
+    for label, n, feed, order in cases:
+        src, seq, key, packed, _key_of = columns(n, order)
+        plane = gp_module.DeviceGraphPlane(
+            1, 0, Config(5, 2, batched_graph_executor=True, device_graph_plane=True),
+            DeviceFrontier([1, 2, 3, 4, 5]), Metrics(), slot_capacity=n,
+        )
+
+        def run():
+            for s in range(0, n, feed):
+                cut = slice(s, s + feed)
+                plane.feed(src[cut], seq[cut], key[cut], np.zeros(len(src[cut])),
+                           packed[cut], [None] * len(src[cut]), RunTime())
+                plane.take_emitted()
+
+        epi = []
+        doubling = captured_kw(K, "pointer_doubling",
+                               lambda: epi.extend(captured_kw(K, "plane_epilogue", run)))
+        out["pointer_doubling"] += [(f"phase 1, {label}", a, kw) for a, kw in doubling]
+        out["plane_epilogue"] += [(f"phase 1, {label}", a, kw) for a, kw in epi]
+    return out
+
+
+def split_sort(record, sort):
+    """A ``clock_proposal`` record's operations on the card split into its
+    sort's and the rest, each with its count and summed device time: the
+    sort's are the first ``sort["device_ops"]``, ``sort`` the record of
+    ``lex_sort([key])`` alone on the same key in the same profiler session.
+    ``sort_matches``: those operations have the names the sort's have, in
+    its order."""
+    listed = "op_ms" in record and "op_ms" in sort  # else past OPS_LISTED
+    ops, mine = record.get("op_ms", []), sort.get("op_ms", [])
+    head, rest = ops[:len(mine)], ops[len(mine):]
+    record["sort_matches"] = listed and [n for n, _t in head] == [n for n, _t in mine]
+    record["sort_ops"], record["sort_device_ms"] = len(head), sum(t for _n, t in head)
+    record["sort_alone_device_ms"] = sort["device_ms"]
+    record["rest_ops"], record["rest_device_ms"] = len(rest), sum(t for _n, t in rest)
+    record["rest_op_names"] = sorted({name for name, _t in rest})
+
+
+def phase_doubling(torch, K, T, gp_module, table_ops, Config, Command, Rifl, KVOp,
+                   Metrics, DeviceFrontier, RunTime, GraphExecutor, GraphAddBatch,
+                   checks=True):
+    """``pointer_doubling`` and ``clock_proposal`` at every shape their
+    paths give them, each call held against its plain version, replayed
+    ``DOUBLING_REPLAYS`` times, timed single and in the loop beside its
+    bound and counted in operations on the card by ``torch.profiler``:
+    ``pointer_doubling`` at phase 2's calls (``GraphExecutor`` on the
+    shuffled north-star feed, each dispatch's branch and time recorded: the
+    keyed p50), at phase 1's three cases' calls, at 2^20 (the north-star
+    window shuffled around the feed edges) and on ``doubling_edge_cases``,
+    and in each form over ``DOUBLING_SWEEP``; ``clock_proposal`` at phase
+    5's B = 2^17 hot-key call, at phase 6's calls (Newt's steady rounds
+    and the S = 8 fused chain, captured) and on ``proposal_edge_cases``,
+    each call's operations split into its sort's and the rest, and in both
+    forms over ``PROP_SWEEP``.  Also the operations and device time of
+    ``residual_view``, ``group_scan``, ``emit_scatter`` (phase 2's residual
+    dispatches), ``plane_epilogue`` (2^20, and the sims' 1,024) and
+    ``clock_bump`` (the steady rounds), and the Newt steady round and the
+    fused chain, timed as phase 6 times them.  With ``checks`` (the whole
+    smoke; not on an older checkout) a ``pointer_doubling`` call is one
+    operation on the card, a ``clock_proposal`` call at most its sort's
+    plus 2, none a memset or a fill."""
+    out = {"pointer_doubling": {}, "clock_proposal": {}, "others": {}, "forms": {},
+           "proposal_forms": {}, "replays": {}, "readings": {}}
+    # phase 1's calls, then phase 2's dispatches and calls (phase 1 first, as
+    # in the whole smoke, so phase 2's dispatches find the allocator warm)
+    phase1 = phase1_doubling_calls(torch, K, gp_module, Config, Metrics, DeviceFrontier,
+                                   RunTime)
+    keyed, path_calls = keyed_path_calls(torch, K, gp_module, Config, Command, Rifl, KVOp,
+                                         RunTime, GraphExecutor, GraphAddBatch)
+    out["readings"]["phase2"] = keyed
+    log(f"phase 11: phase 2's keyed path: p50 dispatch {keyed['p50_dispatch_ms']:.3f} "
+        f"ms; dispatches (window, branch, ms) "
+        f"{[(d['window'], d['branch'], round(d['ms'], 3)) for d in keyed['dispatches']]}; "
+        f"calls outside a dispatch {keyed['calls_outside_dispatches']}")
+    doubling_calls = []
+    for i, (args, kwargs, branch) in enumerate(path_calls["pointer_doubling"]):
+        doubling_calls.append((f"phase 2, dispatch call {i}, {branch}", args, kwargs))
+    doubling_calls += phase1["pointer_doubling"]
+    key, dep, _src, _seq = build_workload(BIG, CONFLICT)
+    _pk, col, _pos = keyed_window(torch, key, dep, arrival(BIG, FEED, 8192, 128, SEED))
+    doubling_calls.append(("north star, 2^20 rows, shuffled around the feed edges",
+                           (col,), {}))
+    doubling_calls += [(label, args, {}) for label, args in
+                       doubling_edge_cases(torch, K).items()]
+    for label, args, kwargs in doubling_calls:
+        record, got, _ = stage_record(torch, K, "pointer_doubling", args, kwargs)
+        n = int(args[0].numel())
+        record["n"] = n
+        record["steps"] = K.num_doubling_steps(n)
+        record["on_cycle"] = int(got[3].sum().item())
+        record["resolved"] = int(got[0].sum().item())
+        out["pointer_doubling"][f"{label} (n = {n})"] = record
+    out["replays"]["pointer_doubling"] = replays(
+        K, "pointer_doubling", [(a, kw) for _l, a, kw in doubling_calls])
+
+    # the forms over the sweep: the north-star workload in a window of n
+    # rows, shuffled around feed edges a quarter of the window apart
+    for n in DOUBLING_SWEEP:
+        key, dep, _src, _seq = build_workload(n, CONFLICT, seed=n)
+        order = arrival(n, max(n // 4, 1), min(8192, n), 128, SEED)
+        args = (keyed_window(torch, key, dep, order)[1],)
+        want = K.pointer_doubling_plain(*clone_args(args))
+        forms = {"bound_ms": moved_bytes(K, "pointer_doubling", args, {}, want)
+                 / HBM_BYTES_PER_S * 1e3}
+        call = K.pointer_doubling
+        assert max_abs_err(call(*clone_args(args)), want, "pointer_doubling") == 0.0, (
+            f"pointer_doubling, {n} rows: differs")
+        forms["ms_kernel"] = time_ms(call, args, {})
+        forms["ms_loop_kernel"] = time_loop_ms(call, args, {})
+        forms["runs_kernel"] = [{"call": (call, clone_args(args), {})}
+                                for _ in range(FORM_REPEATS)]
+        out["forms"][n] = forms
+
+    # clock_proposal: phase 5's call, phase 6's calls, edge cases
+    prop_calls = [(f"phase 5, B={FUSED_BATCH} K={TABLE_KCAP}, 50% on one key",
+                   tuple(t.to(CARD) for t in table_draws(torch)[1]))]
+    _fast, _write, threshold = Config(TABLE_N, 1).newt_quorum_sizes()
+    bumps = []
+    steady = captured_calls(T, "clock_proposal", lambda: bumps.extend(
+        captured_calls(T, "clock_bump", lambda: newt_steady_rounds(CARD))))
+    prop_calls += [(f"phase 6, steady round {i}", a) for i, a in enumerate(steady)]
+    keys, mins = fused_chain_inputs(torch, torch.device(CARD))
+    fused = captured_calls(T, "clock_proposal",
+                           lambda: fused_chain(torch, table_ops, keys, mins, threshold))
+    prop_calls += [(f"phase 6, fused chain round {i}", a) for i, a in enumerate(fused)]
+    prop_calls += list(proposal_edge_cases(torch, T).items())
+    sorts = {}  # lex_sort([key]) alone on each call's key: its operations
+    for label, args in prop_calls:
+        record, _got, _ = table_record(torch, T, "clock_proposal", args)
+        record["keys"] = int(torch.unique(args[1]).numel())
+        label = f"{label} (B = {int(args[1].numel())})"
+        out["clock_proposal"][label] = record
+        sorts[label] = {"call": (lambda key: K.lex_sort([key]), (args[1],), {})}
+    out["replays"]["clock_proposal"] = replays(T, "clock_proposal",
+                                               [(a, {}) for _l, a in prop_calls])
+    for rows in PROP_SWEEP:
+        r = np.random.default_rng(rows)
+        args = tuple(torch.tensor(a.astype(np.int32), device=CARD) for a in (
+            r.integers(0, 50, TABLE_KCAP),
+            np.where(r.random(rows) < CONFLICT, 0, r.integers(1, TABLE_KEYS, rows)),
+            np.where(r.random(rows) < 0.1, 60, 0)))
+        want = T.clock_proposal_plain(*clone_args(args))
+        forms = {"bound_ms": table_moved_bytes(torch, "clock_proposal", args, want)
+                 / HBM_BYTES_PER_S * 1e3}
+        call = T.clock_proposal
+        got_args = clone_args(args)
+        assert max_abs_err(call(*got_args), want, "clock_proposal") == 0.0, (
+            f"clock_proposal, {rows} rows: differs")
+        forms["ms_kernel"] = time_ms(call, args, {})
+        forms["ms_loop_kernel"] = time_loop_ms(call, args, {})
+        forms["runs_kernel"] = [{"call": (call, clone_args(args), {})}
+                                for _ in range(FORM_REPEATS)]
+        out["proposal_forms"][rows] = forms
+
+    # the wrappers not yet redesigned, at their paths' shapes
+    others = []
+    for name in ("residual_view", "group_scan", "emit_scatter"):
+        first = path_calls[name][:1]
+        others += [(f"{name}, phase 2, {branch}", K, name, a, kw)
+                   for a, kw, branch in first]
+    epi = [c for c in phase1["plane_epilogue"] if int(c[1][0].numel()) == BIG][:1]
+    others += [(f"plane_epilogue, {label}", K, "plane_epilogue", a, kw)
+               for label, a, kw in epi]
+    sims = captured_kw(K, "plane_epilogue", lambda: sim_run("cpu", "EPaxos"))
+    sims = [(to_card(a), kw) for a, kw in sims if int(a[0].numel()) == SIM_EPILOGUE_ROWS]
+    others += [(f"plane_epilogue, the EPaxos sim ({len(sims)} calls at "
+                f"{SIM_EPILOGUE_ROWS})", K, "plane_epilogue", a, kw) for a, kw in sims[:1]]
+    others += [("clock_bump, phase 6, steady", T, "clock_bump", a, {}) for a in bumps[:1]]
+    for label, module, name, args, kwargs in others:
+        if module is T:
+            record, _got, _ = table_record(torch, T, name, args)
+        else:
+            record, _got, _ = stage_record(torch, K, name, args, kwargs)
+        out["others"][label] = record
+
+    # the Newt readings, timed as phase 6 times them
+    _order, times, _counters = newt_steady_rounds(CARD)
+    out["readings"]["newt_round_ms"] = times
+    out["readings"]["newt_median_round_ms"] = float(np.median(times))
+    chain_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused_chain(torch, table_ops, keys, mins, threshold)
+        torch.cuda.synchronize()
+        chain_ms.append((time.perf_counter() - t0) * 1e3)
+    out["readings"]["fused_chain_ms"] = chain_ms
+
+    counted = [r for group in ("pointer_doubling", "clock_proposal", "others")
+               for r in out[group].values()]
+    all_forms = list(out["forms"].values()) + list(out["proposal_forms"].values())
+    form_runs = [r for forms in all_forms for key in list(forms)
+                 if key.startswith("runs_") for r in forms[key]]
+    count_ops(torch, counted + form_runs + list(sorts.values()))
+    for forms in all_forms:
+        for key in [key for key in forms if key.startswith("runs_")]:
+            runs, form = forms.pop(key), key[len("runs_"):]
+            forms[f"device_ops_{form}"] = runs[0]["device_ops"]
+            forms[f"device_ms_{form}"] = float(np.median([r["device_ms"] for r in runs]))
+    for label, record in out["clock_proposal"].items():
+        split_sort(record, sorts[label])
+    if checks:
+        for label, record in out["pointer_doubling"].items():
+            assert record["device_ops"] == 1, (label, record["op_names"])
+        for label, record in out["clock_proposal"].items():
+            # the sort's operations are lex_sort's alone, in its order
+            # (its memset included), and the rest one or two kernels
+            assert record["sort_matches"], (label, record.get("op_ms"),
+                                            sorts[label].get("op_ms"))
+            assert 1 <= record["rest_ops"] <= 2, (label, record["op_names"])
+        for label, record in out["pointer_doubling"].items():
+            assert not any(f in n.lower() for n in record["op_names"]
+                           for f in ("memset", "fill")), (label, record["op_names"])
+        for label, record in out["clock_proposal"].items():
+            assert not any(f in n.lower() for n in record["rest_op_names"]
+                           for f in ("memset", "fill")), (label, record["rest_op_names"])
+    log(json.dumps({"doubling": out}))
+    return out
+
+
 # the kernels redesigned since the first slices, named in phase 0
 REDESIGNED = ("k_radix_", "k_stable_select", "k_affine_", "k_peel_stage", "k_mc_",
-              "k_prologue_", "k_vr_", "k_one_cta", "k_grid", "k_link_scan", "k_pc_")
+              "k_prologue_", "k_vr_", "k_one_cta", "k_grid", "k_link_scan", "k_pc_",
+              "k_dbl", "k_prop")
 
 
 def ptxas_kernels(text):
@@ -3208,11 +3701,12 @@ def main():
     chain_only = "--general-chain" in sys.argv[1:]
     redesign_only = "--redesign" in sys.argv[1:]
     scans_only = "--scans" in sys.argv[1:]
+    doubling_only = "--doubling" in sys.argv[1:]
     if chain_only:  # the general chain alone (also on an older checkout)
         sources = ["graph_general", "graph_plane_step"]
     if redesign_only:  # phase 9 alone (also on an older checkout)
         sources = ["graph_plane_step", "pred_plane", "table_plane"]
-    if scans_only:  # phase 10 alone (also on an older checkout)
+    if scans_only or doubling_only:  # phase 10 or 11 alone (also on an older checkout)
         sources = ["graph_general", "graph_plane_step", "table_plane"]
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3244,6 +3738,12 @@ def main():
     if scans_only:
         phase_scans(torch, K, T, gp_module, Config, Command, Rifl, KVOp, RunTime,
                     GraphExecutor, GraphAddBatch, checks="--checks" in sys.argv[1:])
+        log(card)
+        return 0
+    if doubling_only:
+        phase_doubling(torch, K, T, gp_module, table_ops, Config, Command, Rifl, KVOp,
+                       Metrics, DeviceFrontier, RunTime, GraphExecutor, GraphAddBatch,
+                       checks="--checks" in sys.argv[1:])
         log(card)
         return 0
 
@@ -3315,6 +3815,17 @@ def main():
         name = label.split(",")[0]
         records[name].setdefault("other_shapes", {})[label] = record
     records["stable_rows"]["newt_sim_calls_by_shape"] = scans["newt_sim_stable_rows_by_shape"]
+    doubling = timed("phase 11", phase_apart, "--doubling", "doubling")
+    for name, forms in (("pointer_doubling", "forms"), ("clock_proposal", "proposal_forms")):
+        records[name]["at_paths_shapes"] = doubling[name]
+        records[name]["replays"] = doubling["replays"][name]
+        records[name]["forms"] = doubling[forms]
+    records["pointer_doubling"]["phase2_dispatches"] = doubling["readings"]["phase2"]
+    records["clock_proposal"]["newt_readings"] = {
+        k: v for k, v in doubling["readings"].items() if k != "phase2"}
+    for label, record in doubling["others"].items():
+        name = label.split(",")[0]
+        records[name].setdefault("device_at_paths_shapes", {})[label] = record
     log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": list(records.values())}))
     log(card)

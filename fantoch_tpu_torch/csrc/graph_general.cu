@@ -771,6 +771,18 @@ extern "C" int gg_peel_stage(const int32_t* tgt0, const int32_t* floor0,
 #define LB_STATUS 16  // ints of a tile's status: flag, aggregate, inclusive
 #define LB_AGG 1
 #define LB_INCL 2
+#define LB_EPOCH_STEP 4  // a flag: epoch * LB_EPOCH_STEP + LB_AGG or LB_INCL
+
+// the look-back buffer's layout as this source has it (checked against the
+// wrappers' when the library is loaded): head ints, status ints a tile, the
+// aggregate's and the inclusive prefix's flag, epochs' step in a flag
+extern "C" void gg_lookback_layout(int32_t* out) {
+  out[0] = LB_HEAD;
+  out[1] = LB_STATUS;
+  out[2] = LB_AGG;
+  out[3] = LB_INCL;
+  out[4] = LB_EPOCH_STEP;
+}
 
 // the call's columns, outputs and scratch
 struct PeelCompact {
@@ -999,7 +1011,8 @@ __device__ __forceinline__ Count shfl(Count x, int src) {
 template <class S>
 __device__ S look_back(int32_t* status, int tile, S agg, int epoch, S* sh) {
   int32_t* mine = status + LB_HEAD + (long)tile * LB_STATUS;
-  const int agg_flag = epoch * 4 + LB_AGG, incl_flag = epoch * 4 + LB_INCL;
+  const int agg_flag = epoch * LB_EPOCH_STEP + LB_AGG;
+  const int incl_flag = epoch * LB_EPOCH_STEP + LB_INCL;
   if (threadIdx.x == 0) {
     agg.put(mine + 1);
     __threadfence();

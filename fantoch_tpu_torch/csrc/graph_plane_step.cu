@@ -16,8 +16,12 @@
 //        -Xcompiler -fPIC -o libgraph_plane_step.so graph_plane_step.cu
 
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
 #include <climits>
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 #define TERMINAL (-1)
 #define MISSING (-2)
@@ -30,6 +34,12 @@
 #define CHECK_LAUNCH()                         \
   do {                                         \
     cudaError_t e_ = cudaGetLastError();       \
+    if (e_ != cudaSuccess) return (int)e_;     \
+  } while (0)
+
+#define CHECK_CALL(call)                       \
+  do {                                         \
+    cudaError_t e_ = (call);                   \
     if (e_ != cudaSuccess) return (int)e_;     \
   } while (0)
 
@@ -619,7 +629,7 @@ static int cummax(const int32_t* x, int32_t* y, int32_t* scratch, int n,
 //
 // No memset: the status words live in a buffer the wrapper allocates
 // zeroed once per device and keeps (ops/graph_plane_kernels.py
-// _lookback), and each call passes a new epoch (1, 2, ...; the buffer is
+// lookback), and each call passes a new epoch (1, 2, ...; the buffer is
 // replaced before the epoch would reach 2^29).  A flag is epoch * 4 +
 // LB_AGG or + LB_INCL, so a flag any earlier call left (a smaller epoch,
 // or the zeroed 0) never equals a flag of this call, and a tile spins
@@ -639,6 +649,18 @@ static int cummax(const int32_t* x, int32_t* y, int32_t* scratch, int n,
 #define LB_STATUS 16   // ints of a tile's status: flag, aggregate, inclusive
 #define LB_AGG 1       // the tile's aggregate is published
 #define LB_INCL 2      // its inclusive prefix is published
+#define LB_EPOCH_STEP 4  // a flag: epoch * LB_EPOCH_STEP + LB_AGG or LB_INCL
+
+// the look-back buffer's layout as this source has it (checked against the
+// wrappers' when the library is loaded): head ints, status ints a tile, the
+// aggregate's and the inclusive prefix's flag, epochs' step in a flag
+extern "C" void gp_lookback_layout(int32_t* out) {
+  out[0] = LB_HEAD;
+  out[1] = LB_STATUS;
+  out[2] = LB_AGG;
+  out[3] = LB_INCL;
+  out[4] = LB_EPOCH_STEP;
+}
 
 struct LinkAgg {
   int h, b, c, L, f;  // last head, last bad row, not-ok count, lead rows, lead rows before a bad one
@@ -680,7 +702,8 @@ __device__ __forceinline__ LinkAgg shfl(LinkAgg x, int src) {
 template <class S>
 __device__ S look_back(int32_t* status, int tile, S agg, int epoch, S* sh) {
   int32_t* mine = status + LB_HEAD + (long)tile * LB_STATUS;
-  const int agg_flag = epoch * 4 + LB_AGG, incl_flag = epoch * 4 + LB_INCL;
+  const int agg_flag = epoch * LB_EPOCH_STEP + LB_AGG;
+  const int incl_flag = epoch * LB_EPOCH_STEP + LB_INCL;
   if (threadIdx.x == 0) {
     agg.put(mine + 1);
     __threadfence();
@@ -1050,133 +1073,321 @@ extern "C" int gp_group_scan(const int32_t* rrs, const int32_t* p_r, int32_t* ta
 // ---------------------------------------------------------------------------
 // 6. pointer doubling (_doubling_core)
 // ---------------------------------------------------------------------------
+// The reference (fantoch_tpu/ops/graph_resolve.py:96-153), bit for bit:
+// pass 1 doubles (jump, acc) L = num_doubling_steps(n) times (2^L >= 2n),
+// acc the least id on the first 2^t hops; a row is nonterminating when its
+// end, jump after pass 1, is not absorbing (TERMINAL or MISSING); the
+// closure marks the cycles of the nonterminating components; pass 2
+// doubles (jump2, dist2) L times over the graph cut at the cycles.
+//
+// The closure as one scatter.  The reference seeds each cycle's least id
+// and marks p^(2^t) of every mark, t = 0..L-1, among nonterminating rows.
+// Here on_cycle[end[i]] = 1 for every nonterminating i, which marks the
+// same rows:
+//   - a nonterminating walk's tail has fewer than n <= 2^(L-1) hops, so
+//     end[i] = p^(2^L)(i) lies on i's cycle: only cycle rows are marked;
+//   - p^(2^L) maps each cycle onto itself one to one, so every row of a
+//     cycle is the end of some row of it: every cycle row is marked;
+//   - the reference's marks stay on the cycle (p maps it into itself) and
+//     cover it (it is shorter than 2^L hops from its seed), so its column
+//     is the same.
+// Every writer stores 1, so plain stores do and no atomic is needed; the
+// column is zeroed in the barrier phase before.  The
+// reference's cyc_leader[i] = acc[end[i]] is read only where on_cycle[i],
+// and there acc[i] itself is the cycle's least id (2^L hops from i walk the
+// whole cycle), so pass 1's last step parks acc in `leader` and the final
+// step keeps it on the cycle and writes i elsewhere.
+//
+// Pass 2 may stop early.  If a step changes no (jump2, dist2) word, every
+// jump2[i] is a fixed point of p2: a non-absorbing2 row that returned to
+// itself would lie on a cycle, and cycle rows are absorbing2.  Absorbing2
+// rows carry dist2 0, so every later step leaves both words as they are,
+// and its steps may do nothing.  A step's changed words are DBL_SLOTS
+// ints on lines of their own (a block sets its slot, blockIdx.x %
+// DBL_SLOTS, with a plain store of 1 where it reads 0: hundreds of blocks
+// storing to one word would queue at one L2 slice), and after the barrier
+// every block's warp reads them and all stop where they are all 0.
+// Pass 1 keeps its L steps: acc can settle while end is still on a tail.
+//
+// State: one 64-bit word a row, (jump, acc) in pass 1 and (jump2, dist2) in
+// pass 2 (jump in the low half), so a step gathers one 8-byte word at its
+// jump; two ping-pong columns, pass 2 reusing pass 1's once the closure has
+// read end.  Init folds into the first step of each pass and the final
+// outputs into pass 2's last step, so no step's jumps are kept.
+//
+// One cooperative launch, rows grid-stride over the co-resident grid, a
+// grid barrier between steps.  (A chain of launches, L + 1 + L, was built
+// and timed too: behind the cooperative launch at every size from 16,384
+// rows to 2^20 on an H100, so it went; so did one block with its columns in
+// shared memory, ahead only below 16,384 rows, a size no path calls it at.)
+// Bound: bytes, but the gathers are random, so a step runs at the card's
+// gather rate.
+
+#define DBL_BLOCK_MAX 1024  // threads a block at most
+
+typedef unsigned long long u64;
 
 __device__ __forceinline__ bool absorbing(int d) { return d == TERMINAL || d == MISSING; }
+__device__ __forceinline__ u64 dbl_pack(int jump, int value) {
+  return (u64)(unsigned)jump | ((u64)(unsigned)value << 32);
+}
+__device__ __forceinline__ int dbl_jump(u64 s) { return (int)(unsigned)(s & 0xffffffffull); }
+__device__ __forceinline__ int dbl_value(u64 s) { return (int)(unsigned)(s >> 32); }
 
-__global__ void k_dbl_init(const int32_t* dep, int32_t* jump, int32_t* acc, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int d = dep[i];
-  bool ab = absorbing(d);
-  jump[i] = ab ? i : d;
-  acc[i] = ab ? n : d;
+#define DBL_SLOTS 32      // changed words a step
+#define DBL_SLOT_INTS 32  // ints from one to the next: a 128-byte line each
+
+struct Doubling {
+  const int32_t* dep;
+  uint8_t *resolved, *on_cycle;
+  int32_t *rank, *leader;
+  int32_t* changed;  // pass 2's changed words: DBL_SLOTS a step, DBL_SLOT_INTS apart
+  int n, steps;
+};
+
+// the block sets its changed word of step t (where it reads 0)
+__device__ __forceinline__ void dbl_set_changed(const Doubling& d, int t) {
+  volatile int32_t* w =
+      d.changed + ((long)t * DBL_SLOTS + blockIdx.x % DBL_SLOTS) * DBL_SLOT_INTS;
+  if (*w == 0) *w = 1;
 }
 
-__global__ void k_dbl_step(const int32_t* jin, const int32_t* ain, int32_t* jout,
-                           int32_t* aout, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int j = jin[i];
-  aout[i] = min(ain[i], ain[j]);
-  jout[i] = jin[j];
+// whether step t changed a word: a warp reads the step's words; every
+// thread of the block must call it
+__device__ __forceinline__ bool dbl_changed(const Doubling& d, int t, int* sh) {
+  if (threadIdx.x < 32) {
+    int v = 0;
+    if (threadIdx.x < DBL_SLOTS)
+      v = *(const volatile int32_t*)(d.changed +
+                                     ((long)t * DBL_SLOTS + threadIdx.x) * DBL_SLOT_INTS);
+    unsigned any = __ballot_sync(FULL_MASK, v != 0);
+    if (threadIdx.x == 0) *sh = any != 0;
+  }
+  __syncthreads();
+  bool out = *sh != 0;
+  __syncthreads();
+  return out;
 }
 
-__global__ void k_dbl_seed(const int32_t* dep, const int32_t* end, const int32_t* acc,
-                           int32_t* nonterm, int32_t* cyc_leader, int32_t* onc, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int e = end[i];
-  bool nt = !absorbing(dep[e]);
-  int leader = acc[e];
-  nonterm[i] = nt;
-  cyc_leader[i] = leader;
-  onc[i] = nt && i == leader;
+// zeroes changed word i (i < steps * DBL_SLOTS)
+__device__ __forceinline__ void dbl_zero_changed(const Doubling& d, long i) {
+  d.changed[i * DBL_SLOT_INTS] = 0;
 }
 
-// contrib[hop[i]] |= onc[i]: the reference's .at[hop].max
-__global__ void k_dbl_scatter(const int32_t* hop, const int32_t* onc, int32_t* contrib,
-                              int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (onc[i]) atomicOr((unsigned*)&contrib[hop[i]], 1u);
+// pass 1's first step, from dep: jump0 = i (absorbing) or dep, acc0 = n or
+// dep; then acc1 = min(acc0, acc0[jump0]), jump1 = jump0[jump0]
+__device__ __forceinline__ u64 dbl1_first(const Doubling& d, int i) {
+  int j = d.dep[i];
+  if (absorbing(j)) return dbl_pack(i, d.n);
+  int dj = d.dep[j];
+  return absorbing(dj) ? dbl_pack(j, min(j, d.n)) : dbl_pack(dj, min(j, dj));
 }
 
-__global__ void k_dbl_merge(int32_t* onc, int32_t* contrib, const int32_t* nonterm,
-                            int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (contrib[i] && nonterm[i]) onc[i] = 1;
-  contrib[i] = 0;
+// the closure: the end of a nonterminating row is on its cycle
+__device__ __forceinline__ void dbl_mark(const Doubling& d, const u64* end, int i) {
+  int e = dbl_jump(end[i]);
+  if (!absorbing(d.dep[e])) d.on_cycle[e] = 1;
 }
 
-__global__ void k_dbl2_init(const int32_t* dep, const int32_t* onc, int32_t* jump,
-                            int32_t* dist, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int d = dep[i];
-  bool ab = absorbing(d) || onc[i];
-  jump[i] = ab ? i : d;
-  dist[i] = ab ? 0 : 1;
+// pass 2's init and first step: absorbing2 rows (absorbing or on a cycle)
+// keep (i, 0), the others (dep, 1); returns the state after the step and
+// sets `moved` where it differs from the init
+__device__ __forceinline__ u64 dbl2_first(const Doubling& d, int i, bool* moved) {
+  int j = d.dep[i];
+  if (absorbing(j) || d.on_cycle[i]) {
+    *moved = false;
+    return dbl_pack(i, 0);
+  }
+  int dj = d.dep[j];
+  bool stop = absorbing(dj) || d.on_cycle[j];  // the init (j, 1) stays
+  *moved = !stop;
+  return stop ? dbl_pack(j, 1) : dbl_pack(dj, 2);
 }
 
-__global__ void k_dbl2_step(const int32_t* jin, const int32_t* din, int32_t* jout,
-                            int32_t* dout, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int j = jin[i];
-  dout[i] = din[i] + din[j];
-  jout[i] = jin[j];
+__device__ __forceinline__ void dbl_final(const Doubling& d, int i, u64 s) {
+  int j = dbl_jump(s);
+  bool oc = d.on_cycle[i] != 0;
+  bool res = oc || d.dep[j] == TERMINAL || d.on_cycle[j] != 0;
+  d.resolved[i] = res;
+  d.rank[i] = res ? dbl_value(s) : UNRESOLVED_RANK;
+  if (!oc) d.leader[i] = i;
 }
 
-__global__ void k_dbl_final(const int32_t* dep, const int32_t* onc, const int32_t* jump2,
-                            const int32_t* dist2, const int32_t* cyc_leader,
-                            uint8_t* resolved, int32_t* rank, int32_t* leader,
-                            uint8_t* on_cycle, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int j = jump2[i];
-  bool oc = onc[i] != 0;
-  bool res = oc || dep[j] == TERMINAL || onc[j] != 0;
-  resolved[i] = res;
-  rank[i] = res ? dist2[i] : UNRESOLVED_RANK;
-  leader[i] = oc ? cyc_leader[i] : i;
-  on_cycle[i] = oc;
+// pass 1's last step parks acc in leader and zeroes on_cycle for the
+// closure after it
+__device__ __forceinline__ void dbl1_last(const Doubling& d, int i, u64 s) {
+  d.leader[i] = dbl_value(s);
+  d.on_cycle[i] = 0;
 }
 
-// scratch: (steps + 1) * n + 8n ints; flags: 2n ints zeroed by the caller
+// --- the cooperative launch ----------------------------------------------
+
+#define DBL_ROWS(v, n)                                               \
+  for (long v = (long)blockIdx.x * blockDim.x + threadIdx.x; v < (n); \
+       v += (long)gridDim.x * blockDim.x)
+
+#define DBL_ILP 4  // rows a thread takes at once in a doubling step
+
+// one doubling step of pass 1 (PASS 1: acc the min) or pass 2 (dist the
+// sum) over the rows a thread walks, DBL_ILP rows at a time: their words
+// first, then their gathers, so a thread keeps DBL_ILP gathers in flight.
+// `last`: pass 1's parks acc and zeroes on_cycle, pass 2's writes the
+// outputs instead of a column.  Returns whether a row's word changed.
+template <int PASS>
+__device__ __forceinline__ bool dbl_step_rows(const Doubling& d, const u64* cur, u64* nxt,
+                                              bool last) {
+  long stride = (long)gridDim.x * blockDim.x;
+  bool any = false;
+  for (long i0 = (long)blockIdx.x * blockDim.x + threadIdx.x; i0 < d.n;
+       i0 += DBL_ILP * stride) {
+    u64 s[DBL_ILP], t[DBL_ILP];
+#pragma unroll
+    for (int k = 0; k < DBL_ILP; ++k) {
+      long i = i0 + k * stride;
+      s[k] = i < d.n ? cur[i] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < DBL_ILP; ++k) t[k] = i0 + k * stride < d.n ? cur[dbl_jump(s[k])] : 0;
+#pragma unroll
+    for (int k = 0; k < DBL_ILP; ++k) {
+      long i = i0 + k * stride;
+      if (i >= d.n) break;
+      int v = PASS == 1 ? min(dbl_value(s[k]), dbl_value(t[k]))
+                        : dbl_value(s[k]) + dbl_value(t[k]);
+      u64 out = dbl_pack(dbl_jump(t[k]), v);
+      if (PASS == 2 && last) {
+        dbl_final(d, (int)i, out);
+        continue;
+      }
+      nxt[i] = out;
+      if (PASS == 1 && last) dbl1_last(d, (int)i, out);
+      any |= out != s[k];
+    }
+  }
+  return any;
+}
+
+// every step of both passes, grid barriers between them; col0, col1: two
+// columns of n words; sh: an int of the block's shared memory
+// (dbl_changed's broadcast)
+__device__ void dbl_all(const Doubling& d, u64* col0, u64* col1, int* sh) {
+  // the two columns as a pair of pointers swapped by value (an array of
+  // them indexed at run time would live in a stack frame)
+  u64* cur = col0;
+  u64* nxt = col1;
+  if (blockIdx.x == 0)
+    for (long t = threadIdx.x; t < (long)d.steps * DBL_SLOTS; t += blockDim.x)
+      dbl_zero_changed(d, t);
+  DBL_ROWS(i, d.n) cur[i] = dbl1_first(d, (int)i);
+  cg::this_grid().sync();
+  for (int t = 1; t < d.steps; ++t) {
+    dbl_step_rows<1>(d, cur, nxt, t == d.steps - 1);
+    u64* w = cur;
+    cur = nxt;
+    nxt = w;
+    cg::this_grid().sync();
+  }
+  // cur holds pass 1's end; pass 2 writes the other column, then alternates
+  DBL_ROWS(i, d.n) dbl_mark(d, cur, (int)i);
+  cg::this_grid().sync();
+  bool any = false;
+  DBL_ROWS(i, d.n) {
+    bool moved;
+    nxt[i] = dbl2_first(d, (int)i, &moved);
+    any |= moved;
+  }
+  if (__syncthreads_or(any) && threadIdx.x == 0) dbl_set_changed(d, 0);
+  {
+    u64* w = cur;
+    cur = nxt;
+    nxt = w;
+  }
+  cg::this_grid().sync();
+  for (int t = 1; t < d.steps; ++t) {
+    // every block reads the words after the barrier that ends step t - 1,
+    // so all take the same branch
+    if (!dbl_changed(d, t - 1, sh)) break;
+    bool last = t == d.steps - 1;
+    any = dbl_step_rows<2>(d, cur, nxt, last);
+    if (last) return;
+    if (__syncthreads_or(any) && threadIdx.x == 0) dbl_set_changed(d, t);
+    u64* w = cur;
+    cur = nxt;
+    nxt = w;
+    cg::this_grid().sync();
+  }
+  // stopped early: every later step would leave cur as it is
+  DBL_ROWS(i, d.n) dbl_final(d, (int)i, cur[i]);
+}
+
+__global__ void __launch_bounds__(DBL_BLOCK_MAX) k_dbl_coop(Doubling d, u64* col0,
+                                                             u64* col1) {
+  extern __shared__ u64 dbl_smem[];
+  dbl_all(d, col0, col1, (int*)dbl_smem);
+}
+
+// the co-resident grid of a cooperative launch of `kernel`: the SM count
+// times the blocks of `block` threads one SM holds, at most `want`,
+// queried once per (kernel, block, device) and kept; a card without
+// cooperative launches refuses (never a fallback)
+struct DblGrid {
+  const void* kernel;
+  int block, dev;
+  long blocks;
+};
+#define DBL_GRIDS 16
+static DblGrid dbl_grids[DBL_GRIDS];
+static int n_dbl_grids = 0;
+static std::mutex dbl_grids_mu;
+
+template <class F>
+static int dbl_coop_grid(F kernel, int block, long want, int* grid) {
+  int dev = 0;
+  CHECK_CALL(cudaGetDevice(&dev));
+  long blocks = -1;
+  {
+    std::lock_guard<std::mutex> lock(dbl_grids_mu);
+    for (int i = 0; i < n_dbl_grids; ++i)
+      if (dbl_grids[i].kernel == (const void*)kernel && dbl_grids[i].block == block &&
+          dbl_grids[i].dev == dev)
+        blocks = dbl_grids[i].blocks;
+  }
+  if (blocks < 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    CHECK_CALL(cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev));
+    if (!coop) return (int)cudaErrorNotSupported;
+    CHECK_CALL(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    CHECK_CALL(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block,
+                                                             sizeof(int)));
+    blocks = (long)sms * per_sm;
+    std::lock_guard<std::mutex> lock(dbl_grids_mu);
+    if (n_dbl_grids < DBL_GRIDS) dbl_grids[n_dbl_grids++] = {(const void*)kernel, block,
+                                                             dev, blocks};
+  }
+  long g = want < blocks ? want : blocks;
+  if (g < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *grid = (int)g;
+  return 0;
+}
+
+// one cooperative launch of blocks of `block` threads.  scratch: 4n +
+// steps * DBL_SLOTS * DBL_SLOT_INTS ints (the two columns, then the changed
+// words).
 extern "C" int gp_pointer_doubling(const int32_t* dep, uint8_t* resolved, int32_t* rank,
                                    int32_t* leader, uint8_t* on_cycle, int32_t* scratch,
-                                   int32_t* flags, int n, int steps,
-                                   cudaStream_t stream) {
+                                   int n, int steps, int block, cudaStream_t stream) {
   if (n <= 0) return 0;
-  unsigned g = grid_for(n, EW_BLOCK);
-  long ln = n;
-  int32_t* jumps = scratch;  // jumps[t] = the jump before step t
-  int32_t* acc[2] = {scratch + (steps + 1) * ln, scratch + (steps + 2) * ln};
-  int32_t* j2[2] = {scratch + (steps + 3) * ln, scratch + (steps + 4) * ln};
-  int32_t* d2[2] = {scratch + (steps + 5) * ln, scratch + (steps + 6) * ln};
-  int32_t* cyc_leader = scratch + (steps + 7) * ln;
-  int32_t* nonterm = scratch + (steps + 8) * ln;
-  int32_t* onc = flags;
-  int32_t* contrib = flags + ln;
-
-  k_dbl_init<<<g, EW_BLOCK, 0, stream>>>(dep, jumps, acc[0], n);
-  CHECK_LAUNCH();
-  for (int t = 0; t < steps; ++t) {
-    k_dbl_step<<<g, EW_BLOCK, 0, stream>>>(jumps + t * ln, acc[t & 1],
-                                           jumps + (t + 1) * ln, acc[(t + 1) & 1], n);
-    CHECK_LAUNCH();
-  }
-  k_dbl_seed<<<g, EW_BLOCK, 0, stream>>>(dep, jumps + steps * ln, acc[steps & 1],
-                                         nonterm, cyc_leader, onc, n);
-  CHECK_LAUNCH();
-  for (int t = 0; t < steps; ++t) {
-    k_dbl_scatter<<<g, EW_BLOCK, 0, stream>>>(jumps + t * ln, onc, contrib, n);
-    CHECK_LAUNCH();
-    k_dbl_merge<<<g, EW_BLOCK, 0, stream>>>(onc, contrib, nonterm, n);
-    CHECK_LAUNCH();
-  }
-  k_dbl2_init<<<g, EW_BLOCK, 0, stream>>>(dep, onc, j2[0], d2[0], n);
-  CHECK_LAUNCH();
-  for (int t = 0; t < steps; ++t) {
-    k_dbl2_step<<<g, EW_BLOCK, 0, stream>>>(j2[t & 1], d2[t & 1], j2[(t + 1) & 1],
-                                            d2[(t + 1) & 1], n);
-    CHECK_LAUNCH();
-  }
-  k_dbl_final<<<g, EW_BLOCK, 0, stream>>>(dep, onc, j2[steps & 1], d2[steps & 1],
-                                          cyc_leader, resolved, rank, leader, on_cycle,
-                                          n);
-  CHECK_LAUNCH();
+  if (steps < 2) return (int)cudaErrorInvalidValue;
+  u64* col0 = (u64*)scratch;
+  u64* col1 = col0 + n;
+  Doubling d = {dep, resolved, on_cycle, rank, leader, (int32_t*)(col1 + n), n, steps};
+  if (block <= 0 || block % 32 || block > DBL_BLOCK_MAX) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  int err = dbl_coop_grid(k_dbl_coop, block, (n + block - 1) / block, &grid);
+  if (err) return err;
+  void* args[] = {&d, &col0, &col1};
+  CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_dbl_coop, dim3(grid), dim3(block),
+                                         args, sizeof(int), stream));
   return (int)cudaGetLastError();
 }
 

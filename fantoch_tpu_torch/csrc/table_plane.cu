@@ -49,184 +49,15 @@ __device__ __forceinline__ int wrap_mul(int a, int b) {
 }
 
 // ---------------------------------------------------------------------------
-// segmented running max (clock_proposal)
-// ---------------------------------------------------------------------------
-// The combiner of table_ops._seg_max_combiner: (a, b) -> (b.seg, a.seg ==
-// b.seg ? max(a.val, b.val) : b.val).  It is associative when equal segment
-// ids are contiguous, which every caller guarantees (sorted ids).  The
-// segment id of a combined range is that of its last element, so only the
-// values move.
-
-// Hillis-Steele inclusive segmented max over the block; every thread must
-// call it.  ss holds each thread's segment id (unchanged), sv the values.
-__device__ int block_seg_max(int seg, int val, int* ss, int* sv) {
-  int t = threadIdx.x;
-  ss[t] = seg;
-  sv[t] = val;
-  __syncthreads();
-  for (int off = 1; off < (int)blockDim.x; off <<= 1) {
-    bool take = t >= off && ss[t - off] == seg;
-    int left = take ? sv[t - off] : 0;
-    __syncthreads();
-    if (take) sv[t] = max(sv[t], left);
-    __syncthreads();
-  }
-  return sv[t];
-}
-
-__global__ void k_seg_reduce(const int32_t* seg, const int32_t* val, int32_t* tseg,
-                             int32_t* tval, int n) {
-  __shared__ int ss[SCAN_BLOCK];
-  __shared__ int sv[SCAN_BLOCK];
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int inc = block_seg_max(i < n ? seg[i] : INT_MIN, i < n ? val[i] : INT_MIN, ss, sv);
-  if (threadIdx.x == blockDim.x - 1) {
-    tseg[blockIdx.x] = ss[threadIdx.x];
-    tval[blockIdx.x] = inc;
-  }
-}
-
-// one block: the exclusive combination of the block totals (cseg/cval of
-// block 0 are never read: it has no carry)
-__global__ void k_seg_carry(const int32_t* tseg, const int32_t* tval, int32_t* cseg,
-                            int32_t* cval, int nb) {
-  __shared__ int ss[SCAN_BLOCK];
-  __shared__ int sv[SCAN_BLOCK];
-  int rs = 0, rv = 0;  // the running combination of every earlier chunk
-  bool have = false;
-  for (int base = 0; base < nb; base += blockDim.x) {
-    int t = base + threadIdx.x;
-    block_seg_max(t < nb ? tseg[t] : INT_MIN, t < nb ? tval[t] : INT_MIN, ss, sv);
-    if (t < nb) {
-      if (threadIdx.x == 0) {
-        cseg[t] = rs;
-        cval[t] = rv;
-      } else {
-        int ps = ss[threadIdx.x - 1], pv = sv[threadIdx.x - 1];
-        cseg[t] = ps;
-        cval[t] = have && rs == ps ? max(rv, pv) : pv;
-      }
-    }
-    int ls = ss[blockDim.x - 1], lv = sv[blockDim.x - 1];
-    rv = have && rs == ls ? max(rv, lv) : lv;
-    rs = ls;
-    have = true;
-    __syncthreads();
-  }
-}
-
-__global__ void k_seg_apply(const int32_t* seg, const int32_t* val, const int32_t* cseg,
-                            const int32_t* cval, int32_t* out, int n) {
-  __shared__ int ss[SCAN_BLOCK];
-  __shared__ int sv[SCAN_BLOCK];
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int s = i < n ? seg[i] : INT_MIN;
-  int inc = block_seg_max(s, i < n ? val[i] : INT_MIN, ss, sv);
-  if (i < n) {
-    int b = blockIdx.x;
-    out[i] = b > 0 && cseg[b] == s ? max(cval[b], inc) : inc;
-  }
-}
-
-// out = segmented running max of val; scratch holds 4 * nblocks ints
-static int seg_scan(const int32_t* seg, const int32_t* val, int32_t* out,
-                    int32_t* scratch, int n, cudaStream_t stream) {
-  int nb = (int)grid_for(n, SCAN_BLOCK);
-  int32_t* tseg = scratch;
-  int32_t* tval = scratch + nb;
-  int32_t* cseg = scratch + 2 * nb;
-  int32_t* cval = scratch + 3 * nb;
-  k_seg_reduce<<<nb, SCAN_BLOCK, 0, stream>>>(seg, val, tseg, tval, n);
-  CHECK_LAUNCH();
-  k_seg_carry<<<1, SCAN_BLOCK, 0, stream>>>(tseg, tval, cseg, cval, nb);
-  CHECK_LAUNCH();
-  k_seg_apply<<<nb, SCAN_BLOCK, 0, stream>>>(seg, val, cseg, cval, out, n);
-  CHECK_LAUNCH();
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
-// clock_proposal (on the key-sorted batch) and clock_bump
+// clock_bump (the proposal, after vote_runs, shares its look-back helpers)
 // ---------------------------------------------------------------------------
 
-// first index of the run of x in the ascending a[0..hi)
-__device__ int first_of_run(const int32_t* a, int hi, int x) {
-  int lo = 0;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (a[mid] < x) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
-__global__ void k_prop_gather(const int32_t* key, const int32_t* perm, int32_t* ks,
-                              int B) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < B) ks[i] = key[perm[i]];
-}
-
-// rank within the key run, base = max(prior[k] + 1, min_clock), x = base - rank
-__global__ void k_prop_base(const int32_t* ks, const int32_t* perm,
-                            const int32_t* prior, const int32_t* min_clock,
-                            int32_t* rank, int32_t* x, int B) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  int k = ks[i];
-  int r = i - first_of_run(ks, i, k);
-  int base = max(wrap_add(prior[k], 1), min_clock[perm[i]]);
-  rank[i] = r;
-  x[i] = wrap_sub(base, r);
-}
-
-// clock = rank + running, scattered back through perm; the vote range
-// starts one past the previous clock on the key (the prior at a run head)
-__global__ void k_prop_emit(const int32_t* ks, const int32_t* perm, const int32_t* prior,
-                            const int32_t* rank, const int32_t* running, int32_t* clock,
-                            int32_t* vote_start, int B) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  int j = perm[i];
-  clock[j] = wrap_add(rank[i], running[i]);
-  bool head = i == 0 || ks[i] != ks[i - 1];
-  int prev = head ? prior[ks[i]] : wrap_add(rank[i - 1], running[i - 1]);
-  vote_start[j] = wrap_add(prev, 1);
-}
-
-// table.at[idx].max(val), in place: the proposal's new_prior (a launch of
-// its own, so every read of the old prior above has finished) and
-// clock_bump's fold of the host's scalar bumps
+// table.at[idx].max(val), in place: clock_bump's fold of the host's
+// scalar bumps
 __global__ void k_scatter_max(const int32_t* idx, const int32_t* val, int32_t* table,
                               int M) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j < M) atomicMax(&table[idx[j]], val[j]);
-}
-
-// perm: the stable argsort of key (lex_sort); scratch: ks, rank, x,
-// running (4 * B) and 4 * nblocks for the segmented scan
-extern "C" int tp_clock_proposal(const int32_t* key, const int32_t* min_clock,
-                                 const int32_t* perm, int32_t* prior, int32_t* clock,
-                                 int32_t* vote_start, int32_t* scratch, int B,
-                                 cudaStream_t stream) {
-  if (B <= 0) return 0;
-  int32_t* ks = scratch;
-  int32_t* rank = scratch + B;
-  int32_t* x = scratch + 2L * B;
-  int32_t* running = scratch + 3L * B;
-  int32_t* scan_tmp = scratch + 4L * B;
-  unsigned grid = grid_for(B, EW_BLOCK);
-  k_prop_gather<<<grid, EW_BLOCK, 0, stream>>>(key, perm, ks, B);
-  CHECK_LAUNCH();
-  k_prop_base<<<grid, EW_BLOCK, 0, stream>>>(ks, perm, prior, min_clock, rank, x, B);
-  CHECK_LAUNCH();
-  int err = seg_scan(ks, x, running, scan_tmp, B, stream);
-  if (err) return err;
-  k_prop_emit<<<grid, EW_BLOCK, 0, stream>>>(ks, perm, prior, rank, running, clock,
-                                             vote_start, B);
-  CHECK_LAUNCH();
-  k_scatter_max<<<grid, EW_BLOCK, 0, stream>>>(key, clock, prior, B);
-  CHECK_LAUNCH();
-  return (int)cudaGetLastError();
 }
 
 extern "C" int tp_clock_bump(const int32_t* idx, const int32_t* val, int32_t* prior,
@@ -715,6 +546,404 @@ extern "C" int tp_vote_runs(const int32_t* order, const int32_t* gid,
   }
   return (int)cudaGetLastError();
 }
+// ---------------------------------------------------------------------------
+// clock_proposal: one look-back pass over the key-sorted batch
+// ---------------------------------------------------------------------------
+// The reference (fantoch_tpu/ops/table_ops.py:148-184), bit for bit, int32
+// wrap included: on the key-sorted rows i (perm, the stable argsort,
+// lex_sort's), rank = i - h (h the run's head), base = max(prior[k] + 1,
+// min_clock), running = the run's signed running max of x = base - rank,
+// clock = rank + running, vote_start = (head ? prior[k] : clock[i - 1]) +
+// 1, and prior.at[key].max(clock).
+//
+// The carried state.  With Y = running - h (exact, in 64 bits), a row adds
+// y' = x - h to a running max and clock = i + Y (wrapped).  Where x does not
+// wrap, y' = base - i needs no h; a row is safe when base - i >= INT_MIN,
+// since then base - rank >= base - i cannot wrap whatever h is.  The
+// exact clock c = i + Y rises strictly along a run, so the run's signed max
+// of wrapped clocks is that of its last row where c stays <= INT_MAX; once a
+// row goes past INT_MAX, every later row does, and where that row is safe
+// (its Y did not jump: a jump at a safe row gives c = base <= INT_MAX) the
+// row before it had c = INT_MAX, the largest int32.  So the rows so far
+// carry (head seen, the run's head h, its last row L, Y, P = the run's
+// signed max clock so far), and a run of safe rows without a head (b)
+// after a prefix (a) gives P = c_b where c_b = b.L + max(a.Y, b.Y) <=
+// INT_MAX; max(a.P, c_b - 2^32) where a's last row was already past it;
+// INT_MAX otherwise.  PropAgg composes so (associative; a prefix from row 0
+// always holds a head and is exact).
+//
+// A tile (PROP_TILE rows, PROP_ITEMS consecutive rows a thread) loads its
+// rows through perm (key, min_clock, prior[key]; one extra read of the row
+// before and after it), scans the heads, Y and P (block scans), and
+// publishes its aggregate: the last run's (h, L, Y, P) where it holds a
+// head (exact, from local rows alone), (L, Y) where it holds none and every
+// row is safe, nothing otherwise (its successors then wait for its
+// inclusive prefix).  With the prefix of the rows before it the tile fixes
+// its lead rows (those before its first head), writes clock and vote_start
+// through perm, and the run's last row writes prior[k] = max(prior[k], P)
+// where that raises it: one writer a key, no atomic.
+//
+// One launch.  Every read of prior[k] by a run happens before the run's
+// last row writes it: each tile reads prior in its load, before the block
+// barrier ahead of its scans, and publishes its aggregate or inclusive
+// prefix (a __threadfence between) only after; the run's last tile writes
+// only after its look-back has seen, directly or through an inclusive
+// prefix, a flag of every tile before it, so after every read of prior[k]
+// by the run's tiles, its own made before its barrier; no later row has
+// the key (the rows are sorted).
+//
+// Every tile is a block, the prefix crossing tiles by decoupled look-back
+// (Merrill & Garland) with the conventions of graph_plane_step.cu's link
+// scan, copied here: the status buffer the wrapper keeps zeroed once per
+// device, an epoch a call tagging the flags, values before their flag with
+// a __threadfence between, a ticket the last block sets back to 0.  No
+// memset, no atomic on prior.
+//
+// Bound: bytes (key and min_clock read, clock and vote_start written, one
+// prior cell read and written a distinct key); perm's gathers are random.
+
+#define PROP_THREADS 256
+#define PROP_ITEMS 4
+#define PROP_TILE (PROP_THREADS * PROP_ITEMS)
+#define PLB_HEAD 16    // ints before the first tile's status: [0] is the ticket
+#define PLB_STATUS 16  // ints of a tile's status: flag, aggregate, inclusive
+#define PLB_AGG 1      // the tile's aggregate is published
+#define PLB_INCL 2     // its inclusive prefix is published
+#define PLB_EPOCH_STEP 4  // a flag: epoch * PLB_EPOCH_STEP + PLB_AGG or PLB_INCL
+
+// the look-back buffer's layout as this source has it (checked against the
+// wrappers' when the library is loaded): head ints, status ints a tile, the
+// aggregate's and the inclusive prefix's flag, epochs' step in a flag
+extern "C" void tp_lookback_layout(int32_t* out) {
+  out[0] = PLB_HEAD;
+  out[1] = PLB_STATUS;
+  out[2] = PLB_AGG;
+  out[3] = PLB_INCL;
+  out[4] = PLB_EPOCH_STEP;
+}
+
+struct PropAgg {
+  int any, head, h, L, P;
+  long long Y;
+  __device__ static PropAgg none() { return {0, 0, -1, -1, INT_MIN, LLONG_MIN}; }
+  __device__ void put(int32_t* p) const {
+    p[0] = any;
+    p[1] = head;
+    p[2] = h;
+    p[3] = L;
+    p[4] = P;
+    p[5] = (int32_t)(unsigned)(Y & 0xffffffffll);
+    p[6] = (int32_t)(Y >> 32);
+  }
+  __device__ static PropAgg get(const int32_t* p) {
+    const volatile int32_t* q = p;
+    long long y = ((long long)q[6] << 32) | (long long)(unsigned)q[5];
+    return {q[0], q[1], q[2], q[3], q[4], y};
+  }
+};
+
+// a then b (b's rows follow a's); b without a head holds safe rows only
+__device__ __forceinline__ PropAgg combine(PropAgg a, PropAgg b) {
+  if (!a.any) return b;
+  if (!b.any || b.head) return b.any ? b : a;
+  long long y = max(a.Y, b.Y);
+  int p = 0;
+  if (a.head) {
+    long long cb = (long long)b.L + y;
+    if (cb <= INT_MAX)
+      p = (int)cb;
+    else if ((long long)a.L + a.Y > INT_MAX)
+      p = max(a.P, (int)(cb - (1ll << 32)));
+    else
+      p = INT_MAX;
+  }
+  return {1, a.head, a.h, b.L, p, y};
+}
+
+__device__ __forceinline__ long long shfl_ll(long long x, int src) {
+  int lo = __shfl_sync(0xffffffffu, (int)(unsigned)(x & 0xffffffffll), src);
+  int hi = __shfl_sync(0xffffffffu, (int)(x >> 32), src);
+  return ((long long)hi << 32) | (long long)(unsigned)lo;
+}
+
+__device__ __forceinline__ PropAgg shfl(PropAgg x, int src) {
+  return {__shfl_sync(0xffffffffu, x.any, src), __shfl_sync(0xffffffffu, x.head, src),
+          __shfl_sync(0xffffffffu, x.h, src), __shfl_sync(0xffffffffu, x.L, src),
+          __shfl_sync(0xffffffffu, x.P, src), shfl_ll(x.Y, src)};
+}
+
+// the block scans of a tile: the last head, the run's Y (a max that a head
+// resets), the run's P (a signed max that a head resets), and a plain max
+struct PHead {
+  int h;
+  __device__ static PHead none() { return {-1}; }
+};
+__device__ __forceinline__ PHead combine(PHead a, PHead b) { return {max(a.h, b.h)}; }
+__device__ __forceinline__ PHead shfl(PHead x, int src) {
+  return {__shfl_sync(0xffffffffu, x.h, src)};
+}
+struct PSegY {
+  int reset;
+  long long Y;
+  __device__ static PSegY none() { return {0, LLONG_MIN}; }
+};
+__device__ __forceinline__ PSegY combine(PSegY a, PSegY b) {
+  return b.reset ? b : PSegY{a.reset, max(a.Y, b.Y)};
+}
+__device__ __forceinline__ PSegY shfl(PSegY x, int src) {
+  return {__shfl_sync(0xffffffffu, x.reset, src), shfl_ll(x.Y, src)};
+}
+struct PSegP {
+  int reset, P;
+  __device__ static PSegP none() { return {0, INT_MIN}; }
+};
+__device__ __forceinline__ PSegP combine(PSegP a, PSegP b) {
+  return b.reset ? b : PSegP{a.reset, max(a.P, b.P)};
+}
+__device__ __forceinline__ PSegP shfl(PSegP x, int src) {
+  return {__shfl_sync(0xffffffffu, x.reset, src), __shfl_sync(0xffffffffu, x.P, src)};
+}
+
+// decoupled look-back for tile `tile` in this call's `epoch`: publishes the
+// aggregate where `valid`, combines the tiles before it (a warp reads 32
+// statuses at a time, back to the nearest inclusive prefix; a tile with no
+// aggregate is waited for until its inclusive prefix), publishes the
+// inclusive prefix where `valid` and returns the exclusive one to every
+// thread.  status: PLB_HEAD ints, then PLB_STATUS a tile.
+__device__ PropAgg prop_look_back(int32_t* status, int tile, PropAgg agg, bool valid,
+                                  int epoch, PropAgg* sh) {
+  int32_t* mine = status + PLB_HEAD + (long)tile * PLB_STATUS;
+  const int agg_flag = epoch * PLB_EPOCH_STEP + PLB_AGG;
+  const int incl_flag = epoch * PLB_EPOCH_STEP + PLB_INCL;
+  if (threadIdx.x == 0 && valid) {
+    agg.put(mine + 1);
+    __threadfence();
+    *(volatile int32_t*)mine = agg_flag;
+  }
+  if (threadIdx.x < 32) {
+    int lane = threadIdx.x;
+    PropAgg acc = PropAgg::none();
+    for (int base = tile - 1;; base -= 32) {
+      int j = base - lane;
+      int flag = incl_flag;
+      PropAgg v = PropAgg::none();
+      if (j >= 0) {
+        const int32_t* st = status + PLB_HEAD + (long)j * PLB_STATUS;
+        do {
+          flag = *(const volatile int32_t*)st;
+        } while (flag != agg_flag && flag != incl_flag);
+        __threadfence();
+        v = PropAgg::get(st + (flag == incl_flag ? 8 : 1));
+      }
+      unsigned incl = __ballot_sync(0xffffffffu, flag == incl_flag);
+      int stop = incl ? __ffs(incl) - 1 : 31;
+      if (lane > stop) v = PropAgg::none();
+      // lane 0 takes the window's combination, the farthest tile first
+      for (int d = 1; d < 32; d <<= 1) {
+        PropAgg y = shfl(v, lane + d < 32 ? lane + d : lane);
+        if (lane + d < 32) v = combine(y, v);
+      }
+      acc = combine(shfl(v, 0), acc);
+      if (incl) break;
+    }
+    if (lane == 0) {
+      if (valid) {
+        combine(acc, agg).put(mine + 8);
+        __threadfence();
+        *(volatile int32_t*)mine = incl_flag;
+      }
+      *sh = acc;
+    }
+  }
+  __syncthreads();
+  PropAgg out = *sh;
+  __syncthreads();
+  return out;
+}
+
+// a tile's index: from the ticket; the last one sets it back to 0
+__device__ int prop_take_tile(int32_t* ticket, int tiles, int* sh) {
+  if (threadIdx.x == 0) {
+    int t = atomicAdd(ticket, 1);
+    if (t == tiles - 1) atomicCAS(ticket, tiles, 0);
+    *sh = t;
+  }
+  __syncthreads();
+  int t = *sh;
+  __syncthreads();
+  return t;
+}
+
+struct Proposal {
+  const int32_t *key, *min_clock, *perm;
+  int32_t *prior, *clock, *vote_start, *status;
+  int B, epoch;
+};
+
+struct PropShared {
+  PHead s1[32];
+  PSegY s2[32];
+  PSegP s3[32];
+  PropAgg agg;
+  int first_key[PROP_THREADS], last_key[PROP_THREADS], last_clock[PROP_THREADS];
+  int tile;
+};
+
+// x's wrapped offset from the run's head h, less h: the row's y'
+__device__ __forceinline__ long long prop_y(int base, long i, int h) {
+  return (long long)wrap_sub(base, (int)(i - h)) - h;
+}
+
+// one tile, the prefix of the rows before it found by look-back
+__device__ void prop_tile(const Proposal& c, int tile, PropShared& sh) {
+  long t0 = (long)tile * PROP_TILE;
+  long r0 = t0 + (long)threadIdx.x * PROP_ITEMS;
+  long tile_last = min(t0 + PROP_TILE, (long)c.B) - 1;
+  int ks[PROP_ITEMS], pk[PROP_ITEMS], base[PROP_ITEMS], hloc[PROP_ITEMS];
+  int clk[PROP_ITEMS];
+  long long yp[PROP_ITEMS], yv[PROP_ITEMS];
+  bool hd[PROP_ITEMS];
+  int n = (int)max(0l, min((long)PROP_ITEMS, c.B - r0));  // the thread's rows
+  // (loops run PROP_ITEMS times with a guard, so the row arrays stay in
+  // registers)
+  // loads first: perm, then the key, min_clock and the prior through it
+  int jj[PROP_ITEMS];
+  for (int k = 0; k < PROP_ITEMS; ++k) jj[k] = k < n ? c.perm[r0 + k] : 0;
+  int mc[PROP_ITEMS];
+  for (int k = 0; k < PROP_ITEMS; ++k) if (k < n) {
+    ks[k] = c.key[jj[k]];
+    mc[k] = c.min_clock[jj[k]];
+  }
+  for (int k = 0; k < PROP_ITEMS; ++k) if (k < n) pk[k] = c.prior[ks[k]];
+  int before = INT_MIN, after = INT_MIN;  // the keys of the tile's neighbours
+  if (threadIdx.x == 0 && t0 > 0) before = c.key[c.perm[t0 - 1]];
+  if (threadIdx.x == PROP_THREADS - 1 && tile_last + 1 < c.B)
+    after = c.key[c.perm[tile_last + 1]];
+  sh.first_key[threadIdx.x] = n ? ks[0] : INT_MIN;
+  sh.last_key[threadIdx.x] = n ? ks[n - 1] : INT_MIN;
+  __syncthreads();
+  // scan 1: the heads
+  PHead th = PHead::none();
+  for (int k = 0; k < PROP_ITEMS; ++k) if (k < n) {
+    long i = r0 + k;
+    int prev = k ? ks[k - 1] : threadIdx.x ? sh.last_key[threadIdx.x - 1] : before;
+    hd[k] = i == 0 || prev != ks[k];
+    base[k] = max(wrap_add(pk[k], 1), mc[k]);
+    if (hd[k]) th.h = (int)i;
+  }
+  PHead tot1;
+  PHead h = block_exclusive(th, sh.s1, &tot1);
+  bool unsafe = false;  // a lead row (before the tile's first head) that may wrap
+  for (int k = 0; k < PROP_ITEMS; ++k) if (k < n) {
+    long i = r0 + k;
+    if (hd[k]) h.h = (int)i;
+    hloc[k] = h.h;
+    long long y = (long long)base[k] - i;
+    yp[k] = h.h >= 0 ? prop_y(base[k], i, h.h) : y;
+    if (h.h < 0 && y < INT_MIN) unsafe = true;
+  }
+  // scan 2: Y; scan 3: P
+  PSegY t2 = PSegY::none();
+  for (int k = 0; k < PROP_ITEMS; ++k) if (k < n) t2 = combine(t2, PSegY{hd[k], yp[k]});
+  PSegY tot2;
+  PSegY y2 = block_exclusive(t2, sh.s2, &tot2);
+  PSegP t3 = PSegP::none();
+  for (int k = 0; k < PROP_ITEMS; ++k) if (k < n) {
+    y2 = combine(y2, PSegY{hd[k], yp[k]});
+    yv[k] = y2.Y;
+    clk[k] = (int)(unsigned)(unsigned long long)(r0 + k + yv[k]);
+    t3 = combine(t3, PSegP{hd[k], clk[k]});
+  }
+  PSegP tot3;
+  PSegP p3 = block_exclusive(t3, sh.s3, &tot3);
+  unsafe = __syncthreads_or(unsafe);
+  bool has_head = tot1.h >= 0;
+  PropAgg agg = {1, has_head, tot1.h, (int)tile_last, has_head ? tot3.P : 0, tot2.Y};
+  bool valid = has_head || !unsafe;
+  PropAgg e = prop_look_back(c.status, tile, agg, valid, c.epoch, &sh.agg);
+
+  // the lead rows, with the prefix: h = e.h, Y and P carried from e
+  if (e.any) {
+    if (unsafe) {  // some lead row may wrap: y' with the run's head, Y again
+      for (int k = 0; k < PROP_ITEMS; ++k) if (k < n)
+        if (hloc[k] < 0) yp[k] = prop_y(base[k], r0 + k, e.h);
+      PSegY t = PSegY::none();
+      for (int k = 0; k < PROP_ITEMS; ++k) if (k < n) t = combine(t, PSegY{hd[k], yp[k]});
+      PSegY tot;
+      PSegY y = block_exclusive(t, sh.s2, &tot);
+      for (int k = 0; k < PROP_ITEMS; ++k) if (k < n) {
+        y = combine(y, PSegY{hd[k], yp[k]});
+        yv[k] = y.Y;
+      }
+    }
+    for (int k = 0; k < PROP_ITEMS; ++k) if (k < n) {
+      if (hloc[k] >= 0) continue;
+      yv[k] = max(e.Y, yv[k]);
+      clk[k] = (int)(unsigned)(unsigned long long)(r0 + k + yv[k]);
+    }
+  }
+  // P over the lead rows: the run's max clock for its last row here
+  PSegP lead = PSegP::none();
+  for (int k = 0; k < PROP_ITEMS; ++k) if (k < n)
+    if (hloc[k] < 0) lead = combine(lead, PSegP{0, clk[k]});
+  PSegP lead_tot;
+  block_exclusive(lead, sh.s3, &lead_tot);
+  int p_lead = e.any ? max(e.P, lead_tot.P) : lead_tot.P;
+  sh.last_clock[threadIdx.x] = n ? clk[n - 1] : 0;
+  __syncthreads();
+  for (int k = 0; k < PROP_ITEMS; ++k) if (k < n) {
+    long i = r0 + k;
+    int prev_clock = k ? clk[k - 1]
+                   : threadIdx.x ? sh.last_clock[threadIdx.x - 1]
+                                 : (int)(unsigned)(unsigned long long)(e.L + e.Y);
+    c.clock[jj[k]] = clk[k];
+    c.vote_start[jj[k]] = wrap_add(hd[k] ? pk[k] : prev_clock, 1);
+    p3 = combine(p3, PSegP{hd[k], clk[k]});
+    int next = k + 1 < n ? ks[k + 1]
+             : threadIdx.x + 1 < PROP_THREADS ? sh.first_key[threadIdx.x + 1] : after;
+    if (i == c.B - 1 || next != ks[k]) {
+      int p = hloc[k] >= 0 ? p3.P : p_lead;
+      if (p > pk[k]) c.prior[ks[k]] = p;
+    }
+  }
+  if (!valid) {  // no aggregate was published: the inclusive prefix now
+    // (a tile without a head, some lead row of which may wrap)
+    PropAgg incl = {1, 1, e.h, (int)tile_last, p_lead, max(e.Y, tot2.Y)};
+    long long ylast = LLONG_MIN;  // Y at the tile's last row, with the head
+    for (int k = 0; k < PROP_ITEMS; ++k) if (k < n) ylast = max(ylast, yv[k]);
+    PSegY t = {0, ylast}, tot;
+    block_exclusive(t, sh.s2, &tot);
+    incl.Y = tot.Y;
+    if (threadIdx.x == 0) {
+      int32_t* mine = c.status + PLB_HEAD + (long)tile * PLB_STATUS;
+      incl.put(mine + 8);
+      __threadfence();
+      *(volatile int32_t*)mine = c.epoch * PLB_EPOCH_STEP + PLB_INCL;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(PROP_THREADS) k_prop_tiles(Proposal c, int tiles) {
+  __shared__ PropShared sh;
+  int tile = prop_take_tile(c.status, tiles, &sh.tile);
+  prop_tile(c, tile, sh);
+}
+
+// perm: the stable argsort of key (lex_sort).  status: the look-back
+// buffer (PLB_HEAD + PLB_STATUS * tiles ints, kept zeroed between calls but
+// for its epoch-tagged flags), epoch this call's.  One launch.
+extern "C" int tp_clock_proposal(const int32_t* key, const int32_t* min_clock,
+                                 const int32_t* perm, int32_t* prior, int32_t* clock,
+                                 int32_t* vote_start, int32_t* status, int B, int epoch,
+                                 cudaStream_t stream) {
+  if (B <= 0) return 0;
+  int tiles = (int)((B + (long)PROP_TILE - 1) / PROP_TILE);
+  Proposal c = {key, min_clock, perm, prior, clock, vote_start, status, B, epoch};
+  k_prop_tiles<<<tiles, PROP_THREADS, 0, stream>>>(c, tiles);
+  CHECK_LAUNCH();
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // stable_rows: the (n - threshold)-th smallest frontier of each key, with
 // the table round's dense vote update before it and executable after it

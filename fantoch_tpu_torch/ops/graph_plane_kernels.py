@@ -98,7 +98,7 @@ _SIGNATURES = {
     "gp_link_scan": ("graph_plane_step", "p" * 8 + "iii"),
     "gp_residual_view": ("graph_plane_step", "p" * 13 + "iii"),
     "gp_group_scan": ("graph_plane_step", "pppp" + "i"),
-    "gp_pointer_doubling": ("graph_plane_step", "p" * 7 + "ii"),
+    "gp_pointer_doubling": ("graph_plane_step", "p" * 6 + "iii"),
     "gp_emit_scatter": ("graph_plane_step", "p" * 8 + "iii"),
     "gp_epilogue": ("graph_plane_step", "p" * 5 + "i"),
     "gg_prologue": ("graph_general", "p" * 17 + "i" * 7),
@@ -109,7 +109,7 @@ _SIGNATURES = {
     # an empty kernel: the launch floor chip_smoke.py times
     "gg_empty": ("graph_general", ""),
     # the votes-table plane's launchers (wrappers in ops/table_kernels.py)
-    "tp_clock_proposal": ("table_plane", "p" * 7 + "i"),
+    "tp_clock_proposal": ("table_plane", "p" * 7 + "ii"),
     "tp_clock_bump": ("table_plane", "ppp" + "i"),
     "tp_votes_gid": ("table_plane", "pppp" + "iii"),
     "tp_vote_runs": ("table_plane", "p" * 14 + "iiii"),
@@ -120,6 +120,13 @@ _SIGNATURES = {
     "pp_grid": ("pred_plane", "p" * 15 + "i" * 5),
 }
 _lib_handles: Dict[str, ctypes.CDLL] = {}
+# the libraries whose kernels use the look-back buffer (``lookback``), each
+# with the function that reports its layout of it
+_LOOKBACK_USERS = {
+    "graph_plane_step": "gp_lookback_layout",
+    "graph_general": "gg_lookback_layout",
+    "table_plane": "tp_lookback_layout",
+}
 
 
 def _lib(name: str):
@@ -135,6 +142,12 @@ def _lib(name: str):
                     ctypes.c_void_p if c == "p" else ctypes.c_int for c in sig
                 ] + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+        if name in _LOOKBACK_USERS:
+            layout = (ctypes.c_int * len(LOOKBACK_LAYOUT))()
+            getattr(lib, _LOOKBACK_USERS[name])(layout)
+            if tuple(layout) != LOOKBACK_LAYOUT:
+                raise RuntimeError(f"csrc/{name}.cu lays out the look-back buffer as "
+                                   f"{tuple(layout)}, the wrappers as {LOOKBACK_LAYOUT}")
         _lib_handles[name] = lib
     return lib
 
@@ -397,17 +410,22 @@ LINK_TILE = 2048  # rows a tile (csrc LS_TILE)
 # forms on the same calls, 256-4,096 rows)
 LINK_CTA_ROWS = 2048
 
-# the look-back buffers of link_scan and the compaction: one a device,
-# allocated zeroed once and kept (its ticket is set back to 0 by the block
-# that takes the last one); each call takes the next epoch, which tags the
-# status flags it writes, so no flag of an earlier call reads as current.
-# Past LOOKBACK_EPOCHS a new zeroed buffer replaces it.
+# the look-back buffer of link_scan, the compaction and clock_proposal: one
+# a device, allocated zeroed once and kept (its ticket is set back to 0 by
+# the block that takes the last one); each call takes the next epoch, which
+# tags the status flags it writes, so no flag of an earlier call reads as
+# current.  Past LOOKBACK_EPOCHS a new zeroed buffer replaces it.  Each
+# source that uses it keeps its own copy of the layout and reports it
+# (``_LOOKBACK_USERS``), checked against LOOKBACK_LAYOUT when it is loaded.
 LOOKBACK_HEAD = LOOKBACK_STATUS = 16  # ints (csrc LB_HEAD, LB_STATUS)
+# (head ints, status ints a tile, the aggregate's flag, the inclusive
+# prefix's, epochs' step in a flag: a flag is epoch * 4 + 1 or + 2)
+LOOKBACK_LAYOUT = (LOOKBACK_HEAD, LOOKBACK_STATUS, 1, 2, 4)
 LOOKBACK_EPOCHS = 1 << 29
 _lookbacks: Dict[str, list] = {}
 
 
-def _lookback(device, tiles: int) -> Tuple[torch.Tensor, int]:
+def lookback(device, tiles: int) -> Tuple[torch.Tensor, int]:
     """The look-back buffer on ``device`` for ``tiles`` tiles, and this
     call's epoch."""
     key = str(device)
@@ -448,7 +466,7 @@ def link_scan(pk, col, pos_s):
     run_start = _i32(n, device)
     chain_ok = _b(n, device)
     n_residual = _i32(1, device)
-    status, epoch = _lookback(device, -(-n // LINK_TILE))
+    status, epoch = lookback(device, -(-n // LINK_TILE))
     _launch(
         "gp_link_scan", device, pk, col, pos_s, dep_s, run_start, chain_ok,
         n_residual, status, n, epoch, int(n <= LINK_CTA_ROWS),
@@ -544,12 +562,22 @@ def group_scan(rrs, p_r):
 # ---------------------------------------------------------------------------
 # 6. pointer doubling: _doubling_core (fantoch_tpu/ops/graph_resolve.py:96)
 # ---------------------------------------------------------------------------
-# Bound: bytes — but the gathers are random, so it runs at the card's
-# gather rate, not its streaming rate.  Design: one ping-pong launch per
-# doubling step (pointer jumping in place within one launch races), the
-# jump of every step kept for the cycle closure, whose scatter
-# ``.at[hop].max`` is an atomicOr into a zeroed flag column merged by a
-# second launch.  About 4 * log2(2n) launches.
+# Bound: bytes — but the gathers are random, so a step runs at the card's
+# gather rate, not its streaming rate.  Design (``csrc/graph_plane_step.cu``
+# §6): a row's state is one 64-bit word, (jump, acc) in pass 1 and (jump2,
+# dist2) in pass 2, so a step is one 8-byte gather at the jump; two
+# ping-pong columns and no step's jumps kept (4n ints of scratch, and 32
+# changed words a step, each on its own line); the cycle closure is one
+# scatter of plain stores, on_cycle[end[i]] = 1 for every nonterminating
+# row (the argument is in the source); pass 2 stops after a step that
+# changed nothing; init folds into each pass's first step and the outputs
+# into pass 2's last.  No memset, no atomic.  One cooperative launch over
+# the co-resident grid, a grid barrier between steps.  (On an H100,
+# chip_smoke.py phase 11: a chain of 2L + 1 launches was behind it at every
+# size from 16,384 rows up, and one block with its columns in shared memory
+# was ahead only below 16,384 rows, where no path calls it; both went.)
+
+DOUBLING_SLOTS = DOUBLING_SLOT_INTS = 32  # csrc DBL_SLOTS, DBL_SLOT_INTS
 
 
 def pointer_doubling_plain(dep):
@@ -601,12 +629,12 @@ def pointer_doubling(dep):
     steps = num_doubling_steps(n)
     resolved, on_cycle = _b(n, device), _b(n, device)
     rank, leader = _i32(n, device), _i32(n, device)
-    # jumps of every step (the closure's hops) + 8 work columns
-    scratch = _i32((steps + 1) * n + 8 * n, device)
-    flags = torch.zeros(2 * n, dtype=torch.int32, device=device)
+    # the two ping-pong columns of 64-bit words, then pass 2's changed
+    # words (csrc DBL_SLOTS a step, DBL_SLOT_INTS apart)
+    scratch = _i32(4 * n + steps * DOUBLING_SLOTS * DOUBLING_SLOT_INTS, device)
     _launch(
         "gp_pointer_doubling", device, dep, resolved, rank, leader, on_cycle,
-        scratch, flags, n, steps,
+        scratch, n, steps, _loop_block(n),
     )
     LAUNCHES["pointer_doubling"] += 1
     return resolved, rank, leader, on_cycle
@@ -1235,7 +1263,7 @@ def peel_compact(*arrays, mode, half=0):
     live = _i32(1, device)
     # a word a row, the kept rows by position, the live total
     scratch = _i32(size + 2 * half + 1, device)
-    status, epoch = _lookback(device, -(-size // COMPACT_TILE))
+    status, epoch = lookback(device, -(-size // COMPACT_TILE))
     _launch(
         "gg_peel_compact", device, tgt, floor, miss, final, rank, orig,
         out_final, out_miss, out_rank, dead,

@@ -78,15 +78,19 @@ def seg_running_max_plain(seg: torch.Tensor, values: torch.Tensor) -> torch.Tens
 # 1. clock_proposal: _proposal_core (fantoch_tpu/ops/table_ops.py:148)
 # ---------------------------------------------------------------------------
 # Bound: bytes — key and min_clock read, clock and vote_start written, one
-# gather and one scatter-max of prior per command.  Design: the stable
-# argsort by key is lex_sort (the key, then the index); then one gather of
-# the sorted keys, one launch for rank (a binary search for the key run's
-# first row in the sorted keys) and base = max(prior + 1, min_clock), the
-# segmented running max of base - rank as a three-launch block scan
-# (per-block scans, one block combining the block totals, apply) with the
-# key as segment id, one launch scattering clock and vote_start back
-# through the permutation, and the scatter-max into prior as a launch of
-# its own so every read of the old prior has finished.
+# prior cell read and written a distinct key.  Design: the stable argsort
+# by key is lex_sort (the key, then the index); then one launch, one pass
+# over tiles of ``PROP_TILE`` sorted rows (``csrc/table_plane.cu``
+# §clock_proposal): a tile carries the last run's head, last row, running
+# max of base - rank (as base - i, exact in 64 bits) and max clock, so no
+# binary search finds a row's run and no segmented-scan launches follow;
+# the run's last row writes prior[k] = max(prior[k], the run's max clock),
+# one writer a key, after every read of prior[k] (the argument is in the
+# source).  A block a tile, the prefix carried by decoupled look-back on
+# the status buffer the graph plane's link scan keeps (``K.lookback``).  No
+# memset, no scratch, no atomic on prior.
+
+PROP_TILE = 1024  # rows a tile (csrc PROP_TILE)
 
 
 def clock_proposal_plain(prior, key, min_clock) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -125,10 +129,10 @@ def clock_proposal(prior, key, min_clock):
     if batch == 0:
         return clock, vote_start
     perm = K.lex_sort([key])
-    scratch = K._i32(4 * batch + 4 * K._blocks(batch), device)
+    status, epoch = K.lookback(device, -(-batch // PROP_TILE))
     K._launch(
         "tp_clock_proposal", device, key, min_clock, perm, prior, clock,
-        vote_start, scratch, batch,
+        vote_start, status, batch, epoch,
     )
     LAUNCHES["clock_proposal"] += 1
     return clock, vote_start
