@@ -28,7 +28,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    required), then shuffled around the feed boundaries — the run that
    reaches the plane and its kernels; every command executes exactly
    once, each key in its dependency-chain order, every dispatch went
-   through the kernels (prologue launches == plane dispatches) and the
+   through the kernels (prologue launches == plane dispatches == epilogues,
+   folded into the launch that makes the flags or launched alone) and the
    plane stayed healthy;
 3. the general modes' kernels against their plain versions on the card,
    exactly: mode ``general`` at its largest shape on the path (C = 4096
@@ -56,17 +57,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``sim.runner.Runner(device="cuda")`` must equal the same seed's
    ``Runner(device="cpu")`` run in per-key orders and latency histograms;
    every general kernel must have launched in this phase, the affine loop
-   once a resolve and the peel stage once a stage; both affine forms are
-   timed at the sims' own shapes;
-4b. the general chain at the sims' shapes: the sims' first dispatch at
-   1,024 x 4 and at 1,024 x 8 that is not the fast path (captured from
+   once a resolve and the peel stage once a stage, an epilogue (folded or
+   alone) once a dispatch; both affine forms are timed at the sims' own
+   shapes;
+4b. the general chain at the sims' shapes, in a process of its own: the
+   sims' first dispatch at 1,024 x 4 and at 1,024 x 8 that is not the
+   fast path (captured from
    ``Runner(device="cpu")``), each launch of it (the prologue's general
-   fold, ``mutual_collapse``, ``affine_loop``, the 4-key ``lex_sort``,
-   ``plane_epilogue``) and the whole dispatch held against the plain
-   versions, timed single and in the loop beside the byte bound, and
-   counted in operations on the card by ``torch.profiler``: one a call
-   for ``mutual_collapse`` and the general prologue, one a wrapper and the read of
-   the fast-path count for the dispatch; ``mutual_collapse`` also at 4,096
+   fold, ``mutual_collapse``, ``affine_loop`` with the plane's epilogue
+   folded in, the 4-key ``lex_sort``) and the whole dispatch held against
+   the plain versions, timed single and in the loop beside the byte bound,
+   and counted in operations on the card by ``torch.profiler``: one a call
+   for ``mutual_collapse`` and the general prologue, one a wrapper and the
+   read of the fast-path count for the dispatch, none of them the
+   epilogue's; ``mutual_collapse`` also at 4,096
    x 4 and 2^16 x 4, the prologue in modes general and keyed at 4,096 and
    2^20 slots, both forms of ``mutual_collapse`` (one CTA, cooperative)
    over 256-4,096 rows (single, loop and on the card), and an empty
@@ -168,7 +172,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Also the operations and device time of ``residual_view``,
    ``group_scan``, ``emit_scatter``, ``plane_epilogue`` (2^20 and the
    sims' 1,024) and ``clock_bump`` at their paths' shapes, and the Newt
-   steady round and the fused chain as phase 6 times them.
+   steady round and the fused chain as phase 6 times them;
+12. the plane's epilogue folded into the launch that makes each branch's
+   resolved flags, and ``group_scan`` as one launch, in a process of its
+   own as phases 9-11: every dispatch of phase 2's shuffled run, of phase
+   4's ``general_resident`` run (``GraphExecutor`` on the card) and of
+   phase 4's EPaxos and Atlas sims (captured on ``cpu``) with its branch
+   (a: keyed, every link verified; b: keyed overflow; c: keyed residual;
+   d: the general fast path; e: general, iterative; f:
+   ``general_resident``), held on the card against the plain route (the
+   plain resolver, then ``plane_epilogue_plain``) on all ten fields and
+   replayed 50 times; every folded launch held against its plain version
+   without the fold followed by ``plane_epilogue_plain``; the folding
+   wrappers' first calls timed with and without the fold; the first 3
+   dispatches of each run and branch timed and counted on the card; the
+   ``plane_epilogue`` launches of phases 2 and 4 counted; ``group_scan``
+   at phase 2's calls, a 2^16-row residual and edge cases (one group, one
+   row a group, n_residual = 0, 1, m - 1 and m, groups across the
+   256-thread blocks), against its plain version and the reference's
+   formula in numpy, replayed 50 times, timed beside its bound; asserted:
+   no epilogue operation in a dispatch of b, c, e or f, one in a and d, 0
+   standalone epilogue launches in phase 2 and at most 86 in phase 4, one
+   operation a ``group_scan`` call and no memset or fill.
 
 Each phase reports its wall time.  The last lines are the
 ``{"kernels": [...]}`` record, the card line and
@@ -176,9 +201,12 @@ Each phase reports its wall time.  The last lines are the
 
     python3 chip_smoke.py --general-chain
 
-builds the two graph sources and runs phase 4b alone, then prints the
-card line; copied into an older checkout it times that checkout's kernels
-at the same shapes.
+builds the two graph sources and runs phase 4b alone, without its asserts
+(with ``--checks``, with them: the whole smoke runs phase 4b so, in a
+process of its own, as phases 9-12: in the main process, after phases
+1-4, its profiler sessions lost events), then prints the card line;
+copied into an older checkout it times that checkout's kernels at the
+same shapes.
 
     python3 chip_smoke.py --redesign
 
@@ -200,6 +228,14 @@ an older checkout it times that checkout's ``link_scan`` and
 runs phase 11 alone in the same way; copied into an older checkout it
 times that checkout's ``pointer_doubling`` and ``clock_proposal`` (and
 the wrappers phase 11 counts beside them) at the same shapes.
+
+    python3 chip_smoke.py --epilogue
+
+runs phase 12 alone in the same way (``--checks`` adds its asserts);
+copied into an older checkout, whose epilogue is a launch of its own in
+every dispatch and whose ``group_scan`` is eight operations, it times
+that checkout's dispatches, folding wrappers and ``group_scan`` at the
+same shapes.
 """
 
 import json
@@ -497,7 +533,7 @@ def loop_bytes(K, name, args, kwargs):
         return int((new != old).sum())
 
     if name == "affine_loop":
-        tgt, add, missing, leader, member_count, max_iters = args
+        tgt, add, missing, leader, member_count, max_iters = args[:6]
         batch, width = tgt.shape
         cells = batch * width
         total = 2 * cells * 4 + batch + 2 * batch * 4  # round 0: the inputs
@@ -515,7 +551,10 @@ def loop_bytes(K, name, args, kwargs):
             rounds += 1
             if not int(flag.item()):
                 break
-        return total + 2 * cells * 4 + batch + batch * 4 + (1 + 4 + 1) * batch
+        # the fold; with the plane's epilogue folded, occ and executed read
+        # and newly written a row
+        total += 2 * cells * 4 + batch + batch * 4 + (1 + 4 + 1) * batch
+        return total + (3 * batch if len(args) > 6 else 0)
     assert name == "peel_stage", name
     tgt, floor, miss, final, rank, live = args
     size, width = tgt.shape
@@ -942,10 +981,15 @@ def phase2(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
     finally:
         gp_module.resolve_graph_plane_step = real_step
     launches = dict(K.LAUNCHES)
+    folded = dict(getattr(K, "EPILOGUE_FOLDS", {}))
     check_chain_order(executed, key_of, n)
     assert launches["graph_prologue"] == plane.dispatches > 0, (launches, plane.dispatches)
-    not_run = [k for k, v in launches.items() if v == 0 and k not in K.GENERAL_KERNELS]
+    # the epilogue runs folded into the launch that makes the flags where
+    # one does (ops/graph_resolve.py): a folded one counts as run
+    ran = {**launches, "plane_epilogue": launches["plane_epilogue"] + sum(folded.values())}
+    not_run = [k for k, v in ran.items() if v == 0 and k not in K.GENERAL_KERNELS]
     assert not not_run, f"kernels of the path never launched: {not_run}"
+    assert ran["plane_epilogue"] == plane.dispatches, (launches, folded)
     assert plane.health_name() == "healthy", plane.health_name()
     p50 = float(np.median(dispatch_ms))
     log(f"phase 2: {n} commands executed exactly once in per-key chain order "
@@ -960,8 +1004,9 @@ def phase2(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
         "p50_dispatch_ms": p50, "dispatch_ms": dispatch_ms,
         "wall_s": wall_s, "commands_per_s": n / wall_s,
         "resident_uploads": plane.resident_uploads, "launches": launches,
+        "epilogue_folds": folded,
     }}))
-    return launches
+    return {**launches, "epilogue_folds": folded}
 
 
 def general_workload(batch, width=GENERAL_WIDTH):
@@ -1405,9 +1450,13 @@ def phase4(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
     finally:
         gp_module.resolve_graph_plane_step = real_step
     launches = dict(K.LAUNCHES)
+    folded = dict(getattr(K, "EPILOGUE_FOLDS", {}))
     on_path = list(K.GENERAL_KERNELS) + ["graph_prologue", "lex_sort", "plane_epilogue"]
-    not_run = [k for k in on_path if launches[k] == 0]
+    # a folded epilogue counts as run (phase 2)
+    ran = {**launches, "plane_epilogue": launches["plane_epilogue"] + sum(folded.values())}
+    not_run = [k for k in on_path if ran[k] == 0]
     assert not not_run, f"kernels of the general path never launched: {not_run}"
+    assert ran["plane_epilogue"] == launches["graph_prologue"], (launches, folded)
     # one affine loop a resolve, one peel stage a stage (every peel_compact
     # launch but the init of each general_resident dispatch)
     assert launches["affine_loop"] == launches["mutual_collapse"], launches
@@ -1422,10 +1471,11 @@ def phase4(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
         "peel_rounds_per_stage": totals["peel_stage"] / launches["peel_stage"],
         "host_reads_in_step_by_mode": {m: int(sum(r)) for m, r in step_reads.items()},
     }
-    log(json.dumps({"general_sims": sims, "launches": launches, "loops": loops}))
+    log(json.dumps({"general_sims": sims, "launches": launches, "epilogue_folds": folded,
+                    "loops": loops}))
     # both forms of the affine loop at the sims' own shapes
     log(json.dumps({"phase4_sim_affine_forms": compare_affine_forms(K, sim_affine)}))
-    return launches
+    return {**launches, "epilogue_folds": folded}
 
 
 # ---------------------------------------------------------------------------
@@ -1530,20 +1580,23 @@ def stage_record(torch, K, name, args, kwargs=None):
 OPS_LISTED = 48  # a call's operations listed one by one (op_ms) up to this many
 
 
-def count_ops(torch, records):
+def count_ops(torch, records, every_name=False):
     """Replace each record's ``call`` by its operations on the card
     (``device_ops``, one profiler session for all): ``device_ops``, the
     count, ``op_names``, ``device_ms``, their summed time on the card in
     the profiler's trace, and up to ``OPS_LISTED`` of them ``op_ms``, each
-    operation's name and time in the order the card ran them.  A control
-    call of one PyTorch kernel first:
-    the profiler must see exactly it."""
+    operation's name and time in the order the card ran them (with
+    ``every_name``, ``op_names_all``: every operation's name, in order).  A
+    control call of one PyTorch kernel first: the profiler must see exactly
+    it."""
     control = (lambda: torch.zeros(8, device=CARD), (), {})
     ops = device_ops(torch, [control] + [r.pop("call") for r in records])
     assert len(ops[0][0]) == 1, f"torch.profiler saw {ops[0][0]} for one kernel"
     for record, (names, ms, each) in zip(records, ops[1:]):
         record["device_ops"] = len(names)
         record["op_names"] = sorted(set(names))
+        if every_name:
+            record["op_names_all"] = names
         record["device_ms"] = ms
         if len(each) <= OPS_LISTED:
             record["op_ms"] = [[name.split("(")[0], t] for name, t in each]
@@ -1617,8 +1670,9 @@ def sims_dispatches(K, gp_module, shapes):
 
 def phase_chain(torch, K, gp_module, one_launch=True):
     """Every launch of a general dispatch (the prologue's general fold,
-    ``mutual_collapse``, ``affine_loop``, ``lex_sort`` with 4 keys,
-    ``plane_epilogue``) at the sims' shapes (1,024 x 4 and 1,024 x 8, each
+    ``mutual_collapse``, ``affine_loop`` with the plane's epilogue folded
+    in, or on an older checkout ``plane_epilogue`` after it, ``lex_sort``
+    with 4 keys) at the sims' shapes (1,024 x 4 and 1,024 x 8, each
     the sims' first dispatch that is not the fast path), each held against
     its plain version, timed single and in the loop beside its byte bound,
     and counted in operations on the card by ``torch.profiler``; the whole
@@ -1647,13 +1701,19 @@ def phase_chain(torch, K, gp_module, one_launch=True):
         chain["mutual_collapse"]["steps_changing"] = collapse_steps(K, dmat)
         leader, tgt, add, missing, member_count = collapsed
         max_iters = 4 * K.num_doubling_steps(cap) + 8
-        chain["affine_loop"], (resolved, rank, _stuck, rounds), _ = stage_record(
-            torch, K, "affine_loop", (tgt, add, missing, leader, member_count, max_iters))
+        affine = (tgt, add, missing, leader, member_count, max_iters)
+        # the epilogue folded into the affine loop where the checkout folds it
+        folds = hasattr(K, "EPILOGUE_FOLDS")
+        chain["affine_loop"], got, _ = stage_record(
+            torch, K, "affine_loop", (*affine, occ, executed) if folds else affine)
+        resolved, rank, rounds = got[0], got[1], got[-1]
         chain["affine_loop"]["rounds"] = int(rounds.item())
+        chain["affine_loop"]["epilogue_folded"] = folds
         chain["lex_sort"], _order, _ = stage_record(
             torch, K, "lex_sort", ([rank, leader, src, seq],))
-        chain["plane_epilogue"], _newly, _ = stage_record(
-            torch, K, "plane_epilogue", (occ, executed, resolved))
+        if not folds:
+            chain["plane_epilogue"], _newly, _ = stage_record(
+                torch, K, "plane_epilogue", (occ, executed, resolved))
         step = graph_resolve.graph_plane_step_core
         chain["dispatch"] = {
             "ms": time_ms(step, args, {"mode": "general"}),
@@ -1696,9 +1756,11 @@ def phase_chain(torch, K, gp_module, one_launch=True):
         for label, record in one:
             assert record["device_ops"] == 1, (label, record["op_names"])
         for label, chain in out["sims"].items():
+            # a kernel a wrapper (the epilogue folded into the affine loop's)
             names = chain["dispatch"]["op_names"]
             kernels = [n for n in names if not n.startswith("Memcpy")]
-            assert len(kernels) == len(chain) - 1, (label, names)  # a kernel a wrapper
+            assert len(kernels) == len(chain) - 1, (label, names)
+            assert not any("k_epilogue" in n for n in names), (label, names)
             assert chain["dispatch"]["device_ops"] == len(kernels) + 1, (label, names)
     # both forms of the mutual collapse over the sweep's rows
     for rows in CHAIN_SWEEP:
@@ -2998,41 +3060,30 @@ def link_forms(torch, K, rows):
     return out
 
 
-def scan_replays(K, name, calls):
-    """Each call ``(args, kwargs)`` run ``SCAN_REPLAYS`` times on clones of
-    its arguments, every run equal to the plain version (outputs and
-    arguments updated in place): a race between the tiles of a look-back
-    shows in some run, not in every one.  Returns the runs made."""
+def scan_replays(K, name, calls, times=None):
+    """Each call ``(args, kwargs)`` run ``times`` (``SCAN_REPLAYS``) times on
+    clones of its arguments, every run equal to the plain version (outputs
+    and arguments updated in place): a race between the tiles of a
+    look-back shows in some run, not in every one.  Returns the runs made."""
     kernel, plain = getattr(K, name), getattr(K, f"{name}_plain")
+    times = SCAN_REPLAYS if times is None else times
     for i, (args, kwargs) in enumerate(calls):
         plain_args = clone_args(args)
         want = plain(*plain_args, **kwargs)
-        for run in range(SCAN_REPLAYS):
+        for run in range(times):
             got_args = clone_args(args)
             got = kernel(*got_args, **kwargs)
             err = max(max_abs_err(got, want, name), max_abs_err(got_args, plain_args, name))
             assert err == 0.0, f"{name} differs from its plain version, call {i}, run {run}"
-    return len(calls) * SCAN_REPLAYS
+    return len(calls) * times
 
 
 def general_path_calls(torch, K, name, Config, Command, Rifl, KVOp, RunTime,
                        GraphExecutor, GraphAddBatch):
     """The calls (clones of the arguments) of ``K.<name>`` while
     ``GraphExecutor`` on the card takes phase 4's 2^20 multi-key commands."""
-    n = BIG
-    keys, deps, src0, seq0 = general_workload(n)
-    order = arrival(n, EXECUTOR_BATCH, 4096, 64, SEED + 1)
-    cols = general_columns(deps, src0, seq0, order)
-    cmds = [
-        Command.from_keys(Rifl(int(s), int(q)), 0,
-                          {f"g{k}": (KVOp.put(""),) for k in keys[int(q) - 1].tolist()})
-        for s, q in zip(cols[0].tolist(), cols[1].tolist())
-    ]
-    executor = GraphExecutor(1, 0, Config(5, 2, batched_graph_executor=True,
-                                          device_graph_plane=True))
-    calls = captured_kw(K, name, lambda: drive(executor, cols, cmds, RunTime, GraphAddBatch))
-    del executor, cmds
-    return calls
+    return captured_kw(K, name, general_path_run(Config, Command, Rifl, KVOp, RunTime,
+                                                 GraphExecutor, GraphAddBatch))
 
 
 def compact_label(args, kwargs):
@@ -3347,15 +3398,8 @@ def keyed_path_calls(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
     commands) with each dispatch timed as phase 2 times it: every dispatch's
     branch (fast path, residual, overflow) and time, and the calls (clones,
     made after the dispatch's timing) of the keyed wrappers inside it."""
-    n = BIG
-    order = arrival(n, EXECUTOR_BATCH, 4096, 64, SEED + 1)
-    src, seq, key, packed, key_of = columns(n, order)
-    cmds = [
-        Command.from_keys(Rifl(int(s), int(q)), 0, {f"k{k}": (KVOp.put(""),)})
-        for s, q, k in zip(src.tolist(), seq.tolist(), key.tolist())
-    ]
-    executor = GraphExecutor(1, 0, Config(5, 2, batched_graph_executor=True,
-                                          device_graph_plane=True))
+    run = keyed_path_run(Config, Command, Rifl, KVOp, RunTime, GraphExecutor,
+                         GraphAddBatch)
     names = ("pointer_doubling", "residual_view", "group_scan", "emit_scatter",
              "plane_epilogue")
     seen, reals = [], {name: getattr(K, name) for name in names}
@@ -3398,16 +3442,14 @@ def keyed_path_calls(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
     for name in names:
         setattr(K, name, recorder(name))
     try:
-        executed, wall_s = drive(executor, (src, seq, key, packed), cmds, RunTime,
-                                 GraphAddBatch)
+        wall_s = run()
     finally:
         gp_module.resolve_graph_plane_step = real_step
         for name, real in reals.items():
             setattr(K, name, real)
-    check_chain_order(executed, key_of, n)
     p50 = float(np.median([d["ms"] for d in dispatches]))
     return {"dispatches": dispatches, "p50_dispatch_ms": p50,
-            "commands_per_s": n / wall_s, "calls_outside_dispatches": outside}, calls
+            "commands_per_s": BIG / wall_s, "calls_outside_dispatches": outside}, calls
 
 
 def phase1_doubling_calls(torch, K, gp_module, Config, Metrics, DeviceFrontier, RunTime):
@@ -3640,10 +3682,460 @@ def phase_doubling(torch, K, T, gp_module, table_ops, Config, Command, Rifl, KVO
     return out
 
 
+# ---------------------------------------------------------------------------
+# the plane's epilogue folded into the launch that makes each branch's
+# resolved flags, and group_scan as one launch (phase 12; alone: --epilogue)
+# ---------------------------------------------------------------------------
+
+EPILOGUE_REPLAYS = 50  # runs of each captured dispatch against the plain route
+GROUP_ROWS = 1 << 16  # group_scan's synthetic residual
+GROUP_EDGE_ROWS = 4096  # rows of group_scan's edge cases
+PROFILED_PER_BRANCH = 3  # dispatches of each run and branch counted on the card
+# the branches of the plane step (ops/graph_resolve.py graph_plane_step_core)
+BRANCHES = {
+    "a": "keyed, every link verified", "b": "keyed, residual overflow",
+    "c": "keyed residual", "d": "general fast path", "e": "general, iterative",
+    "f": "general_resident",
+}
+# the wrapper that makes a branch's flags, and where its fold arguments start
+FOLDING = {"b": "pointer_doubling", "c": "emit_scatter", "e": "affine_loop",
+           "f": "peel_compact"}
+FOLD_AT = {"pointer_doubling": 1, "emit_scatter": 6, "affine_loop": 6, "peel_compact": 10}
+
+
+def group_scan_inputs(m, sizes, seed):
+    """``group_scan``'s inputs as ``_residual_emit`` makes them, numpy
+    int32[m] each: a batch of runs (a head, a verified prefix, then a
+    residual tail), the i-th residual tail ``sizes[i]`` rows (sum <= m),
+    fully verified runs between them; ``p_r`` the first ``m`` positions of
+    the stable sort by chain_ok, ``rrs`` their run starts and INT32_MAX
+    past the residual rows."""
+    rng = np.random.default_rng(seed)
+    chain_ok, run_start = [], []
+
+    def run(verified, residual):
+        start = len(chain_ok)
+        chain_ok.extend([True] * verified + [False] * residual)
+        run_start.extend([start] * (verified + residual))
+
+    for size in sizes:
+        for _ in range(int(rng.integers(0, 3))):
+            run(int(rng.integers(1, 6)), 0)
+        run(int(rng.integers(1, 4)), int(size))
+    while len(chain_ok) < m + 8:
+        run(1, 0)
+    chain_ok = np.array(chain_ok)
+    p_r = np.argsort(chain_ok, kind="stable")[:m]
+    n_residual = int(sum(sizes))
+    rrs = np.where(np.arange(m) < n_residual, np.array(run_start)[p_r], (1 << 31) - 1)
+    return rrs.astype(np.int32), p_r.astype(np.int32)
+
+
+def group_sizes(total, low, high, seed):
+    """Group sizes drawn from [low, high] that sum to ``total``."""
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < total:
+        sizes.append(min(int(rng.integers(low, high + 1)), total - sum(sizes)))
+    return sizes
+
+
+def group_scan_edge_cases(m):
+    """``group_scan``'s edge cases at ``m`` rows (numpy ``(rrs, p_r)``):
+    one group; one row a group; every row INT32_MAX (n_residual = 0);
+    n_residual = 1, m - 1 and m; groups across the 256-thread blocks; a
+    long group before the INT32_MAX rows (m >= 1,500 for all of them to
+    fit)."""
+    block = 256
+    cases = {
+        "one group, n_residual = m": [m],
+        "one row a group, n_residual = m": [1] * m,
+        "all INT32_MAX, n_residual = 0": [],
+        "n_residual = 1": [1],
+        "n_residual = m - 1, groups of 1-9 rows": group_sizes(m - 1, 1, 9, 5),
+        "n_residual = m, groups of 1-9 rows": group_sizes(m, 1, 9, 6),
+        "groups across the blocks' boundaries": [block - 1, block + 2, 2 * block + 1, 1,
+                                                 block - 3, 37],
+        # the INT32_MAX rows start inside a warp whose other group began
+        # before it
+        "a long group, then the INT32_MAX rows": [3, 100],
+    }
+    return {f"{label} (m = {m})": group_scan_inputs(m, sizes, i)
+            for i, (label, sizes) in enumerate(cases.items())}
+
+
+def group_scan_numpy(rrs, p_r):
+    """The reference's ``firstbad + emit_local``
+    (fantoch_tpu/ops/graph_resolve.py:308-309, 335-336) in numpy."""
+    r = np.arange(len(rrs))
+    head = np.ones(len(rrs), bool)
+    head[1:] = rrs[1:] != rrs[:-1]
+    firstbad = np.maximum.accumulate(np.where(head, p_r, 0))
+    return (firstbad + r - np.maximum.accumulate(np.where(head, r, 0))).astype(np.int32)
+
+
+class PlainRoute:
+    """Inside it every graph-plane wrapper takes its plain version, also on
+    the card's tensors: the plain route of a captured dispatch, on the card."""
+
+    def __init__(self, K):
+        self.K = K
+
+    def __enter__(self):
+        self.saved = self.K._on_card
+        self.K._on_card = lambda tensor: False
+
+    def __exit__(self, *exc):
+        self.K._on_card = self.saved
+
+
+def epilogue_counts(K):
+    """The standalone ``plane_epilogue`` launches and the folds so far."""
+    return {"plane_epilogue": K.LAUNCHES["plane_epilogue"],
+            "folded": dict(getattr(K, "EPILOGUE_FOLDS", {}))}
+
+
+def capture_dispatches(K, gp_module, run):
+    """Every plane dispatch while ``run()`` runs: its mode, its arguments
+    (clones made before the call: the step updates the state in place),
+    its branch, read from the wrappers called inside it, and those
+    wrappers' calls (clones made before each): the folding wrapper's (with
+    its fold arguments where the checkout folds), and ``group_scan``'s."""
+    watched = ("pointer_doubling", "residual_view", "group_scan", "emit_scatter",
+               "affine_loop", "peel_compact")
+    reals = {name: getattr(K, name) for name in watched}
+    current, out = [], []
+
+    def watch(name):
+        def call(*args, **kwargs):
+            if current:
+                if name != "peel_compact" or kwargs.get("mode") == "publish":
+                    current[-1]["calls"].setdefault(name, []).append(
+                        (clone_args(args), dict(kwargs)))
+            return reals[name](*args, **kwargs)
+        return call
+
+    real_step = gp_module.resolve_graph_plane_step
+
+    def step(*args, mode):
+        current.append({"mode": mode, "args": clone_args(args), "calls": {}})
+        try:
+            return real_step(*args, mode=mode)
+        finally:
+            d = current.pop()
+            called = d["calls"]
+            if mode == "keyed":
+                d["branch"] = ("c" if "residual_view" in called else
+                               "b" if "pointer_doubling" in called else "a")
+            elif mode == "general":
+                d["branch"] = "e" if "affine_loop" in called else "d"
+            else:
+                d["branch"] = "f"
+            out.append(d)
+
+    gp_module.resolve_graph_plane_step = step
+    for name in watched:
+        setattr(K, name, watch(name))
+    try:
+        run()
+    finally:
+        gp_module.resolve_graph_plane_step = real_step
+        for name, real in reals.items():
+            setattr(K, name, real)
+    return out
+
+
+def keyed_path_run(Config, Command, Rifl, KVOp, RunTime, GraphExecutor, GraphAddBatch):
+    """Phase 2's shuffled run: ``GraphExecutor`` on the card, the north-star
+    feed shuffled around the feed edges; returns the callable, which checks
+    the executed order and returns the run's wall seconds."""
+    n = BIG
+    order = arrival(n, EXECUTOR_BATCH, 4096, 64, SEED + 1)
+    src, seq, key, packed, key_of = columns(n, order)
+    cmds = [Command.from_keys(Rifl(int(s), int(q)), 0, {f"k{k}": (KVOp.put(""),)})
+            for s, q, k in zip(src.tolist(), seq.tolist(), key.tolist())]
+
+    def run():
+        executor = GraphExecutor(1, 0, Config(5, 2, batched_graph_executor=True,
+                                              device_graph_plane=True))
+        executed, wall_s = drive(executor, (src, seq, key, packed), cmds, RunTime,
+                                 GraphAddBatch)
+        check_chain_order(executed, key_of, n)
+        return wall_s
+
+    return run
+
+
+def general_path_run(Config, Command, Rifl, KVOp, RunTime, GraphExecutor, GraphAddBatch):
+    """Phase 4's ``GraphExecutor`` run on the card (2^20 multi-key
+    commands); returns the callable."""
+    n = BIG
+    keys, deps, src0, seq0 = general_workload(n)
+    cols = general_columns(deps, src0, seq0, arrival(n, EXECUTOR_BATCH, 4096, 64, SEED + 1))
+    cmds = [Command.from_keys(Rifl(int(s), int(q)), 0,
+                              {f"g{k}": (KVOp.put(""),) for k in keys[int(q) - 1].tolist()})
+            for s, q in zip(cols[0].tolist(), cols[1].tolist())]
+
+    def run():
+        executor = GraphExecutor(1, 0, Config(5, 2, batched_graph_executor=True,
+                                              device_graph_plane=True))
+        drive(executor, cols, cmds, RunTime, GraphAddBatch)
+
+    return run
+
+
+def as_bytes(value):
+    """Every tensor of ``value`` in one byte column, and their shapes and
+    types: a replay is compared with two launches and no read."""
+    import torch
+
+    tensors = tensors_of(value)
+    layout = [(tuple(t.shape), t.dtype) for t in tensors]
+    return torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors]), layout
+
+
+def replay_dispatches(torch, K, step, dispatches):
+    """Each captured dispatch on the card held against the plain route on
+    the card's tensors (every wrapper's plain version: the resolver's,
+    then ``plane_epilogue_plain``) at max_abs_err 0 on all ten fields of
+    the step (``newly``, ``executed``, ``order``, ``stuck``, ``leader``
+    among them), then run ``EPILOGUE_REPLAYS`` times more, every run equal.
+    The first run of each is counted (``epilogue_counts``): the
+    dispatches' own launches.  Returns (largest error, runs, counts)."""
+    worst, runs, wants = 0.0, 0, []
+    K.reset_launch_counts()
+    for i, d in enumerate(dispatches):
+        with PlainRoute(K):
+            want = step(*clone_args(d["args"]), mode=d["mode"])
+        got = step(*clone_args(d["args"]), mode=d["mode"])
+        err = max_abs_err(got, want, "step")
+        worst = max(worst, err)
+        assert err == 0.0, f"dispatch {i} ({d['mode']}, branch {d['branch']}) differs"
+        d["newly"] = int(got.newly.sum().item())
+        wants.append(want)
+    counts = epilogue_counts(K)
+    for i, (d, want) in enumerate(zip(dispatches, wants)):
+        feed = d["args"][6:]  # read only: the step updates the state in place
+        want, layout = as_bytes(want)
+        differ = torch.zeros((), dtype=torch.bool, device=want.device)
+        for run in range(EPILOGUE_REPLAYS):
+            got, got_layout = as_bytes(
+                step(*clone_args(d["args"][:6]), *feed, mode=d["mode"]))
+            assert got_layout == layout, f"dispatch {i}, replay {run}: {got_layout}"
+            differ |= (got != want).any()
+            runs += 1
+        assert not bool(differ.item()), f"dispatch {i}: a replay differs"
+    return worst, runs, counts
+
+
+def split_fold(name, out):
+    """A folding wrapper's outputs without ``newly``, and ``newly``."""
+    if name == "affine_loop":  # newly before the rounds
+        return (*out[:3], out[4]), out[3]
+    if name == "peel_compact":
+        return out[0], out[1]
+    return tuple(out[:-1]), out[-1]
+
+
+def fold_check(K, name, args, kwargs):
+    """One folded launch against the plain version without the fold, then
+    ``plane_epilogue_plain`` on its flags (outputs, ``newly``, the state
+    updated in place and ``executed``); returns the largest error."""
+    at = FOLD_AT[name]
+    base = clone_args(args[:at])
+    occ, executed = clone_args(args[at:at + 2])
+    perm = args[at + 2] if name == "emit_scatter" else None
+    out = getattr(K, f"{name}_plain")(*base, **kwargs)
+    flags = {"pointer_doubling": lambda: out[0], "emit_scatter": lambda: out[1],
+             "affine_loop": lambda: out[0], "peel_compact": lambda: base[6]}[name]()
+    newly = K.plane_epilogue_plain(occ, executed, flags, perm)
+    got_args = clone_args(args)
+    got, got_newly = split_fold(name, getattr(K, name)(*got_args, **kwargs))
+    return max(max_abs_err(got, out, name), max_abs_err(got_newly, newly, name),
+               max_abs_err(got_args[at + 1], executed, name),
+               max_abs_err(got_args[:at], base, name))
+
+
+def phase_epilogue(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
+                   GraphExecutor, GraphAddBatch, checks=True):
+    """The plane's epilogue folded into the launch that makes each branch's
+    resolved flags (``graph_resolve.graph_plane_step_core``), and
+    ``group_scan`` as one launch.  Every dispatch of phase 2's shuffled run
+    and of phase 4's ``general_resident`` run (``GraphExecutor`` on the
+    card) and of phase 4's EPaxos and Atlas sims (``Runner(device="cpu")``,
+    whose dispatches on the card take the same inputs) is captured with its
+    branch (``BRANCHES``), held on the card against the plain route (the
+    plain resolver, then ``plane_epilogue_plain``) and replayed
+    ``EPILOGUE_REPLAYS`` times; every folded launch is held against its
+    plain version without the fold followed by ``plane_epilogue_plain``;
+    the first ``PROFILED_PER_BRANCH`` dispatches of each run and branch,
+    and each folding wrapper's first call with and without the fold, are
+    timed and counted in operations on the card.  ``group_scan`` at phase
+    2's calls, at a ``GROUP_ROWS``-row residual and on
+    ``group_scan_edge_cases``, each call against its plain version and the
+    reference's numpy formula, replayed, timed single and in the loop
+    beside its bound and counted on the card.  With ``checks`` (the whole
+    smoke; not on an older checkout): no epilogue operation of its own in a
+    dispatch of branches (b), (c), (e) and (f), one in (a) and (d); none
+    in phase 2 and at most 86 in phase 4; one operation a ``group_scan``
+    call, no memset or fill."""
+    from fantoch_tpu_torch.ops import graph_resolve
+
+    step = graph_resolve.graph_plane_step_core
+    folds = hasattr(K, "EPILOGUE_FOLDS")
+    out = {"branches": BRANCHES, "runs": {}, "dispatches": {}, "folded_launches": {},
+           "group_scan": {}, "replays": {}, "walls_s": {}}
+    walls, t_part = out["walls_s"], time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        walls[name] = now - t_part
+        t_part = now
+
+    runs = {
+        "phase 2": keyed_path_run(Config, Command, Rifl, KVOp, RunTime, GraphExecutor,
+                                  GraphAddBatch),
+        "phase 4, general_resident run": general_path_run(
+            Config, Command, Rifl, KVOp, RunTime, GraphExecutor, GraphAddBatch),
+        "phase 4, EPaxos sim": lambda: sim_run("cpu", "EPaxos"),
+        "phase 4, Atlas sim": lambda: sim_run("cpu", "Atlas"),
+    }
+    captured, worst, replayed = {}, 0.0, 0
+    for label, run in runs.items():
+        t0 = time.perf_counter()
+        dispatches = capture_dispatches(K, gp_module, run)
+        capture_s = time.perf_counter() - t0
+        dispatches = [{**d, "args": to_card(d["args"]),
+                       "calls": {n: [(to_card(a), kw) for a, kw in c]
+                                 for n, c in d["calls"].items()}} for d in dispatches]
+        t0 = time.perf_counter()
+        err, n_runs, counts = replay_dispatches(torch, K, step, dispatches)
+        worst, replayed = max(worst, err), replayed + n_runs
+        branches = {}
+        for d in dispatches:
+            branches[d["branch"]] = branches.get(d["branch"], 0) + 1
+        out["runs"][label] = {
+            "dispatches": len(dispatches), "branches": branches, "epilogue": counts,
+            "capture_s": capture_s, "replay_s": time.perf_counter() - t0,
+            "rows": sorted({int(d["args"][0].shape[0]) for d in dispatches}),
+        }
+        log(f"phase 12: {label}: {len(dispatches)} dispatches by branch {branches}, "
+            f"each equal to the plain route and replayed {EPILOGUE_REPLAYS} times; "
+            f"epilogue on the card {counts}")
+        captured[label] = dispatches
+    out["replays"]["dispatches"] = replayed
+    out["max_abs_err"] = worst
+    phase4 = [v for k, v in out["runs"].items() if k.startswith("phase 4")]
+    out["epilogue_launches"] = {
+        "phase 2": out["runs"]["phase 2"]["epilogue"]["plane_epilogue"],
+        "phase 4": sum(r["epilogue"]["plane_epilogue"] for r in phase4),
+        "phase 2 folded": sum(out["runs"]["phase 2"]["epilogue"]["folded"].values()),
+        "phase 4 folded": sum(sum(r["epilogue"]["folded"].values()) for r in phase4),
+    }
+    log(f"phase 12: plane_epilogue launches: {out['epilogue_launches']}")
+    part("captures and replays")
+
+    # every folded launch against its plain version and plane_epilogue_plain
+    fold_calls, fold_err = 0, 0.0
+    firsts = {}  # (branch, rows): the folding wrapper's first call
+    for label, dispatches in captured.items():
+        for d in dispatches:
+            name = FOLDING.get(d["branch"])
+            if name is None:
+                continue
+            for args, kwargs in d["calls"][name]:
+                folded = len(args) > FOLD_AT[name]
+                if folded:
+                    err = fold_check(K, name, args, kwargs)
+                    assert err == 0.0, f"{label}: {name}'s folded launch differs"
+                    fold_err, fold_calls = max(fold_err, err), fold_calls + 1
+                key = (d["branch"], int(args[0].shape[0]), label.split(",")[0])
+                firsts.setdefault(key, (name, args, kwargs, folded))
+    out["replays"]["folded_launches"] = fold_calls
+    out["fold_max_abs_err"] = fold_err
+    part("folded launches held")
+    assert not folds or fold_calls, "no folded launch was captured"
+    records = []
+    for (branch, rows, where), (name, args, kwargs, folded) in sorted(firsts.items()):
+        entry = {}
+        at = FOLD_AT[name]
+        forms = {"unfolded": args[:at]}
+        if folded:
+            forms["folded"] = args
+        for form, a in forms.items():
+            record, _got, _ = stage_record(torch, K, name, a, kwargs)
+            entry[form] = record
+            records.append(record)
+        out["folded_launches"][f"{name}, branch ({branch}), {rows} rows, {where}"] = entry
+
+    # dispatches on the card, the first few of each run and branch
+    for label, dispatches in captured.items():
+        seen = {}
+        for i, d in enumerate(dispatches):
+            if seen.get(d["branch"], 0) >= PROFILED_PER_BRANCH:
+                continue
+            seen[d["branch"]] = seen.get(d["branch"], 0) + 1
+            call = (step, clone_args(d["args"]), {"mode": d["mode"]})
+            record = {"branch": d["branch"], "mode": d["mode"],
+                      "rows": int(d["args"][0].shape[0]), "newly": d["newly"],
+                      "ms": time_ms(step, d["args"], {"mode": d["mode"]}),
+                      "ms_loop": time_loop_ms(step, d["args"], {"mode": d["mode"]}),
+                      "call": call}
+            out["dispatches"][f"{label}, dispatch {i}, branch ({d['branch']})"] = record
+            records.append(record)
+    part("folded launches and dispatches timed")
+
+    # group_scan: phase 2's calls, a 2^16-row residual, edge cases
+    gs_calls = {}
+    for i, d in enumerate(captured["phase 2"]):
+        for args, _kw in d["calls"].get("group_scan", []):
+            gs_calls[f"phase 2, dispatch {i}, branch ({d['branch']})"] = args
+    del captured
+    sizes = group_sizes(3 * GROUP_ROWS // 4, 1, 64, 7)
+    cases = {f"a residual of {GROUP_ROWS} rows, {len(sizes)} groups of 1-64 rows":
+             group_scan_inputs(GROUP_ROWS, sizes, 8)}
+    cases.update(group_scan_edge_cases(GROUP_EDGE_ROWS))
+    for label, (rrs, p_r) in cases.items():
+        gs_calls[label] = (torch.tensor(rrs, device=CARD), torch.tensor(p_r, device=CARD))
+    gs_err = 0.0
+    for label, args in gs_calls.items():
+        record, got, _ = stage_record(torch, K, "group_scan", args)
+        numpy = group_scan_numpy(*(a.cpu().numpy() for a in args))
+        assert np.array_equal(got.cpu().numpy(), numpy), f"group_scan, {label}: != numpy"
+        record["m"] = int(args[0].numel())
+        gs_err = max(gs_err, record["max_abs_err"])
+        out["group_scan"][label] = record
+        records.append(record)
+    out["replays"]["group_scan"] = scan_replays(
+        K, "group_scan", [(a, {}) for a in gs_calls.values()], EPILOGUE_REPLAYS)
+    out["group_scan_max_abs_err"] = gs_err
+    part("group_scan")
+
+    count_ops(torch, records, every_name=True)
+    part("operations counted")
+    for record in out["dispatches"].values():
+        record["epilogue_ops"] = sum("k_epilogue" in n for n in record["op_names_all"])
+    for record in records:
+        record.pop("op_names_all")
+    if checks:
+        for label, record in out["dispatches"].items():
+            want = 1 if record["branch"] in "ad" else 0
+            assert record["epilogue_ops"] == want, (label, record["op_names"])
+        assert out["epilogue_launches"]["phase 2"] == 0, out["epilogue_launches"]
+        assert out["epilogue_launches"]["phase 4"] <= 86, out["epilogue_launches"]
+        for label, record in out["group_scan"].items():
+            assert record["device_ops"] == 1, (label, record["op_names"])
+            assert not any(f in n.lower() for n in record["op_names"]
+                           for f in ("memset", "fill")), (label, record["op_names"])
+    log(json.dumps({"epilogue": out}))
+    return out
+
+
 # the kernels redesigned since the first slices, named in phase 0
 REDESIGNED = ("k_radix_", "k_stable_select", "k_affine_", "k_peel_stage", "k_mc_",
               "k_prologue_", "k_vr_", "k_one_cta", "k_grid", "k_link_scan", "k_pc_",
-              "k_dbl", "k_prop")
+              "k_dbl", "k_prop", "k_group_scan", "k_emit_")
 
 
 def ptxas_kernels(text):
@@ -3702,12 +4194,15 @@ def main():
     redesign_only = "--redesign" in sys.argv[1:]
     scans_only = "--scans" in sys.argv[1:]
     doubling_only = "--doubling" in sys.argv[1:]
+    epilogue_only = "--epilogue" in sys.argv[1:]
     if chain_only:  # the general chain alone (also on an older checkout)
         sources = ["graph_general", "graph_plane_step"]
     if redesign_only:  # phase 9 alone (also on an older checkout)
         sources = ["graph_plane_step", "pred_plane", "table_plane"]
     if scans_only or doubling_only:  # phase 10 or 11 alone (also on an older checkout)
         sources = ["graph_general", "graph_plane_step", "table_plane"]
+    if epilogue_only:  # phase 12 alone (also on an older checkout)
+        sources = ["graph_general", "graph_plane_step"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
@@ -3728,7 +4223,7 @@ def main():
 
     walls = {"phase 0": time.perf_counter() - t0}
     if chain_only:
-        phase_chain(torch, K, gp_module, one_launch=False)
+        phase_chain(torch, K, gp_module, one_launch="--checks" in sys.argv[1:])
         log(card)
         return 0
     if redesign_only:
@@ -3744,6 +4239,11 @@ def main():
         phase_doubling(torch, K, T, gp_module, table_ops, Config, Command, Rifl, KVOp,
                        Metrics, DeviceFrontier, RunTime, GraphExecutor, GraphAddBatch,
                        checks="--checks" in sys.argv[1:])
+        log(card)
+        return 0
+    if epilogue_only:
+        phase_epilogue(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
+                       GraphExecutor, GraphAddBatch, checks="--checks" in sys.argv[1:])
         log(card)
         return 0
 
@@ -3765,7 +4265,7 @@ def main():
     records.update(general_records)
     general = timed("phase 4", phase4, torch, K, gp_module, Config, Command, Rifl,
                     KVOp, RunTime, GraphExecutor, GraphAddBatch)
-    chain = timed("phase 4b", phase_chain, torch, K, gp_module, True)
+    chain = timed("phase 4b", phase_apart, "--general-chain", "general_chain")
     # the one-launch wrappers at the sims' shapes, the table's and above it
     records["mutual_collapse"]["at_sims_shapes"] = {
         label: c["mutual_collapse"] for label, c in chain["sims"].items()}
@@ -3776,11 +4276,16 @@ def main():
     for name in ("mutual_collapse", "graph_prologue"):
         records[name]["launch_floor"] = chain["launch_floor"]
     # launches: each kernel's count on the main path of its slice, the
-    # keyed path (phase 2) or the general path (phase 4), both listed
+    # keyed path (phase 2) or the general path (phase 4), both listed; the
+    # epilogue's own launches are on the general path's (phase 4: its
+    # sims' keyed windows whose links all verify, and the fast path), the
+    # keyed path's all folded (phase 12 counts them)
     for name, record in records.items():
-        path = general if name in K.GENERAL_KERNELS else keyed
+        path = general if name in K.GENERAL_KERNELS or name == "plane_epilogue" else keyed
         record["launches"] = path[name]
         record["launches_by_path"] = {"keyed": keyed[name], "general": general[name]}
+    records["plane_epilogue"]["folded_by_path"] = {
+        "keyed": keyed["epilogue_folds"], "general": general["epilogue_folds"]}
     table_records = timed("phase 5", phase5, torch, T, table_ops)
     records["lex_sort"]["uses"] += table_records.pop("uses")
     table_paths = timed("phase 6", phase6, torch, T, K, table_ops)
@@ -3826,6 +4331,17 @@ def main():
     for label, record in doubling["others"].items():
         name = label.split(",")[0]
         records[name].setdefault("device_at_paths_shapes", {})[label] = record
+    epilogue = timed("phase 12", phase_apart, "--epilogue", "epilogue")
+    records["plane_epilogue"]["phase12"] = {
+        k: epilogue[k] for k in ("runs", "epilogue_launches", "max_abs_err",
+                                 "fold_max_abs_err", "replays")}
+    records["plane_epilogue"]["folded_launches"] = epilogue["folded_launches"]
+    records["plane_epilogue"]["dispatches_on_card"] = epilogue["dispatches"]
+    records["group_scan"]["at_paths_shapes"] = epilogue["group_scan"]
+    records["group_scan"]["replays"] = epilogue["replays"]["group_scan"]
+    for name in ("plane_epilogue", "group_scan"):
+        err = epilogue["group_scan_max_abs_err" if name == "group_scan" else "max_abs_err"]
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": list(records.values())}))
     log(card)

@@ -99,6 +99,7 @@ inline unsigned __reduce_or_sync(unsigned, unsigned v) {
 inline void __syncwarp(unsigned = 0xffffffffu) { t_warp_bar->arrive_and_wait(); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline int __syncthreads_or(int v) {
   t_block->slots[threadIdx.x] = v; __syncthreads();
   int any = 0;

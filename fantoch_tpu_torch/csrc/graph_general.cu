@@ -62,6 +62,25 @@ static inline unsigned grid_for(long n, int block) {
   return (unsigned)((n + block - 1) / block);
 }
 
+// The plane's epilogue (fantoch_tpu/ops/graph_resolve.py:1009-1010) for
+// vertex v whose resolved flag is res: newly = res & occ & ~executed,
+// executed |= newly (graph_plane_step.cu §8 keeps its own launch and its
+// own copy of this).  The affine loop (§10) and the resident peeler's
+// publish (§12) fold it into the phase that makes the flags, when the
+// wrapper passes occ, executed and newly (all three or none); each vertex
+// is taken by exactly one thread, so executed is updated in place.
+__device__ __forceinline__ void epilogue_row(const uint8_t* occ, uint8_t* executed,
+                                             uint8_t* newly, long v, bool res) {
+  bool nw = res && occ[v] && !executed[v];
+  newly[v] = nw;
+  if (nw) executed[v] = 1;
+}
+
+static inline bool epilogue_args_ok(const void* occ, const void* executed,
+                                    const void* newly) {
+  return (occ == nullptr) == (executed == nullptr) && (occ == nullptr) == (newly == nullptr);
+}
+
 // ---------------------------------------------------------------------------
 // the loops' shared pieces: rows walked grid-stride (one block: block-stride),
 // and the barrier between the phases of a round
@@ -344,6 +363,12 @@ extern "C" int gg_mutual_collapse(const int32_t* deps, int32_t* leader, int32_t*
 // (COOP true): the columns in global scratch, grid barriers, and the changed
 // flag an atomicOr into slot r % 3 read after the barrier; block 0 zeroes
 // slot (r + 1) % 3 in round r, which every block last read two barriers ago.
+//
+// The plane's epilogue, when the wrapper asks for it (the general plane
+// step's iterative resolve, whose B rows are the window's), is folded into
+// the fold's last phase, where each row's resolved flag is made: after the
+// barrier that ends the loop and the fold's own, so no barrier is added.
+// Nothing in the launch reads occ or executed.
 
 template <bool COOP>
 __device__ void affine_loop_body(const int32_t* tgt0, const int32_t* add0,
@@ -351,8 +376,9 @@ __device__ void affine_loop_body(const int32_t* tgt0, const int32_t* add0,
                                  const int32_t* member_count, int32_t* tgt, int32_t* add,
                                  int32_t* floor, uint8_t* miss, int32_t* cols,
                                  int32_t* slots, uint8_t* resolved, int32_t* rank,
-                                 uint8_t* stuck, int32_t* rounds, int32_t* total, int B,
-                                 int W, int max_iters) {
+                                 uint8_t* stuck, int32_t* rounds, int32_t* total,
+                                 const uint8_t* occ, uint8_t* executed, uint8_t* newly,
+                                 int B, int W, int max_iters) {
   int32_t* agg_floor = cols;
   int32_t* agg_live = cols + B;
   int32_t* agg_miss = cols + 2L * B;
@@ -502,6 +528,7 @@ __device__ void affine_loop_body(const int32_t* tgt0, const int32_t* add0,
     resolved[v] = res;
     rank[v] = res ? agg_floor[l] : UNRESOLVED_RANK;
     stuck[v] = !res && !(m_f[v] || agg_miss[l]);
+    if (newly) epilogue_row(occ, executed, newly, v, res);
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     *rounds = r;
@@ -514,11 +541,12 @@ __global__ void k_affine_cta(const int32_t* tgt0, const int32_t* add0,
                              const int32_t* member_count, int32_t* tgt, int32_t* add,
                              int32_t* floor, uint8_t* miss, uint8_t* resolved,
                              int32_t* rank, uint8_t* stuck, int32_t* rounds,
-                             int32_t* total, int B, int W, int max_iters) {
+                             int32_t* total, const uint8_t* occ, uint8_t* executed,
+                             uint8_t* newly, int B, int W, int max_iters) {
   extern __shared__ int32_t aff_smem[];
   affine_loop_body<false>(tgt0, add0, miss0, leader, member_count, tgt, add, floor,
                           miss, aff_smem, nullptr, resolved, rank, stuck, rounds,
-                          total, B, W, max_iters);
+                          total, occ, executed, newly, B, W, max_iters);
 }
 
 __global__ void k_affine_coop(const int32_t* tgt0, const int32_t* add0,
@@ -526,26 +554,31 @@ __global__ void k_affine_coop(const int32_t* tgt0, const int32_t* add0,
                               const int32_t* member_count, int32_t* tgt, int32_t* add,
                               int32_t* floor, uint8_t* miss, int32_t* cols,
                               int32_t* slots, uint8_t* resolved, int32_t* rank,
-                              uint8_t* stuck, int32_t* rounds, int32_t* total, int B,
-                              int W, int max_iters) {
+                              uint8_t* stuck, int32_t* rounds, int32_t* total,
+                              const uint8_t* occ, uint8_t* executed, uint8_t* newly,
+                              int B, int W, int max_iters) {
   affine_loop_body<true>(tgt0, add0, miss0, leader, member_count, tgt, add, floor,
-                         miss, cols, slots, resolved, rank, stuck, rounds, total, B, W,
-                         max_iters);
+                         miss, cols, slots, resolved, rank, stuck, rounds, total, occ,
+                         executed, newly, B, W, max_iters);
 }
 
 // B <= cta_rows: one CTA of up to LOOP_CTA threads; above, a cooperative
 // launch of `block`-thread blocks.  scratch: 3 * B * W ints (the working
 // tgt/add/floor), then, cooperative only, 6 * B + 3 ints (the columns and
 // the changed slots); miss: B bytes (the working missing flags).  rounds
-// gets the rounds run, and total is raised by them.
+// gets the rounds run, and total is raised by them.  occ, executed, newly:
+// the plane's epilogue over the B rows, folded into the fold's last phase
+// (all three or none).
 extern "C" int gg_affine_loop(const int32_t* tgt0, const int32_t* add0,
                               const uint8_t* miss0, const int32_t* leader,
                               const int32_t* member_count, int32_t* scratch,
                               uint8_t* miss, uint8_t* resolved, int32_t* rank,
-                              uint8_t* stuck, int32_t* rounds, int32_t* total, int B,
+                              uint8_t* stuck, int32_t* rounds, int32_t* total,
+                              const uint8_t* occ, uint8_t* executed, uint8_t* newly, int B,
                               int W, int max_iters, int cta_rows, int block,
                               cudaStream_t stream) {
   if (B <= 0) return 0;
+  if (!epilogue_args_ok(occ, executed, newly)) return (int)cudaErrorInvalidValue;
   int32_t* tgt = scratch;
   int32_t* add = scratch + (long)B * W;
   int32_t* floor = scratch + 2L * B * W;
@@ -555,7 +588,7 @@ extern "C" int gg_affine_loop(const int32_t* tgt0, const int32_t* add0,
     if (e) return e;
     k_affine_cta<<<1, cta_threads(B), smem, stream>>>(
         tgt0, add0, miss0, leader, member_count, tgt, add, floor, miss, resolved, rank,
-        stuck, rounds, total, B, W, max_iters);
+        stuck, rounds, total, occ, executed, newly, B, W, max_iters);
     CHECK_LAUNCH();
     return (int)cudaGetLastError();
   }
@@ -564,10 +597,10 @@ extern "C" int gg_affine_loop(const int32_t* tgt0, const int32_t* add0,
   int grid = 0;
   int e = coop_grid(k_affine_coop, block, 0, ((long)B + block - 1) / block, &grid);
   if (e) return e;
-  void* args[] = {&tgt0, &add0,  &miss0,  &leader, &member_count, &tgt,
-                  &add,  &floor, &miss,   &cols,   &slots,        &resolved,
-                  &rank, &stuck, &rounds, &total,  &B,            &W,
-                  &max_iters};
+  void* args[] = {&tgt0,  &add0,     &miss0, &leader, &member_count, &tgt,
+                  &add,   &floor,    &miss,  &cols,   &slots,        &resolved,
+                  &rank,  &stuck,    &rounds, &total, &occ,          &executed,
+                  &newly, &B,        &W,     &max_iters};
   CHECK_CALL(cudaLaunchCooperativeKernel((const void*)k_affine_coop, dim3(grid),
                                          dim3(block), args, 0, stream));
   return (int)cudaGetLastError();
@@ -737,7 +770,10 @@ extern "C" int gg_peel_stage(const int32_t* tgt0, const int32_t* floor0,
 //     grid barrier, every block adds its count of live rows after it.
 //   publish (mode 1, the terminal stage): one cooperative launch; the
 //     stage's rows are published, then after a grid barrier stuck =
-//     ~out_final & ~out_miss over the whole batch.
+//     ~out_final & ~out_miss over the whole batch and, for the general_resident
+//     plane step (whose batch is the window), the plane's epilogue on
+//     out_final, the resolved flags, in the same pass.  Nothing in the
+//     launch reads occ or executed but that pass.
 //   compact (mode 2): the publish (gated by the `dead` the stage found),
 //     then the stable live-first partition: the first `half` rows kept,
 //     the gate closed when more than `half` rows are live, the kept rows
@@ -793,6 +829,9 @@ struct PeelCompact {
   int32_t *ntgt, *nfloor, *nrank, *norig;
   uint8_t *nmiss, *nfin, *stuck;
   int32_t *live, *scratch, *status;
+  // publish: the plane's epilogue over the batch, or all null
+  const uint8_t* occ;
+  uint8_t *executed, *newly;
   int B, S, W, half, epoch;
 };
 
@@ -958,24 +997,36 @@ __global__ void k_pc_init(PeelCompact c) {
   if (threadIdx.x == 0 && total) atomicAdd(c.live, total);
 }
 
-// mode 1: publish the terminal stage, then stuck over the batch
+// mode 1: publish the terminal stage, then stuck over the batch and, when
+// asked, the plane's epilogue on out_final (the resolved flags): the phase
+// after the grid barrier already reads every published row, so the fold
+// adds no barrier
 __global__ void k_pc_publish(PeelCompact c) {
   if (!ld_fresh(c.dead)) {
     FOR_ROWS(v, c.S) pc_publish(c, PcRow::load(c, v));
   }
   cg::this_grid().sync();
-  // four rows a thread where the three columns are 4-byte aligned (bool
-  // columns hold 0 or 1), then the rest a row a thread
-  bool aligned = (((uintptr_t)c.out_final | (uintptr_t)c.out_miss | (uintptr_t)c.stuck) & 3) == 0;
-  const long words = aligned ? c.B / 4 : 0;
+  // four rows a thread where the columns are 4-byte aligned (bool columns
+  // hold 0 or 1), then the rest a row a thread
+  uintptr_t at_bits = (uintptr_t)c.out_final | (uintptr_t)c.out_miss | (uintptr_t)c.stuck;
+  if (c.newly) at_bits |= (uintptr_t)c.occ | (uintptr_t)c.executed | (uintptr_t)c.newly;
+  const long words = (at_bits & 3) == 0 ? c.B / 4 : 0;
   FOR_ROWS(i, words) {
     uint32_t f = ld_fresh((const uint32_t*)c.out_final + i);
     uint32_t m = ld_fresh((const uint32_t*)c.out_miss + i);
     ((uint32_t*)c.stuck)[i] = (f | m) ^ 0x01010101u;
+    if (c.newly) {
+      uint32_t e = ((const uint32_t*)c.executed)[i];
+      uint32_t nw = f & ((const uint32_t*)c.occ)[i] & ~e & 0x01010101u;
+      ((uint32_t*)c.newly)[i] = nw;
+      if (nw) ((uint32_t*)c.executed)[i] = e | nw;
+    }
   }
   FOR_ROWS(o, c.B - words * 4) {
     long at = words * 4 + o;
-    c.stuck[at] = !ld_fresh(c.out_final + at) && !ld_fresh(c.out_miss + at);
+    bool f = ld_fresh(c.out_final + at);
+    c.stuck[at] = !f && !ld_fresh(c.out_miss + at);
+    if (c.newly) epilogue_row(c.occ, c.executed, c.newly, at, f);
   }
 }
 
@@ -1148,7 +1199,9 @@ __global__ void k_pc_gather(PeelCompact c) {
 
 // mode 0 (init): deps in tgt, the padded state out in n*, outputs and dead
 //   initialised, live = its live count;
-// mode 1 (publish): publish the state, then stuck = ~out_final & ~out_miss;
+// mode 1 (publish): publish the state, then stuck = ~out_final & ~out_miss
+//   and, with occ, executed and newly (all three or none; mode 1 only), the
+//   plane's epilogue on out_final;
 // mode 2 (compact): publish, then the half-size state in n*, dead updated,
 //   live = the new state's live count; scratch S + 2 * half + 1 ints;
 //   status and epoch as gp_link_scan's.
@@ -1160,12 +1213,16 @@ extern "C" int gg_peel_compact(const int32_t* tgt, const int32_t* floor,
                                int32_t* out_rank, int32_t* dead, int32_t* ntgt,
                                int32_t* nfloor, uint8_t* nmiss, uint8_t* nfin,
                                int32_t* nrank, int32_t* norig, int32_t* live,
-                               uint8_t* stuck, int32_t* scratch, int32_t* status, int mode,
-                               int B, int S, int W, int half, int epoch, int block,
+                               uint8_t* stuck, int32_t* scratch, int32_t* status,
+                               const uint8_t* occ, uint8_t* executed, uint8_t* newly,
+                               int mode, int B, int S, int W, int half, int epoch, int block,
                                cudaStream_t stream) {
-  PeelCompact c = {tgt,   floor, rank,  orig,  miss,  fin,     out_final, out_miss,
-                   out_rank, dead, ntgt, nfloor, nrank, norig, nmiss, nfin,
-                   stuck, live, scratch, status, B, S, W, half, epoch};
+  if (!epilogue_args_ok(occ, executed, newly) || (newly && mode != 1))
+    return (int)cudaErrorInvalidValue;
+  PeelCompact c = {tgt,      floor, rank, orig,   miss,  fin,   out_final, out_miss,
+                   out_rank, dead,  ntgt, nfloor, nrank, norig, nmiss,     nfin,
+                   stuck,    live,  scratch, status, occ, executed, newly,
+                   B,        S,     W,    half,   epoch};
   void* args[] = {&c};
   size_t smem = 32 * sizeof(int32_t);
   int grid = 0;

@@ -28,8 +28,7 @@ namespace cg = cooperative_groups;
 #define UNRESOLVED_RANK INT_MAX
 #define EMIT_UNRESOLVED_BIT (1 << 30)
 
-#define EW_BLOCK 256     // elementwise kernels
-#define SCAN_BLOCK 1024  // block scans (all threads take part)
+#define EW_BLOCK 256  // elementwise kernels
 
 #define CHECK_LAUNCH()                         \
   do {                                         \
@@ -45,6 +44,24 @@ namespace cg = cooperative_groups;
 
 static inline unsigned grid_for(long n, int block) {
   return (unsigned)((n + block - 1) / block);
+}
+
+// The plane's epilogue (fantoch_tpu/ops/graph_resolve.py:1009-1010) for
+// vertex v whose resolved flag is res: newly = res & occ & ~executed,
+// executed |= newly.  §8 launches it alone; pointer doubling (§6) and the
+// emit scatter (§7) fold it into the launch that makes the flags, when
+// the wrapper passes occ, executed and newly (all three or none).  Each
+// vertex is taken by exactly one thread, so executed is updated in place.
+__device__ __forceinline__ void epilogue_row(const uint8_t* occ, uint8_t* executed,
+                                             uint8_t* newly, long v, bool res) {
+  bool nw = res && occ[v] && !executed[v];
+  newly[v] = nw;
+  if (nw) executed[v] = 1;
+}
+
+static inline bool epilogue_args_ok(const void* occ, const void* executed,
+                                    const void* newly) {
+  return (occ == nullptr) == (executed == nullptr) && (occ == nullptr) == (newly == nullptr);
 }
 
 // ---------------------------------------------------------------------------
@@ -532,69 +549,6 @@ extern "C" int gp_lex_sort(const void* col0, const void* col1, const void* col2,
 }
 
 // ---------------------------------------------------------------------------
-// block max-scan (inclusive cummax) with carried block totals: reduce, a
-// one-block carry, apply.  group_scan's (§5) two scans; its redesign, as
-// link_scan's single pass (§3), waits in ROADMAP.md Queue B.
-// ---------------------------------------------------------------------------
-
-// Hillis-Steele inclusive max over the block; every thread must call it
-__device__ int block_incl_max(int x, int* sh) {
-  sh[threadIdx.x] = x;
-  __syncthreads();
-  for (int off = 1; off < blockDim.x; off <<= 1) {
-    int y = threadIdx.x >= off ? sh[threadIdx.x - off] : INT_MIN;
-    __syncthreads();
-    if (threadIdx.x >= off) sh[threadIdx.x] = max(sh[threadIdx.x], y);
-    __syncthreads();
-  }
-  return sh[threadIdx.x];
-}
-
-__global__ void k_scan_reduce(const int32_t* x, int32_t* bmax, int n) {
-  __shared__ int sh[SCAN_BLOCK];
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int inc = block_incl_max(i < n ? x[i] : INT_MIN, sh);
-  if (threadIdx.x == blockDim.x - 1) bmax[blockIdx.x] = inc;
-}
-
-// one block: exclusive max-scan of the block totals
-__global__ void k_scan_carry(const int32_t* bmax, int32_t* carry, int nb) {
-  __shared__ int sh[SCAN_BLOCK];
-  int running = INT_MIN;
-  for (int base = 0; base < nb; base += blockDim.x) {
-    int t = base + threadIdx.x;
-    block_incl_max(t < nb ? bmax[t] : INT_MIN, sh);
-    int excl = threadIdx.x > 0 ? sh[threadIdx.x - 1] : INT_MIN;
-    int total = sh[blockDim.x - 1];
-    if (t < nb) carry[t] = max(running, excl);
-    running = max(running, total);
-    __syncthreads();
-  }
-}
-
-__global__ void k_scan_apply(const int32_t* x, int32_t* y, const int32_t* carry, int n) {
-  __shared__ int sh[SCAN_BLOCK];
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int inc = block_incl_max(i < n ? x[i] : INT_MIN, sh);
-  if (i < n) y[i] = max(inc, carry[blockIdx.x]);
-}
-
-// y = cummax(x); scratch holds 2 * nblocks ints
-static int cummax(const int32_t* x, int32_t* y, int32_t* scratch, int n,
-                  cudaStream_t stream) {
-  int nb = (int)grid_for(n, SCAN_BLOCK);
-  int32_t* bmax = scratch;
-  int32_t* carry = scratch + nb;
-  k_scan_reduce<<<nb, SCAN_BLOCK, 0, stream>>>(x, bmax, n);
-  CHECK_LAUNCH();
-  k_scan_carry<<<1, SCAN_BLOCK, 0, stream>>>(bmax, carry, nb);
-  CHECK_LAUNCH();
-  k_scan_apply<<<nb, SCAN_BLOCK, 0, stream>>>(x, y, carry, n);
-  CHECK_LAUNCH();
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
 // 3. link scan: one launch
 // ---------------------------------------------------------------------------
 // Row p of the key-sorted order (j = pos_s[p]) is a run head when its key
@@ -1033,39 +987,86 @@ extern "C" int gp_residual_view(const int32_t* p_r, const int32_t* pos_s,
 }
 
 // ---------------------------------------------------------------------------
-// 5. group scan
+// 5. group scan: one elementwise launch, no scan
 // ---------------------------------------------------------------------------
+// target[r] = firstbad[r] + (r - gstart[r]), where gstart is the first row
+// of r's group (a group: consecutive rows of equal rrs) and firstbad the
+// running max of p_r over the groups' first rows (group_scan_plain's two
+// cummaxes, fantoch_tpu/ops/graph_resolve.py:302-309).
+//
+// Precondition (the reference's comment there): rrs is nondecreasing in
+// p_r order, since run_start is monotone in position and the compaction
+// by chain_ok is stable; the rows past n_residual carry INT_MAX and form
+// the last group.  The same stability makes p_r increase over the rows
+// before that group.  So a row's running max is p_r[gstart] itself,
+// except in a group whose first p_r falls below the row before it (only
+// the INT_MAX group: its first row is the first chain_ok position): there
+// the max also takes in the first p_r of the group before.
+//
+// A warp takes 32 consecutive rows.  Their group heads are one ballot, so
+// a row whose group starts in the warp finds its first row there; the
+// group of the warp's first row, if it began before the warp, is found by
+// one search of the warp over the rows before it, 32 probes a level (one a
+// lane, log32 levels: 3 at 32,768 rows).  No scratch, no flag, no memset.
+// (The first version searched by halving in every row: 15 dependent loads
+// a row at 32,768 rows, 0.0051-0.0058 ms on an H100 against this one's
+// fewer.)  Bound: bytes (rrs and p_r read, target written).
 
-__global__ void k_group_pre(const int32_t* rrs, const int32_t* p_r, int32_t* x_fb,
-                            int32_t* x_gs, int m) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= m) return;
-  bool head = r == 0 || rrs[r] != rrs[r - 1];
-  x_fb[r] = head ? p_r[r] : 0;
-  x_gs[r] = head ? r : 0;
+// the first row of the group that holds row hi (rrs nondecreasing over
+// [0, hi]); every lane of the warp calls it with the same hi
+__device__ int warp_group_first(const int32_t* rrs, int hi) {
+  const int lane = threadIdx.x & 31;
+  const int v = rrs[hi];
+  int lo = 0;  // the answer lies in [lo, hi], and rrs[hi] == v
+  while (lo < hi) {
+    int step = (hi - lo + 31) >> 5;
+    int at = min(lo + lane * step, hi);
+    // the probes below v are a prefix of the lanes
+    int below = __popc(__ballot_sync(FULL_MASK, rrs[at] < v));
+    if (below == 0) return lo;
+    int next = lo + (below - 1) * step + 1;
+    if (below < 32) hi = min(lo + below * step, hi);
+    lo = next;
+  }
+  return lo;
 }
 
-__global__ void k_group_post(const int32_t* firstbad, const int32_t* gstart,
-                             int32_t* target, int m) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= m) return;
-  target[r] = firstbad[r] + (r - gstart[r]);
+// the first row of the group holding lane k's row, given the warp's heads
+// and the first row of the group that began before the warp
+__device__ __forceinline__ int first_in_warp(unsigned heads, int k, int base, int carried) {
+  unsigned upto = heads & (FULL_MASK >> (31 - k));
+  return upto ? base + 31 - __clz(upto) : carried;
 }
 
-// scratch: 2m + 4 * nblocks ints
+__global__ void k_group_scan(const int32_t* rrs, const int32_t* p_r, int32_t* target,
+                             int m) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int base = r - lane;
+  if (base >= m) return;  // the whole warp
+  const bool in = r < m;
+  const int v = in ? rrs[r] : 0;
+  const unsigned heads = __ballot_sync(FULL_MASK, in && (r == 0 || rrs[r - 1] != v));
+  const int carried = heads & 1u ? base : warp_group_first(rrs, base);
+  const int gstart = first_in_warp(heads, lane, base, carried);
+  int firstbad = in ? p_r[gstart] : 0;
+  // a group whose first p_r falls: also the first p_r of the group before
+  bool falls = in && gstart > 0 && p_r[gstart - 1] > firstbad;
+  for (unsigned need = __ballot_sync(FULL_MASK, falls); need;) {
+    int at = __shfl_sync(FULL_MASK, gstart, __ffs(need) - 1) - 1;
+    int first = at >= base ? first_in_warp(heads, at - base, base, carried)
+                           : warp_group_first(rrs, at);
+    bool mine = falls && gstart - 1 == at;
+    if (mine) firstbad = max(firstbad, p_r[first]);
+    need &= ~__ballot_sync(FULL_MASK, mine);
+  }
+  if (in) target[r] = firstbad + (r - gstart);
+}
+
 extern "C" int gp_group_scan(const int32_t* rrs, const int32_t* p_r, int32_t* target,
-                             int32_t* scratch, int m, cudaStream_t stream) {
+                             int m, cudaStream_t stream) {
   if (m <= 0) return 0;
-  int32_t* x_fb = scratch;
-  int32_t* x_gs = scratch + m;
-  int32_t* scan_tmp = scratch + 2L * m;
-  k_group_pre<<<grid_for(m, EW_BLOCK), EW_BLOCK, 0, stream>>>(rrs, p_r, x_fb, x_gs, m);
-  CHECK_LAUNCH();
-  int err = cummax(x_fb, x_fb, scan_tmp, m, stream);
-  if (err) return err;
-  err = cummax(x_gs, x_gs, scan_tmp, m, stream);
-  if (err) return err;
-  k_group_post<<<grid_for(m, EW_BLOCK), EW_BLOCK, 0, stream>>>(x_fb, x_gs, target, m);
+  k_group_scan<<<grid_for(m, EW_BLOCK), EW_BLOCK, 0, stream>>>(rrs, p_r, target, m);
   CHECK_LAUNCH();
   return (int)cudaGetLastError();
 }
@@ -1113,7 +1114,9 @@ extern "C" int gp_group_scan(const int32_t* rrs, const int32_t* p_r, int32_t* ta
 // pass 2 (jump in the low half), so a step gathers one 8-byte word at its
 // jump; two ping-pong columns, pass 2 reusing pass 1's once the closure has
 // read end.  Init folds into the first step of each pass and the final
-// outputs into pass 2's last step, so no step's jumps are kept.
+// outputs into pass 2's last step, so no step's jumps are kept; so does the
+// plane's epilogue when the wrapper asks for it (the keyed plane step's
+// overflow branch, whose rows are the window's).
 //
 // One cooperative launch, rows grid-stride over the co-resident grid, a
 // grid barrier between steps.  (A chain of launches, L + 1 + L, was built
@@ -1143,6 +1146,9 @@ struct Doubling {
   int32_t *rank, *leader;
   int32_t* changed;  // pass 2's changed words: DBL_SLOTS a step, DBL_SLOT_INTS apart
   int n, steps;
+  // the plane's epilogue folded into the final step (§8), or all null
+  const uint8_t* occ;
+  uint8_t *executed, *newly;
 };
 
 // the block sets its changed word of step t (where it reads 0)
@@ -1211,6 +1217,7 @@ __device__ __forceinline__ void dbl_final(const Doubling& d, int i, u64 s) {
   d.resolved[i] = res;
   d.rank[i] = res ? dbl_value(s) : UNRESOLVED_RANK;
   if (!oc) d.leader[i] = i;
+  if (d.newly) epilogue_row(d.occ, d.executed, d.newly, i, res);
 }
 
 // pass 1's last step parks acc in leader and zeroes on_cycle for the
@@ -1372,15 +1379,20 @@ static int dbl_coop_grid(F kernel, int block, long want, int* grid) {
 
 // one cooperative launch of blocks of `block` threads.  scratch: 4n +
 // steps * DBL_SLOTS * DBL_SLOT_INTS ints (the two columns, then the changed
-// words).
+// words).  occ, executed, newly: the plane's epilogue over the same n rows
+// (§8), folded into the final step where each row's resolved flag is made;
+// all three or none.
 extern "C" int gp_pointer_doubling(const int32_t* dep, uint8_t* resolved, int32_t* rank,
                                    int32_t* leader, uint8_t* on_cycle, int32_t* scratch,
+                                   const uint8_t* occ, uint8_t* executed, uint8_t* newly,
                                    int n, int steps, int block, cudaStream_t stream) {
   if (n <= 0) return 0;
   if (steps < 2) return (int)cudaErrorInvalidValue;
+  if (!epilogue_args_ok(occ, executed, newly)) return (int)cudaErrorInvalidValue;
   u64* col0 = (u64*)scratch;
   u64* col1 = col0 + n;
-  Doubling d = {dep, resolved, on_cycle, rank, leader, (int32_t*)(col1 + n), n, steps};
+  Doubling d = {dep,   resolved, on_cycle, rank, leader, (int32_t*)(col1 + n),
+                n,     steps,    occ,      executed, newly};
   if (block <= 0 || block % 32 || block > DBL_BLOCK_MAX) return (int)cudaErrorInvalidValue;
   int grid = 0;
   int err = dbl_coop_grid(k_dbl_coop, block, (n + block - 1) / block, &grid);
@@ -1394,20 +1406,37 @@ extern "C" int gp_pointer_doubling(const int32_t* dep, uint8_t* resolved, int32_
 // ---------------------------------------------------------------------------
 // 7. emit scatter
 // ---------------------------------------------------------------------------
+// An init launch over the batch (the chain_ok rows), then the residual
+// scatter (the emit targets of one group are a permutation of its
+// positions, so no two threads write one cell).
+//
+// The epilogue folded (branch "residual" of the keyed plane step): vertex
+// flag_perm[p] takes sorted position p's resolved flag.  The init finishes
+// the chain_ok positions, the scatter the others.  Each position is
+// finished by exactly one of them: the scatter writes p_r[e[r]] for r <
+// n_residual, and when n_residual <= m (this branch's condition; the
+// launcher refuses a fold without it) those are exactly the positions that
+// are not chain_ok: p_r is the stable sort by chain_ok, so its first
+// n_residual entries are them, and e, sorted first by rrs, puts the
+// n_residual valid rows (rrs below INT_MAX) before the INT_MAX ones.
 
 __global__ void k_emit_init(const uint8_t* chain_ok, int32_t* packed, uint8_t* res_b,
-                            int batch) {
+                            const uint8_t* occ, uint8_t* executed, uint8_t* newly,
+                            const int32_t* flag_perm, int batch) {
   int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= batch) return;
   bool res = chain_ok[p] != 0;
   packed[p] = (res ? 0 : EMIT_UNRESOLVED_BIT) | p;
   res_b[p] = res;
+  if (newly && res) epilogue_row(occ, executed, newly, flag_perm[p], true);
 }
 
 __global__ void k_emit_scatter(const int32_t* e, const int32_t* p_r,
                                const uint8_t* l_resolved, const int32_t* target,
                                int32_t* packed, uint8_t* res_b, int32_t* n_unres,
-                               int m, int n_valid, int n_residual) {
+                               const uint8_t* occ, uint8_t* executed, uint8_t* newly,
+                               const int32_t* flag_perm, int m, int n_valid,
+                               int n_residual) {
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   int unres = 0;
   if (r < n_valid) {
@@ -1417,6 +1446,7 @@ __global__ void k_emit_scatter(const int32_t* e, const int32_t* p_r,
     packed[pr] = (res ? 0 : EMIT_UNRESOLVED_BIT) | target[r];
     res_b[pr] = res;
     unres = res ? 0 : 1;
+    if (newly) epilogue_row(occ, executed, newly, flag_perm[pr], res);
   }
   // residual rows beyond the buffer (overflow) stay unresolved
   if (r == 0) unres += n_residual - n_valid;
@@ -1424,20 +1454,26 @@ __global__ void k_emit_scatter(const int32_t* e, const int32_t* p_r,
   if ((threadIdx.x & 31) == 0 && unres) atomicAdd(n_unres, unres);
 }
 
-// n_unres zeroed by the caller
+// n_unres zeroed by the caller; occ, executed, newly, flag_perm: the folded
+// epilogue (all four or none; only with n_residual <= m)
 extern "C" int gp_emit_scatter(const int32_t* e, const int32_t* p_r,
                                const uint8_t* l_resolved, const int32_t* target,
                                const uint8_t* chain_ok, int32_t* packed, uint8_t* res_b,
-                               int32_t* n_unres, int m, int batch, int n_residual,
-                               cudaStream_t stream) {
+                               int32_t* n_unres, const uint8_t* occ, uint8_t* executed,
+                               uint8_t* newly, const int32_t* flag_perm, int m, int batch,
+                               int n_residual, cudaStream_t stream) {
   if (batch <= 0) return 0;
+  if (!epilogue_args_ok(occ, executed, newly) || (newly == nullptr) != (flag_perm == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (newly && n_residual > m) return (int)cudaErrorInvalidValue;
   int n_valid = n_residual < m ? n_residual : m;
-  k_emit_init<<<grid_for(batch, EW_BLOCK), EW_BLOCK, 0, stream>>>(chain_ok, packed,
-                                                                  res_b, batch);
+  k_emit_init<<<grid_for(batch, EW_BLOCK), EW_BLOCK, 0, stream>>>(
+      chain_ok, packed, res_b, occ, executed, newly, flag_perm, batch);
   CHECK_LAUNCH();
   int threads = m > 0 ? m : 1;
   k_emit_scatter<<<grid_for(threads, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-      e, p_r, l_resolved, target, packed, res_b, n_unres, m, n_valid, n_residual);
+      e, p_r, l_resolved, target, packed, res_b, n_unres, occ, executed, newly, flag_perm,
+      m, n_valid, n_residual);
   CHECK_LAUNCH();
   return (int)cudaGetLastError();
 }
@@ -1445,16 +1481,17 @@ extern "C" int gp_emit_scatter(const int32_t* e, const int32_t* p_r,
 // ---------------------------------------------------------------------------
 // 8. epilogue
 // ---------------------------------------------------------------------------
+// A launch of its own only where no kernel makes the resolved flags: a
+// keyed dispatch whose links all verify (flags null: all resolved) and the
+// general fast path.  Elsewhere it is folded into the launch that makes
+// them (§6, §7; graph_general.cu §10, §12).
 
 __global__ void k_epilogue(const uint8_t* occ, uint8_t* executed, const uint8_t* flags,
                            const int32_t* flag_perm, uint8_t* newly, int n) {
   int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  int v = flag_perm ? flag_perm[p] : p;
-  bool res = flags ? flags[p] != 0 : true;
-  bool nw = res && occ[v] && !executed[v];
-  newly[v] = nw;
-  if (nw) executed[v] = 1;
+  epilogue_row(occ, executed, newly, flag_perm ? flag_perm[p] : p,
+               flags ? flags[p] != 0 : true);
 }
 
 extern "C" int gp_epilogue(const uint8_t* occ, uint8_t* executed, const uint8_t* flags,

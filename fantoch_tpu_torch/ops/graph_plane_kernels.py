@@ -63,6 +63,16 @@ GENERAL_KERNELS = ("mutual_collapse", "affine_loop", "peel_stage", "peel_compact
 # the loop kernels, each raising a device int by the rounds it runs
 LOOP_KERNELS = ("affine_loop", "peel_stage")
 _round_totals: Dict[Tuple[str, str], torch.Tensor] = {}
+# the plane's epilogue folded into the launch that makes a branch's resolved
+# flags, by folding wrapper: raised by one where that wrapper launches with
+# the fold, so folded plus standalone ``plane_epilogue`` launches count the
+# plane dispatches on the card
+EPILOGUE_FOLDS: Dict[str, int] = {
+    "pointer_doubling": 0,
+    "emit_scatter": 0,
+    "affine_loop": 0,
+    "peel_compact": 0,
+}
 # slot sentinel of resolve_general_resident's compaction: a dep whose
 # target was cut at a fixpoint compaction (fantoch_tpu/ops/graph_resolve.py
 # :729); only ever created after the publish gate closed
@@ -70,10 +80,19 @@ FROZEN = -3
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts and the loop kernels' round totals."""
+    """Zero the launch counts, the epilogue folds and the loop kernels'
+    round totals."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in EPILOGUE_FOLDS:
+        EPILOGUE_FOLDS[name] = 0
     _round_totals.clear()
+
+
+def epilogue_count() -> int:
+    """The plane epilogues run on the card since the last
+    ``reset_launch_counts``: standalone launches plus folds."""
+    return LAUNCHES["plane_epilogue"] + sum(EPILOGUE_FOLDS.values())
 
 
 def num_doubling_steps(batch: int) -> int:
@@ -97,15 +116,15 @@ _SIGNATURES = {
     "gp_lex_sort": ("graph_plane_step", "p" * 11 + "i" * 10),
     "gp_link_scan": ("graph_plane_step", "p" * 8 + "iii"),
     "gp_residual_view": ("graph_plane_step", "p" * 13 + "iii"),
-    "gp_group_scan": ("graph_plane_step", "pppp" + "i"),
-    "gp_pointer_doubling": ("graph_plane_step", "p" * 6 + "iii"),
-    "gp_emit_scatter": ("graph_plane_step", "p" * 8 + "iii"),
+    "gp_group_scan": ("graph_plane_step", "ppp" + "i"),
+    "gp_pointer_doubling": ("graph_plane_step", "p" * 9 + "iii"),
+    "gp_emit_scatter": ("graph_plane_step", "p" * 12 + "iii"),
     "gp_epilogue": ("graph_plane_step", "p" * 5 + "i"),
     "gg_prologue": ("graph_general", "p" * 17 + "i" * 7),
     "gg_mutual_collapse": ("graph_general", "p" * 7 + "i" * 5),
-    "gg_affine_loop": ("graph_general", "p" * 12 + "i" * 5),
+    "gg_affine_loop": ("graph_general", "p" * 15 + "i" * 5),
     "gg_peel_stage": ("graph_general", "p" * 14 + "i" * 5),
-    "gg_peel_compact": ("graph_general", "p" * 20 + "i" * 7),
+    "gg_peel_compact": ("graph_general", "p" * 23 + "i" * 7),
     # an empty kernel: the launch floor chip_smoke.py times
     "gg_empty": ("graph_general", ""),
     # the votes-table plane's launchers (wrappers in ops/table_kernels.py)
@@ -197,6 +216,23 @@ def _i32(n: int, device, fill: Optional[int] = None) -> torch.Tensor:
 
 def _b(n: int, device) -> torch.Tensor:
     return torch.empty(n, dtype=torch.bool, device=device)
+
+
+def _folds(occ, executed, name: str) -> bool:
+    """Whether a folding wrapper is asked to fold the plane's epilogue
+    (stage 8) into its launch: ``occ`` and ``executed`` both given, or
+    neither.  One without the other raises: there is no fallback to the
+    separate launch."""
+    if occ is None and executed is None:
+        return False
+    if occ is None or executed is None:
+        raise ValueError(f"{name}: the folded epilogue needs both occ and executed")
+    return True
+
+
+def _check_fold(occ, executed, n: int) -> None:
+    _check(occ, torch.bool, "occ", n)
+    _check(executed, torch.bool, "executed", n)
 
 
 # ---------------------------------------------------------------------------
@@ -475,10 +511,6 @@ def link_scan(pk, col, pos_s):
     return dep_s, run_start, chain_ok, n_residual
 
 
-def _blocks(n: int) -> int:
-    return max(1, (n + 1023) // 1024)
-
-
 # ---------------------------------------------------------------------------
 # 4. residual view: gathers of the compacted residual + local dep remap
 # ---------------------------------------------------------------------------
@@ -531,8 +563,15 @@ def residual_view(p_r, pos_s, dep_s, run_start, src, seq, n_residual: int):
 # ---------------------------------------------------------------------------
 # 5. group scan: residual groups, firstbad cummax, emit targets
 # ---------------------------------------------------------------------------
-# Bound: bytes (three res_n-row int32 streams in, one out).  Design: the
-# link scan's block max-scan machinery at residual scale.
+# Bound: bytes (two res_n-row int32 streams in, one out).  Design
+# (``csrc/graph_plane_step.cu`` §5): one elementwise launch and no scan.
+# ``rrs`` is nondecreasing in ``p_r`` order (the reference's comment,
+# fantoch_tpu/ops/graph_resolve.py:302-307: run_start is monotone in
+# position and the compaction is stable; the invalid rows carry INT32_MAX
+# and form the last group), so a row reads its group's first ``p_r``: a
+# warp takes 32 rows, finds their group heads by one ballot and the first
+# row of a group that began before it by one 32-way search of the warp; no
+# scratch, no look-back, no memset.
 
 
 def group_scan_plain(rrs, p_r):
@@ -547,14 +586,20 @@ def group_scan_plain(rrs, p_r):
 
 
 def group_scan(rrs, p_r):
+    """``group_scan_plain`` in one launch.  Precondition (what
+    ``_residual_emit`` gives it): ``rrs`` is nondecreasing, and ``p_r``
+    increases over the rows before the last group (the residual rows, in
+    position order: the compaction by chain_ok is stable).  The kernel reads
+    the running max of the groups' first ``p_r`` as the first ``p_r`` of the
+    row's own group, and of the group before where ``p_r`` falls at a
+    group's first row (the INT32_MAX group of invalid rows)."""
     if not _on_card(rrs):
         return group_scan_plain(rrs, p_r)
     m = rrs.numel()
     _check(rrs, torch.int32, "rrs", m)
     _check(p_r, torch.int32, "p_r", m)
     target = _i32(m, rrs.device)
-    scratch = _i32(2 * m + 4 * _blocks(m), rrs.device)
-    _launch("gp_group_scan", rrs.device, rrs, p_r, target, scratch, m)
+    _launch("gp_group_scan", rrs.device, rrs, p_r, target, m)
     LAUNCHES["group_scan"] += 1
     return target
 
@@ -571,8 +616,11 @@ def group_scan(rrs, p_r):
 # scatter of plain stores, on_cycle[end[i]] = 1 for every nonterminating
 # row (the argument is in the source); pass 2 stops after a step that
 # changed nothing; init folds into each pass's first step and the outputs
-# into pass 2's last.  No memset, no atomic.  One cooperative launch over
-# the co-resident grid, a grid barrier between steps.  (On an H100,
+# into pass 2's last, and so does the plane's epilogue (stage 8) when the
+# caller passes ``occ`` and ``executed`` (the keyed plane step's overflow
+# branch, whose rows are the window's).  No memset, no atomic.  One
+# cooperative launch over the co-resident grid, a grid barrier between
+# steps.  (On an H100,
 # chip_smoke.py phase 11: a chain of 2L + 1 launches was behind it at every
 # size from 16,384 rows up, and one block with its columns in shared memory
 # was ahead only below 16,384 rows, where no path calls it; both went.)
@@ -580,9 +628,12 @@ def group_scan(rrs, p_r):
 DOUBLING_SLOTS = DOUBLING_SLOT_INTS = 32  # csrc DBL_SLOTS, DBL_SLOT_INTS
 
 
-def pointer_doubling_plain(dep):
+def pointer_doubling_plain(dep, occ=None, executed=None):
     """(resolved, rank, leader, on_cycle): exact for any out-degree-<=1
-    graph over ``dep[n]`` (TERMINAL/MISSING sentinels)."""
+    graph over ``dep[n]`` (TERMINAL/MISSING sentinels).  With ``occ`` and
+    ``executed`` (bool[n]) the plane's epilogue on ``resolved`` too:
+    ``newly`` is appended and ``executed`` updated in place."""
+    fold = _folds(occ, executed, "pointer_doubling")
     n = dep.shape[0]
     device = dep.device
     idx = torch.arange(n, dtype=torch.int32, device=device)
@@ -617,26 +668,36 @@ def pointer_doubling_plain(dep):
     resolved = on_cycle | is_term[j2] | on_cycle[j2]
     rank = torch.where(resolved, dist2, INT32_MAX).to(torch.int32)
     leader = torch.where(on_cycle, cyc_leader, idx).to(torch.int32)
+    if fold:
+        return resolved, rank, leader, on_cycle, plane_epilogue_plain(occ, executed, resolved)
     return resolved, rank, leader, on_cycle
 
 
-def pointer_doubling(dep):
+def pointer_doubling(dep, occ=None, executed=None):
+    fold = _folds(occ, executed, "pointer_doubling")
     if not _on_card(dep):
-        return pointer_doubling_plain(dep)
+        return pointer_doubling_plain(dep, occ, executed)
     n = dep.numel()
     _check(dep, torch.int32, "dep", n)
     device = dep.device
     steps = num_doubling_steps(n)
     resolved, on_cycle = _b(n, device), _b(n, device)
     rank, leader = _i32(n, device), _i32(n, device)
+    newly = None
+    if fold:
+        _check_fold(occ, executed, n)
+        newly = _b(n, device)
     # the two ping-pong columns of 64-bit words, then pass 2's changed
     # words (csrc DBL_SLOTS a step, DBL_SLOT_INTS apart)
     scratch = _i32(4 * n + steps * DOUBLING_SLOTS * DOUBLING_SLOT_INTS, device)
     _launch(
         "gp_pointer_doubling", device, dep, resolved, rank, leader, on_cycle,
-        scratch, n, steps, _loop_block(n),
+        scratch, occ, executed, newly, n, steps, _loop_block(n),
     )
     LAUNCHES["pointer_doubling"] += 1
+    if fold:
+        EPILOGUE_FOLDS["pointer_doubling"] += 1
+        return resolved, rank, leader, on_cycle, newly
     return resolved, rank, leader, on_cycle
 
 
@@ -646,12 +707,20 @@ def pointer_doubling(dep):
 # Bound: bytes (one C-row stream for the packed key, res_n-row scatter).
 # Design: an init launch over C, then the residual scatter (the emit
 # targets of one group are a permutation of its positions, so no two
-# threads write one cell).
+# threads write one cell).  With ``occ``, ``executed`` and ``flag_perm``
+# (the keyed plane step's residual branch) the plane's epilogue (stage 8)
+# is folded into both launches: the init finishes the chain_ok positions,
+# the scatter the others, each position exactly one of them because
+# ``n_residual <= res_n`` (the argument is in the source, §7).
 
 
-def emit_scatter_plain(e, p_r, l_resolved, target_r, chain_ok, n_residual: int):
+def emit_scatter_plain(e, p_r, l_resolved, target_r, chain_ok, n_residual: int,
+                       occ=None, executed=None, flag_perm=None):
     """Returns (packed int32[C], resolved_b bool[C], n_unresolved int32[1])
-    in sorted space."""
+    in sorted space.  With ``occ``, ``executed`` and ``flag_perm`` the
+    plane's epilogue on ``resolved_b`` through ``flag_perm`` too: ``newly``
+    is appended and ``executed`` updated in place."""
+    fold = _fold_perm(occ, executed, flag_perm, n_residual, e.shape[0])
     batch = chain_ok.shape[0]
     res_n = e.shape[0]
     device = e.device
@@ -665,12 +734,29 @@ def emit_scatter_plain(e, p_r, l_resolved, target_r, chain_ok, n_residual: int):
     res_b[e_p_r[valid].long()] = e_res[valid]
     packed = torch.where(res_b, 0, EMIT_UNRESOLVED_BIT).to(torch.int32) | tgt_b
     n_unres = (batch - res_b.sum()).to(torch.int32).reshape(1)
+    if fold:
+        return packed, res_b, n_unres, plane_epilogue_plain(occ, executed, res_b, flag_perm)
     return packed, res_b, n_unres
 
 
-def emit_scatter(e, p_r, l_resolved, target_r, chain_ok, n_residual: int):
+def _fold_perm(occ, executed, flag_perm, n_residual: int, res_n: int) -> bool:
+    """``_folds`` for ``emit_scatter``, which also needs ``flag_perm`` and a
+    residual that fits its buffer (each sorted position finished once)."""
+    fold = _folds(occ, executed, "emit_scatter")
+    if fold != (flag_perm is not None):
+        raise ValueError("emit_scatter: the folded epilogue needs occ, executed and flag_perm")
+    if fold and n_residual > res_n:
+        raise ValueError(f"emit_scatter: no folded epilogue when the residual overflows "
+                         f"({n_residual} > {res_n})")
+    return fold
+
+
+def emit_scatter(e, p_r, l_resolved, target_r, chain_ok, n_residual: int,
+                 occ=None, executed=None, flag_perm=None):
+    fold = _fold_perm(occ, executed, flag_perm, n_residual, e.shape[0])
     if not _on_card(e):
-        return emit_scatter_plain(e, p_r, l_resolved, target_r, chain_ok, n_residual)
+        return emit_scatter_plain(e, p_r, l_resolved, target_r, chain_ok, n_residual,
+                                  occ, executed, flag_perm)
     batch, res_n = chain_ok.numel(), e.numel()
     device = e.device
     for name, t in (("e", e), ("p_r", p_r), ("target_r", target_r)):
@@ -680,11 +766,20 @@ def emit_scatter(e, p_r, l_resolved, target_r, chain_ok, n_residual: int):
     packed = _i32(batch, device)
     res_b = _b(batch, device)
     n_unres = _i32(1, device, 0)
+    newly = None
+    if fold:
+        _check_fold(occ, executed, batch)
+        _check(flag_perm, torch.int32, "flag_perm", batch)
+        newly = _b(batch, device)
     _launch(
         "gp_emit_scatter", device, e, p_r, l_resolved, target_r, chain_ok,
-        packed, res_b, n_unres, res_n, batch, min(n_residual, INT32_MAX),
+        packed, res_b, n_unres, occ, executed, newly, flag_perm, res_n, batch,
+        min(n_residual, INT32_MAX),
     )
     LAUNCHES["emit_scatter"] += 1
+    if fold:
+        EPILOGUE_FOLDS["emit_scatter"] += 1
+        return packed, res_b, n_unres, newly
     return packed, res_b, n_unres
 
 
@@ -693,6 +788,9 @@ def emit_scatter(e, p_r, l_resolved, target_r, chain_ok, n_residual: int):
 # ---------------------------------------------------------------------------
 # Bound: bytes (one C-row pass).  Design: ``flag_perm`` is a permutation,
 # so each vertex is written by exactly one thread and one launch suffices.
+# A launch of its own only where no kernel makes a branch's resolved flags
+# (a keyed dispatch whose links all verify, the general fast path);
+# elsewhere the launch that makes them folds it (``EPILOGUE_FOLDS``).
 
 
 def plane_epilogue_plain(occ, executed, flags=None, flag_perm=None):
@@ -862,7 +960,9 @@ def mutual_collapse(deps):
 # with the columns in global scratch, grid barriers, and the changed flag an
 # atomicOr into a slot rotated by round.  Scratch is allocated once a
 # resolve; there is no memset and no host read; the rounds run land in a
-# device int.
+# device int.  With ``occ`` and ``executed`` (the general plane step's
+# iterative resolve, whose rows are the window's) the fold's last phase
+# also runs the plane's epilogue (stage 8) on the flags it makes.
 
 # the one-CTA gate of the mutual collapse and the affine loop, at the
 # crossover chip_smoke.py measures (both forms on the same calls): one CTA
@@ -958,10 +1058,14 @@ def affine_round_plain(tgt, add, floor, missing, leader, member_count, *, final=
     return new_tgt, new_add, new_floor, new_missing, changed.to(torch.int32).reshape(1)
 
 
-def affine_loop_plain(tgt, add, missing, leader, member_count, max_iters):
+def affine_loop_plain(tgt, add, missing, leader, member_count, max_iters,
+                      occ=None, executed=None):
     """Rounds from ``floor = 0`` until one changes nothing or ``max_iters``
     ran, then the fold: ``(resolved bool[B], rank int32[B], stuck bool[B],
-    rounds int32[1])``."""
+    rounds int32[1])``.  With ``occ`` and ``executed`` (bool[B]) the plane's
+    epilogue on ``resolved`` too: ``newly`` comes before ``rounds``, which
+    stays last, and ``executed`` is updated in place."""
+    fold = _folds(occ, executed, "affine_loop")
     floor = torch.zeros_like(tgt)
     rounds = 0
     while rounds < max_iters:
@@ -974,6 +1078,9 @@ def affine_loop_plain(tgt, add, missing, leader, member_count, max_iters):
     resolved, rank, stuck = affine_round_plain(
         tgt, add, floor, missing, leader, member_count, final=True
     )
+    if fold:
+        newly = plane_epilogue_plain(occ, executed, resolved)
+        return resolved, rank, stuck, newly, _rounds(rounds, tgt.device)
     return resolved, rank, stuck, _rounds(rounds, tgt.device)
 
 
@@ -981,9 +1088,12 @@ def _rounds(n: int, device) -> torch.Tensor:
     return torch.tensor([n], dtype=torch.int32, device=device)
 
 
-def affine_loop(tgt, add, missing, leader, member_count, max_iters):
+def affine_loop(tgt, add, missing, leader, member_count, max_iters, occ=None,
+                executed=None):
+    fold = _folds(occ, executed, "affine_loop")
     if not _on_card(tgt):
-        return affine_loop_plain(tgt, add, missing, leader, member_count, max_iters)
+        return affine_loop_plain(tgt, add, missing, leader, member_count, max_iters,
+                                 occ, executed)
     batch, width = tgt.shape
     device = tgt.device
     _check(tgt, torch.int32, "tgt", batch * width)
@@ -1000,12 +1110,19 @@ def affine_loop(tgt, add, missing, leader, member_count, max_iters):
     resolved, stuck = _b(batch, device), _b(batch, device)
     rank = _i32(batch, device)
     rounds = _i32(1, device)
+    newly = None
+    if fold:
+        _check_fold(occ, executed, batch)
+        newly = _b(batch, device)
     _launch(
         "gg_affine_loop", device, tgt, add, missing, leader, member_count, scratch,
         miss, resolved, rank, stuck, rounds, _round_total("affine_loop", device),
-        batch, width, max_iters, CTA_ROWS, block,
+        occ, executed, newly, batch, width, max_iters, CTA_ROWS, block,
     )
     LAUNCHES["affine_loop"] += 1
+    if fold:
+        EPILOGUE_FOLDS["affine_loop"] += 1
+        return resolved, rank, stuck, newly, rounds
     return resolved, rank, stuck, rounds
 
 
@@ -1115,7 +1232,9 @@ def peel_stage(tgt, floor, miss, final, rank, live, *, run_to_fixpoint):
 # ``publish`` (the terminal stage) scatters the stage's rows into the
 # full-batch outputs unless the device ``dead`` gate is closed (``orig ==
 # batch`` pads dropped; orig values are distinct) and, after a grid
-# barrier, writes ``stuck``: one cooperative launch; ``compact``
+# barrier, writes ``stuck`` (and, given ``occ`` and ``executed``, runs the
+# plane's epilogue, stage 8, on ``out_final`` in the same pass: the
+# ``general_resident`` plane step): one cooperative launch; ``compact``
 # publishes, then partitions live rows to the front stably, closes the
 # gate when more than ``half`` rows are live, and gathers the kept rows
 # with their targets remapped (``FROZEN`` for cut rows), finalized
@@ -1133,7 +1252,10 @@ def peel_compact_plain(*arrays, mode, half=0):
     with ``state = (tgt, floor, miss, final, rank, orig)`` at the padded
     size and ``outs = (out_final, out_miss, out_rank, dead int32[1])``.
     ``mode="publish"``: ``peel_compact(*state, *outs)`` publishes into
-    ``outs`` in place and returns ``stuck bool[B]``.  ``mode="compact"``:
+    ``outs`` in place and returns ``stuck bool[B]``; ``peel_compact(*state,
+    *outs, occ, executed)`` also runs the plane's epilogue on ``out_final``
+    and returns ``(stuck, newly)``, ``executed`` updated in place.
+    ``mode="compact"``:
     the same publish, then returns ``(state at half, live int32[1])`` and
     updates ``dead`` in place."""
     if mode == "init":
@@ -1167,7 +1289,8 @@ def peel_compact_plain(*arrays, mode, half=0):
         )
         live = (~final & ~miss).sum().to(torch.int32).reshape(1)
         return state, outs, live
-    tgt, floor, miss, final, rank, orig, out_final, out_miss, out_rank, dead = arrays
+    tgt, floor, miss, final, rank, orig, out_final, out_miss, out_rank, dead = arrays[:10]
+    fold = _publish_folds(arrays, mode)
     batch = out_final.shape[0]
     # publish, gated by dead; orig == batch (pads) is dropped
     keep_old = dead[0] != 0
@@ -1182,6 +1305,8 @@ def peel_compact_plain(*arrays, mode, half=0):
         pub[rows] = value[m]
         out.copy_(torch.where(keep_old, out, pub))
     if mode == "publish":
+        if fold:
+            return ~out_final & ~out_miss, plane_epilogue_plain(*arrays[10:], out_final)
         return ~out_final & ~out_miss
     assert mode == "compact", mode
     size = tgt.shape[0]
@@ -1210,6 +1335,18 @@ def peel_compact_plain(*arrays, mode, half=0):
     return state, n_live
 
 
+def _publish_folds(arrays, mode) -> bool:
+    """Whether a publish or compaction call folds the plane's epilogue:
+    12 arrays (the state, the outputs, ``occ``, ``executed``), a publish
+    only."""
+    if len(arrays) == 10:
+        return False
+    if len(arrays) != 12 or mode != "publish":
+        raise ValueError("peel_compact: only a publish folds the epilogue, given the "
+                         "state, the outputs, occ and executed")
+    return _folds(*arrays[10:], "peel_compact")
+
+
 def peel_compact(*arrays, mode, half=0):
     if not _on_card(arrays[0]):
         return peel_compact_plain(*arrays, mode=mode, half=half)
@@ -1229,12 +1366,13 @@ def peel_compact(*arrays, mode, half=0):
         live = _i32(1, device)
         _launch(
             "gg_peel_compact", device, deps, None, None, None, None, None,
-            *outs, *state, live, None, None, None,
+            *outs, *state, live, None, None, None, None, None, None,
             0, batch, size, width, 0, 0, _loop_block(size),
         )
         LAUNCHES["peel_compact"] += 1
         return state, outs, live
-    tgt, floor, miss, final, rank, orig, out_final, out_miss, out_rank, dead = arrays
+    tgt, floor, miss, final, rank, orig, out_final, out_miss, out_rank, dead = arrays[:10]
+    fold = _publish_folds(arrays, mode)
     size, width = tgt.shape
     batch = out_final.numel()
     _check(tgt, torch.int32, "tgt", size * width)
@@ -1248,13 +1386,22 @@ def peel_compact(*arrays, mode, half=0):
     _check(dead, torch.int32, "dead", 1)
     if mode == "publish":
         stuck = _b(batch, device)
+        occ, executed, newly = None, None, None
+        if fold:
+            occ, executed = arrays[10:]
+            _check_fold(occ, executed, batch)
+            newly = _b(batch, device)
         _launch(
             "gg_peel_compact", device, tgt, floor, miss, final, rank, orig,
             out_final, out_miss, out_rank, dead,
             None, None, None, None, None, None, None, stuck, None, None,
+            occ, executed, newly,
             1, batch, size, width, 0, 0, _loop_block(max(size, batch)),
         )
         LAUNCHES["peel_compact"] += 1
+        if fold:
+            EPILOGUE_FOLDS["peel_compact"] += 1
+            return stuck, newly
         return stuck
     assert mode == "compact", mode
     state = (torch.empty((half, width), dtype=torch.int32, device=device),
@@ -1267,7 +1414,7 @@ def peel_compact(*arrays, mode, half=0):
     _launch(
         "gg_peel_compact", device, tgt, floor, miss, final, rank, orig,
         out_final, out_miss, out_rank, dead,
-        *state, live, None, scratch, status,
+        *state, live, None, scratch, status, None, None, None,
         2, batch, size, width, half, epoch, 0,
     )
     LAUNCHES["peel_compact"] += 1

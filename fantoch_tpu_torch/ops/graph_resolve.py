@@ -28,6 +28,17 @@ host read of the prologue's bad-cell count, and the resident peeler reads
 one live count at its start and one per compaction.
 ``resolve_general_staged`` (the host-column route's resolver) is not
 ported: ROADMAP.md Queue A3.
+
+The plane step's epilogue (``newly = resolved & pending; executed |=
+newly``, the reference's graph_resolve.py:1009-1010) is folded into the
+launch that makes each branch's resolved flags: the full-window
+``pointer_doubling`` (keyed overflow), ``emit_scatter`` (keyed residual),
+``affine_loop`` (general, iterative) and the terminal ``peel_compact``
+publish (general_resident).  ``K.plane_epilogue`` is launched on its own
+only where no kernel makes the flags: a keyed window whose links all verify
+and the general fast path.  In every branch nothing reads ``occ`` or
+``executed`` between the folded launch and the old epilogue's place (the
+final ``lex_sort`` reads neither).
 """
 
 from __future__ import annotations
@@ -50,6 +61,8 @@ _UNRESOLVED_RANK = INT32_MAX
 # whose target was cut at a fixpoint compaction — only ever created after
 # the publish gate closed, so it is never read into a published result
 _FROZEN = FROZEN
+# resolve_general_resident's terminal stage size (the reference's default)
+_RESIDENT_MIN_SIZE = 4096
 
 
 class Resolution(NamedTuple):
@@ -107,6 +120,11 @@ def _num_doubling_steps(batch: int) -> int:
     return K.num_doubling_steps(batch)
 
 
+def _auto_iters(batch: int) -> int:
+    """``resolve_general``'s round cap: 4 * log2(B) + 8."""
+    return 4 * _num_doubling_steps(batch) + 8
+
+
 def _pow2_at_least(n: int) -> int:
     p = 1
     while p < n:
@@ -123,13 +141,18 @@ def resolve_functional(
     dep: torch.Tensor,
     dot_src: torch.Tensor,
     dot_seq: torch.Tensor,
-) -> Resolution:
+    *fold: torch.Tensor,
+):
     """Exact batched resolution of an out-degree-<=1 dependency graph:
     pointer doubling, then the (rank, SCC leader, dot) lexicographic order
-    (unresolved vertices carry the top rank and sink to the tail)."""
-    resolved, rank, leader, on_cycle = K.pointer_doubling(dep)
+    (unresolved vertices carry the top rank and sink to the tail).  Returns
+    the ``Resolution``; given ``fold = (occ, executed)`` over the same rows
+    (the plane step's overflow branch), the doubling launch also runs the
+    plane's epilogue and ``(Resolution, newly)`` is returned."""
+    resolved, rank, leader, on_cycle, *newly = K.pointer_doubling(dep, *fold)
     order = K.lex_sort([rank, leader, dot_src, dot_seq])
-    return Resolution(order, resolved, rank, leader, on_cycle)
+    res = Resolution(order, resolved, rank, leader, on_cycle)
+    return (res, newly[0]) if fold else res
 
 
 def _group_and_verify(key, dep):
@@ -143,12 +166,17 @@ def _group_and_verify(key, dep):
     return pos_s, dep_s, run_start, chain_ok, int(n_res.item())
 
 
-def _residual_emit(pos_s, dep_s, run_start, chain_ok, src, seq, n_residual, res_n):
+def _residual_emit(pos_s, dep_s, run_start, chain_ok, src, seq, n_residual, res_n,
+                   *fold):
     """Stages 3-4: compact everything downstream of a run's first
     unverified link into ``res_n`` rows, finish it exactly by pointer
     doubling, and re-emit it at its run's tail positions in (resolved,
     rank, SCC leader, dot) order.  Returns the packed final-sort key, the
-    resolved flags in sorted space and the unresolved count."""
+    resolved flags in sorted space and the unresolved count; with ``fold =
+    (occ, executed)`` (only when ``n_residual <= res_n``) the emit also
+    runs the plane's epilogue through ``pos_s`` and ``newly`` follows.  The
+    doubling here runs over residual rows, not the window's: it never
+    folds."""
     p_r = K.lex_sort([chain_ok])[:res_n]  # stable by cflag keeps run order
     _rpos, rrs, rsrc, rseq, rdep_local = K.residual_view(
         p_r, pos_s, dep_s, run_start, src, seq, n_residual
@@ -159,7 +187,9 @@ def _residual_emit(pos_s, dep_s, run_start, chain_ok, src, seq, n_residual, res_
         [rrs, l_resolved, l_rank, l_leader, rsrc, rseq],
         invert=(False, True),  # unresolved after resolved
     )
-    return K.emit_scatter(e, p_r, l_resolved, target_r, chain_ok, n_residual)
+    if fold:
+        fold = (*fold, pos_s)
+    return K.emit_scatter(e, p_r, l_resolved, target_r, chain_ok, n_residual, *fold)
 
 
 def resolve_functional_keyed(
@@ -245,7 +275,7 @@ def resolve_general(
     batch = deps.shape[0]
     device = deps.device
     if max_iters == 0:
-        max_iters = 4 * _num_doubling_steps(batch) + 8
+        max_iters = _auto_iters(batch)
     if n_bad == 0:
         idx = torch.arange(batch, dtype=torch.int32, device=device)
         return GeneralResolution(
@@ -255,23 +285,23 @@ def resolve_general(
             idx,
             torch.zeros(batch, dtype=torch.bool, device=device),
         )
-    return GeneralResolution(
-        *_resolve_general_iterative(deps, dot_src, dot_seq, max_iters)
-    )
+    return _resolve_general_iterative(deps, dot_src, dot_seq, max_iters)[0]
 
 
-def _resolve_general_iterative(deps, dot_src, dot_seq, max_iters):
+def _resolve_general_iterative(deps, dot_src, dot_seq, max_iters, *fold):
     """The exact fallback: mutual-edge SCC collapse + affine-max doubling
-    (see resolve_general).  Returns the GeneralResolution fields.  The
-    reference's ``while_loop`` and its fold are one ``affine_loop``: it stops
-    after the first round that changed nothing (whose outputs equal its
-    inputs) or after ``max_iters`` rounds."""
+    (see resolve_general).  Returns ``(GeneralResolution, newly)``: with
+    ``fold = (occ, executed)`` the affine launch runs the plane's epilogue
+    on the flags it makes, else ``newly`` is None.  The reference's
+    ``while_loop`` and its fold are one ``affine_loop``: it stops after the
+    first round that changed nothing (whose outputs equal its inputs) or
+    after ``max_iters`` rounds."""
     leader, tgt, add, missing, member_count = K.mutual_collapse(deps)
-    resolved, rank, stuck, _rounds = K.affine_loop(
-        tgt, add, missing, leader, member_count, max_iters
+    resolved, rank, stuck, *newly, _rounds = K.affine_loop(
+        tgt, add, missing, leader, member_count, max_iters, *fold
     )
     order = _order_from_ranks(rank, leader, dot_src, dot_seq)
-    return order, resolved, rank, leader, stuck
+    return GeneralResolution(order, resolved, rank, leader, stuck), (newly or [None])[0]
 
 
 def _resident_schedule(batch: int, min_size: int) -> Tuple[int, ...]:
@@ -292,7 +322,7 @@ def resolve_general_resident(
     dot_src: torch.Tensor,
     dot_seq: torch.Tensor,
     *,
-    min_size: int = 4096,
+    min_size: int = _RESIDENT_MIN_SIZE,
 ) -> GeneralResolution:
     """The peel-and-compact resolver kept resident on the card (the
     reference's ``resolve_general_resident``, graph_resolve.py:746):
@@ -304,6 +334,13 @@ def resolve_general_resident(
     A fixpoint reached while the live set still exceeds the next stage's
     capacity closes the publish gate: results are final there, so later
     stages (whose cut rows dangle as ``FROZEN``) cannot corrupt them."""
+    return _resident(deps, dot_src, dot_seq, min_size)[0]
+
+
+def _resident(deps, dot_src, dot_seq, min_size, *fold):
+    """``resolve_general_resident``; returns ``(GeneralResolution,
+    newly)``: with ``fold = (occ, executed)`` the terminal publish runs the
+    plane's epilogue on the flags it publishes, else ``newly`` is None."""
     batch = deps.shape[0]
     # the schedule's last stage must be the terminal one (the reference's
     # callers all pass the default)
@@ -317,7 +354,8 @@ def resolve_general_resident(
         stage = K.peel_stage(*state[:5], live, run_to_fixpoint=size <= min_size)
         state = (*stage[:5], state[5])
         if size <= min_size:
-            stuck = K.peel_compact(*state, *outs, mode="publish")
+            published = K.peel_compact(*state, *outs, *fold, mode="publish")
+            stuck, newly = published if fold else (published, None)
             break  # terminal stage ran to its fixpoint
         state, live = K.peel_compact(*state, *outs, mode="compact", half=size // 2)
         live = int(live.item())
@@ -325,7 +363,7 @@ def resolve_general_resident(
     # (rank, idx) order: the index is unique, so the dots never decide
     order = K.lex_sort([out_rank])
     idx = torch.arange(batch, dtype=torch.int32, device=deps.device)
-    return GeneralResolution(order, outs[0], out_rank, idx, stuck)
+    return GeneralResolution(order, outs[0], out_rank, idx, stuck), newly
 
 
 def graph_plane_step_core(
@@ -360,19 +398,21 @@ def graph_plane_step_core(
     residual_size = min(_pow2_at_least(max(64, cap // 16)), cap)
     pos_s, dep_s, run_start, chain_ok, n_residual = _group_and_verify(pk, col)
     if n_residual == 0:
-        # every link verified: the grouped order is the execution order
+        # every link verified: the grouped order is the execution order, and
+        # no kernel makes the flags (all resolved): the epilogue's own launch
         order = pos_s
         newly = K.plane_epilogue(occ, executed)
     elif n_residual > residual_size:
-        full = resolve_functional(col, src, seq)
+        # the epilogue folded into the full-window doubling
+        full, newly = resolve_functional(col, src, seq, occ, executed)
         order = full.order
-        newly = K.plane_epilogue(occ, executed, full.resolved)
     else:
-        packed, res_b, _n_unres = _residual_emit(
-            pos_s, dep_s, run_start, chain_ok, src, seq, n_residual, residual_size
+        # the epilogue folded into the emit, through pos_s (the residual fits)
+        packed, _res_b, _n_unres, newly = _residual_emit(
+            pos_s, dep_s, run_start, chain_ok, src, seq, n_residual, residual_size,
+            occ, executed,
         )
         order = K.lex_sort([packed], through=pos_s)
-        newly = K.plane_epilogue(occ, executed, res_b, pos_s)
     stuck = torch.zeros(cap, dtype=torch.bool, device=deps.device)
     leader = torch.zeros(cap, dtype=torch.int32, device=deps.device)
     return GraphPlaneStep(
@@ -390,18 +430,23 @@ def _general_plane_step(
     ``graph_plane_step_core`` (graph_resolve.py:997-1007).  The reference
     masks ``stuck`` with ``pending``; every stuck row is pending here
     already, since the prologue masks non-pending rows to all-TERMINAL
-    rows, which both resolvers always finalize."""
+    rows, which both resolvers always finalize.  The epilogue is folded
+    into the affine loop and the terminal publish; the fast path, whose
+    flags no kernel makes (all resolved), launches it alone."""
     dmat, n_bad = K.graph_prologue(
         deps, key, src, seq, occ, executed,
         u_row, u_deps, u_key, u_src, u_seq, p_row, p_col, p_val, e_row,
         general=True,
     )
-    if mode == "general":
-        res = resolve_general(dmat, src, seq, n_bad=int(n_bad.item()))
+    if mode == "general" and int(n_bad.item()) == 0:
+        res = resolve_general(dmat, src, seq, n_bad=0)
+        newly = K.plane_epilogue(occ, executed)
+    elif mode == "general":
+        res, newly = _resolve_general_iterative(
+            dmat, src, seq, _auto_iters(dmat.shape[0]), occ, executed)
     else:
         assert mode == "general_resident", mode
-        res = resolve_general_resident(dmat, src, seq)
-    newly = K.plane_epilogue(occ, executed, res.resolved)
+        res, newly = _resident(dmat, src, seq, _RESIDENT_MIN_SIZE, occ, executed)
     return GraphPlaneStep(
         deps, key, src, seq, occ, executed, res.order, newly, res.stuck, res.leader
     )

@@ -4,7 +4,8 @@ dispatch by dispatch against the JAX plane.
 The port's ``BatchedDependencyGraph`` on its plane (``device="cpu"``)
 runs inside ``emulated()`` (``csrc/emu/emulate.py``), so the wrappers of a
 general dispatch launch their CUDA sources on the emulator: the one-launch
-prologue and mutual collapse, the affine loop and the epilogue.  The sort
+prologue and mutual collapse, the affine loop with the plane's epilogue
+folded into it, and the epilogue's own launch on the fast path.  The sort
 takes its plain version here: its emulated one-block radix sort takes
 seconds a call, and tests/test_torch_sort_kernels.py holds it.
 The JAX package's plane takes the same feeds: multi-key commands from three
@@ -136,9 +137,12 @@ def test_general_dispatches_on_emulated_kernels_match_jax(jax_ref, monkeypatch):
             assert mine.order == ref.order, f"{form}: per-key order differs"
             assert sum(len(set(v)) for v in mine.order.values()) > 0
             seen["compactions"] += mine.graph._plane.stats["compactions"]
-            # every dispatch one prologue launch and one epilogue launch,
+            # every dispatch one prologue launch and one epilogue, folded
+            # into the launch that makes the flags (the affine loop, the
+            # terminal publish) or a launch of its own (the fast path);
             # every iterative resolve one collapse and one affine launch
             dispatches = len(log["port"])
-            assert K.LAUNCHES["graph_prologue"] == dispatches == K.LAUNCHES["plane_epilogue"]
+            assert K.LAUNCHES["graph_prologue"] == dispatches == K.epilogue_count()
+            assert K.EPILOGUE_FOLDS["affine_loop"] == K.LAUNCHES["affine_loop"]
             assert K.LAUNCHES["mutual_collapse"] == K.LAUNCHES["affine_loop"] > 0
     assert all(seen.values()), seen
