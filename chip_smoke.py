@@ -193,7 +193,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    formula in numpy, replayed 50 times, timed beside its bound; asserted:
    no epilogue operation in a dispatch of b, c, e or f, one in a and d, 0
    standalone epilogue launches in phase 2 and at most 86 in phase 4, one
-   operation a ``group_scan`` call and no memset or fill.
+   operation a ``group_scan`` call and no memset or fill;
+13. ``residual_view`` with no remap fill and ``emit_scatter`` with its
+   folded epilogue streamed in vertex order, in a process of its own as
+   phases 9-12: both at phase 2's residual calls (its run captured on the
+   card; the emit folded and unfolded), at 2^20 rows with a residual of
+   65,536 (the plane step's buffer there) and on edge cases (n_residual
+   = 1, = res_n and > res_n, the last unfolded; deps leaving the residual
+   and going into another tail; 4,094 rows; a window then the same keys
+   with a tail healed and a dep into a row that was residual in the call
+   before, so that a stale remap entry would show); every call held
+   against its plain version, ``executed`` included, and replayed 50
+   times, timed single and in the loop beside the bytes the function
+   itself needs, and counted in operations on the card, and so is phase
+   2's residual dispatch; asserted: at most 2 operations a call of either
+   wrapper, none a memset or fill, and folded calls that reach unresolved
+   residual vertices that are pending, executed and free.
 
 Each phase reports its wall time.  The last lines are the
 ``{"kernels": [...]}`` record, the card line and
@@ -236,6 +251,14 @@ copied into an older checkout, whose epilogue is a launch of its own in
 every dispatch and whose ``group_scan`` is eight operations, it times
 that checkout's dispatches, folding wrappers and ``group_scan`` at the
 same shapes.
+
+    python3 chip_smoke.py --residual
+
+runs phase 13 alone in the same way (``--checks`` adds its asserts);
+copied into an older checkout, whose ``residual_view`` fills a
+window-sized remap and whose ``emit_scatter`` fills its count and
+finishes the epilogue through ``pos_s``, it times that checkout's two
+wrappers and residual dispatches at the same shapes.
 """
 
 import json
@@ -498,6 +521,10 @@ def moved_bytes(K, name, args, kwargs, out):
     a loop kernel, what its rounds need (``loop_bytes``)."""
     if name in getattr(K, "LOOP_KERNELS", ()):
         return loop_bytes(K, name, args, kwargs)
+    if name == "residual_view":
+        return residual_view_bytes(args)
+    if name == "emit_scatter":
+        return emit_scatter_bytes(args, out)
     read = sum(t.numel() * t.element_size() for t in tensors_of(args))
     written = sum(t.numel() * t.element_size() for t in tensors_of(out))
     if name == "graph_prologue":
@@ -507,6 +534,36 @@ def moved_bytes(K, name, args, kwargs, out):
     if name == "plane_epilogue":
         written += args[1].numel()  # executed |= newly
     return read + written
+
+
+def residual_view_bytes(args):
+    """Bytes ``residual_view`` itself needs: ``p_r`` read; ``pos_s``,
+    ``src`` and ``seq`` gathered at its m rows, ``dep_s`` and ``run_start``
+    at the valid ones; the five m-row outputs written; a remap entry (4
+    bytes) written a valid row and read a valid row whose dependency is a
+    row.  Not the window-sized columns: the function reads m rows of them."""
+    p_r, _pos_s, dep_s, _run_start, _src, _seq, n_residual = args
+    m = p_r.numel()
+    valid = min(n_residual, m)
+    into = int((dep_s[p_r[:valid].long()] >= 0).sum().item())
+    return 4 * m + 12 * m + 8 * valid + 20 * m + 4 * valid + 4 * into
+
+
+def emit_scatter_bytes(args, out):
+    """Bytes ``emit_scatter`` itself needs: ``chain_ok`` read and ``packed``
+    and ``res_b`` written over the window; ``e``, ``p_r`` at ``e``,
+    ``l_resolved`` and ``target`` read at the valid residual rows; the count
+    written.  Folded: ``occ`` and ``executed`` read and ``newly`` written
+    over the window, ``executed`` written where it changes and
+    ``flag_perm`` read at the unresolved valid rows."""
+    e, chain_ok, n_residual = args[0], args[4], args[5]
+    window, m = chain_ok.numel(), e.numel()
+    valid = min(n_residual, m)
+    moved = 6 * window + 13 * valid + 4
+    if len(args) > 6:
+        newly, n_unres = out[3], int(out[2].item())
+        moved += 3 * window + int(newly.sum().item()) + 4 * n_unres
+    return moved
 
 
 def loop_bytes(K, name, args, kwargs):
@@ -4132,10 +4189,245 @@ def phase_epilogue(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
     return out
 
 
+# ---------------------------------------------------------------------------
+# emit_scatter with its folded epilogue streamed in vertex order and
+# residual_view with no remap fill (phase 13; alone: --residual)
+# ---------------------------------------------------------------------------
+
+RESIDUAL_REPLAYS = 50  # runs of each phase 13 call against the plain version
+RESIDUAL_BIG_KEYS = 4096  # keys of the 2^20-row window (runs of 256 rows)
+RESIDUAL_EDGE_ROWS = 4096  # the edge cases' window
+RESIDUAL_EDGE_KEYS = 64  # its keys (runs of 64 rows)
+RESIDUAL_EDGE_RES = 256  # its residual buffer (res_n)
+# how a residual tail's first row breaks its run (residual_window)
+TAIL_KINDS = ("missing", "leaves", "into", "cycle")
+
+
+def residual_window(n, keys, tails):
+    """A keyed window of ``n`` rows (``keys`` divides it): row i on key
+    i % keys, depending on the key's row before it (TERMINAL for the
+    first), so every link verifies; then ``tails[k]``, ``(rows, kind)`` or
+    None, breaks run k at its ``rows``-th row from the end (fewer rows
+    than the run), so ``n_residual`` is the sum of the tails' rows.  The
+    tail's first row then depends on: ``missing``, MISSING (the tail stays
+    unresolved); ``leaves``, the last row of the nearest run before k
+    without a tail, a chain_ok row (the dep leaves the residual: the tail
+    resolves); ``into``, the last row of the nearest run before k with a
+    tail (it stays in the residual and resolves as that tail does);
+    ``cycle``, the run's last row (a cycle through the tail).  Returns
+    numpy int32 ``(key, dep)``."""
+    runs = n // keys
+    assert runs * keys == n
+    i = np.arange(n)
+    key = (i % keys).astype(np.int32)
+    dep = np.where(i < keys, -1, i - keys)
+    last = (runs - 1) * keys  # + k: run k's last row
+    has_tail = [bool(t and t[0]) for t in tails] + [False] * (keys - len(tails))
+    for k, tail in enumerate(tails):
+        if not (tail and tail[0]):
+            continue
+        rows, kind = tail
+        assert 0 < rows < runs, rows
+        first = (runs - rows) * keys + k
+        before = [(k - j) % keys for j in range(1, keys)]
+        if kind == "missing":
+            dep[first] = -2
+        elif kind == "leaves":
+            dep[first] = last + next(r for r in before if not has_tail[r])
+        elif kind == "into":
+            dep[first] = last + next(r for r in before if has_tail[r])
+        else:
+            dep[first] = last + k
+    return key, dep.astype(np.int32)
+
+
+def window_state(n, seed):
+    """``occ`` and ``executed`` for a window of ``n`` rows: 3/4 occupied, a
+    quarter of those already executed, and a tenth of the free rows marked
+    executed too (so that ``pending`` masks both ways)."""
+    rng = np.random.default_rng(seed)
+    occ = rng.random(n) < 0.75
+    executed = np.where(occ, rng.random(n) < 0.25, rng.random(n) < 0.1)
+    return occ, executed
+
+
+def mixed_tails(total, high, seed, kinds=TAIL_KINDS):
+    """Tails of 1-``high`` rows that sum to ``total``, each of a kind drawn
+    from ``kinds``, one a run from run 0 on."""
+    rng = np.random.default_rng(seed)
+    return [(rows, kinds[int(rng.integers(0, len(kinds)))])
+            for rows in group_sizes(total, 1, high, seed)]
+
+
+def residual_stage_calls(torch, K, key, dep, res_n, occ, executed, device):
+    """The arguments (clones, on ``device``) of ``residual_view`` and
+    ``emit_scatter`` in the keyed resolve of a window
+    (``graph_resolve.resolve_functional_keyed``, on whatever route ``K``
+    takes there), and the folded emit's: its own followed by ``occ``,
+    ``executed`` and ``pos_s`` (the keyed plane step's fold), None where
+    the residual overflows ``res_n``.  Returns (view, emit, folded)."""
+    from fantoch_tpu_torch.ops import graph_resolve
+
+    n = len(key)
+    cols = [torch.tensor(a, device=device) for a in
+            (key, dep, (1 + np.arange(n) % 5).astype(np.int32), np.arange(n, dtype=np.int32))]
+
+    def resolve():
+        graph_resolve.resolve_functional_keyed(*cols, residual_size=res_n)
+
+    emits = []
+    views = captured_calls(K, "residual_view",
+                           lambda: emits.extend(captured_calls(K, "emit_scatter", resolve)))
+    (view,), (emit,) = views, emits
+    folded = None
+    if emit[5] <= res_n:
+        state = [torch.tensor(a, device=device) for a in (occ, executed)]
+        folded = (*emit, *state, view[1])
+    return view, emit, folded
+
+
+def residual_edge_cases(torch, K, device):
+    """Phase 13's windows beyond phase 2's: 2^20 rows with a residual of
+    exactly 65,536 (the plane step's buffer there), then at
+    ``RESIDUAL_EDGE_ROWS`` rows with a buffer of ``RESIDUAL_EDGE_RES``:
+    n_residual = 1 (an unresolved row; a row whose dep leaves the
+    residual), = res_n, > res_n (unfolded only), every tail's dep leaving
+    the residual or going into another tail, a window of 4,094 rows (not
+    a multiple of the emit init's 4 rows a thread), and a window then the same
+    keys with a tail healed and a dep leaving into a row that was residual
+    in the window before (an entry of the earlier call's epoch, which must
+    read as TERMINAL).  Returns {label: (view, emit, folded)}."""
+    big = BIG
+    res_big = big // 16  # the keyed plane step's residual buffer at 2^20
+    cases = {}
+
+    def put(label, n, keys, tails, res_n, seed):
+        key, dep = residual_window(n, keys, tails)
+        occ, executed = window_state(n, seed)
+        cases[label] = residual_stage_calls(torch, K, key, dep, res_n, occ, executed, device)
+
+    high = big // RESIDUAL_BIG_KEYS - 1
+    put(f"{big} rows, n_residual = {res_big} = res_n, tails of 1-{high} rows", big,
+        RESIDUAL_BIG_KEYS, mixed_tails(res_big, high, 21), res_big, 22)
+    n, keys, res_n = RESIDUAL_EDGE_ROWS, RESIDUAL_EDGE_KEYS, RESIDUAL_EDGE_RES
+    put("n_residual = 1, unresolved", n, keys, [(1, "missing")], res_n, 23)
+    put("n_residual = 1, its dep leaving the residual", n, keys, [(1, "leaves")], res_n, 24)
+    put(f"n_residual = res_n = {res_n}", n, keys, mixed_tails(res_n, 63, 25), res_n, 26)
+    put(f"n_residual = res_n + 40 = {res_n + 40} (overflow, unfolded)", n, keys,
+        mixed_tails(res_n + 40, 63, 27), res_n, 28)
+    put("deps leaving the residual or going into another tail", n, keys,
+        mixed_tails(200, 63, 29, ("leaves", "into")), res_n, 30)
+    # 4,094 = 46 runs of 89 rows: the init's last thread takes 2 rows
+    put(f"{n - 2} rows, not a multiple of 4", n - 2, 46, mixed_tails(res_n, 88, 32),
+        res_n, 33)
+    # runs 0-1 broken, then run 0 healed and run 1's dep into run 0's last
+    # row, residual in the call before
+    put("a window with tails on runs 0 and 1", n, keys, [(8, "missing"), (8, "missing")],
+        res_n, 31)
+    put("then run 0 healed, run 1's dep into run 0's former tail", n, keys,
+        [None, (4, "leaves")], res_n, 31)
+    return cases
+
+
+def unresolved_kinds(folded, out):
+    """How many unresolved residual vertices of a folded emit call are
+    occupied and pending, already executed, free: ``(pending, executed,
+    free)``."""
+    occ, executed, pos_s = folded[6], folded[7], folded[8]
+    res_b = out[1]
+    vertex = pos_s[~res_b].long()
+    o, x = occ[vertex], executed[vertex]
+    return (int((o & ~x).sum().item()), int(x.sum().item()), int((~o).sum().item()))
+
+
+def phase_residual(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
+                   GraphExecutor, GraphAddBatch, checks=True):
+    """``residual_view`` and ``emit_scatter`` (``csrc/graph_plane_step.cu`` §4
+    and §7) at phase 2's residual calls (its run captured on the card, the
+    emit folded and unfolded), at 2^20 rows with a 65,536-row residual and
+    on ``residual_edge_cases``: every call held against its plain version
+    (outputs and ``executed``, updated in place) and replayed
+    ``RESIDUAL_REPLAYS`` times, timed single and in the loop beside its
+    bound (the bytes the function itself needs) and counted in operations
+    on the card, and phase 2's residual dispatches too.  With ``checks``
+    (the whole smoke; not on an older checkout): at most 2 operations a
+    call of either wrapper, none a memset or fill, and the folded calls
+    reach unresolved residual vertices that are pending, executed and
+    free."""
+    from fantoch_tpu_torch.ops import graph_resolve
+
+    step = graph_resolve.graph_plane_step_core
+    out = {"residual_view": {}, "emit_scatter": {}, "dispatches": {}, "replays": {},
+           "unresolved_vertices": {}, "walls_s": {}}
+    walls, t_part = out["walls_s"], time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        walls[name] = now - t_part
+        t_part = now
+
+    run = keyed_path_run(Config, Command, Rifl, KVOp, RunTime, GraphExecutor, GraphAddBatch)
+    dispatches = [d for d in capture_dispatches(K, gp_module, run) if d["branch"] == "c"]
+    assert dispatches, "phase 2's run made no residual dispatch"
+    part("phase 2 captured")
+    cases = {}
+    for i, d in enumerate(dispatches):
+        (view, _kw), = d["calls"]["residual_view"]
+        (emit, _kw), = d["calls"]["emit_scatter"]
+        label = f"phase 2, dispatch {i}, {view[0].numel()} rows of {view[1].numel()}"
+        cases[label] = (view, emit[:6], emit if len(emit) > 6 else None)
+    cases.update(residual_edge_cases(torch, K, CARD))
+    part("edge cases built")
+    records, kinds = [], [0, 0, 0]
+    calls = {"residual_view": [], "emit_scatter": []}
+    worst = 0.0
+    for label, (view, emit, folded) in cases.items():
+        forms = [("residual_view", label, view), ("emit_scatter", f"{label}, unfolded", emit)]
+        if folded is not None:
+            forms.append(("emit_scatter", f"{label}, folded", folded))
+        for name, what, args in forms:
+            record, got, _ = stage_record(torch, K, name, args)
+            record["n_residual"] = int(args[6] if name == "residual_view" else args[5])
+            worst = max(worst, record["max_abs_err"])
+            out[name][what] = record
+            records.append(record)
+            calls[name].append((args, {}))
+            if args is folded:
+                counts = unresolved_kinds(folded, got)
+                out["unresolved_vertices"][what] = counts
+                kinds = [a + b for a, b in zip(kinds, counts)]
+    out["max_abs_err"] = worst
+    log(f"phase 13: {len(cases)} windows, every call equal to its plain version; "
+        f"unresolved residual vertices pending, executed, free: {kinds}")
+    part("held and timed")
+    for name, name_calls in calls.items():
+        out["replays"][name] = scan_replays(K, name, name_calls, RESIDUAL_REPLAYS)
+    part("replays")
+    for i, d in enumerate(dispatches[:PROFILED_PER_BRANCH]):
+        record = {"rows": int(d["args"][0].shape[0]),
+                  "ms": time_ms(step, d["args"], {"mode": d["mode"]}),
+                  "ms_loop": time_loop_ms(step, d["args"], {"mode": d["mode"]}),
+                  "call": (step, clone_args(d["args"]), {"mode": d["mode"]})}
+        out["dispatches"][f"phase 2, dispatch {i}, branch (c)"] = record
+        records.append(record)
+    count_ops(torch, records)
+    part("operations counted")
+    if checks:
+        for name in ("residual_view", "emit_scatter"):
+            for label, record in out[name].items():
+                assert record["device_ops"] <= 2, (name, label, record["op_names"])
+                assert not any(f in n.lower() for n in record["op_names"]
+                               for f in ("memset", "fill")), (name, label, record["op_names"])
+        assert all(kinds), f"unresolved residual vertices pending, executed, free: {kinds}"
+    log(json.dumps({"residual": out}))
+    return out
+
+
 # the kernels redesigned since the first slices, named in phase 0
 REDESIGNED = ("k_radix_", "k_stable_select", "k_affine_", "k_peel_stage", "k_mc_",
               "k_prologue_", "k_vr_", "k_one_cta", "k_grid", "k_link_scan", "k_pc_",
-              "k_dbl", "k_prop", "k_group_scan", "k_emit_")
+              "k_dbl", "k_prop", "k_group_scan", "k_emit_", "k_residual_")
 
 
 def ptxas_kernels(text):
@@ -4195,13 +4487,14 @@ def main():
     scans_only = "--scans" in sys.argv[1:]
     doubling_only = "--doubling" in sys.argv[1:]
     epilogue_only = "--epilogue" in sys.argv[1:]
+    residual_only = "--residual" in sys.argv[1:]
     if chain_only:  # the general chain alone (also on an older checkout)
         sources = ["graph_general", "graph_plane_step"]
     if redesign_only:  # phase 9 alone (also on an older checkout)
         sources = ["graph_plane_step", "pred_plane", "table_plane"]
     if scans_only or doubling_only:  # phase 10 or 11 alone (also on an older checkout)
         sources = ["graph_general", "graph_plane_step", "table_plane"]
-    if epilogue_only:  # phase 12 alone (also on an older checkout)
+    if epilogue_only or residual_only:  # phase 12 or 13 alone (also on an older checkout)
         sources = ["graph_general", "graph_plane_step"]
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4243,6 +4536,11 @@ def main():
         return 0
     if epilogue_only:
         phase_epilogue(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
+                       GraphExecutor, GraphAddBatch, checks="--checks" in sys.argv[1:])
+        log(card)
+        return 0
+    if residual_only:
+        phase_residual(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
                        GraphExecutor, GraphAddBatch, checks="--checks" in sys.argv[1:])
         log(card)
         return 0
@@ -4342,6 +4640,14 @@ def main():
     for name in ("plane_epilogue", "group_scan"):
         err = epilogue["group_scan_max_abs_err" if name == "group_scan" else "max_abs_err"]
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    residual = timed("phase 13", phase_apart, "--residual", "residual")
+    for name in ("residual_view", "emit_scatter"):
+        records[name]["at_paths_shapes"] = residual[name]
+        records[name]["replays"] = residual["replays"][name]
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           residual["max_abs_err"])
+    records["emit_scatter"]["unresolved_vertices"] = residual["unresolved_vertices"]
+    records["emit_scatter"]["residual_dispatches_on_card"] = residual["dispatches"]
     log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": list(records.values())}))
     log(card)

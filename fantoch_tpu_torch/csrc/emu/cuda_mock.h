@@ -15,6 +15,8 @@
 #include <memory>
 #include <type_traits>
 using std::max; using std::min;
+struct alignas(16) int4 { int x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
@@ -106,6 +108,13 @@ inline int __syncthreads_or(int v) {
   for (unsigned i = 0; i < blockDim.x; ++i) any |= t_block->slots[i];
   __syncthreads();
   return any != 0;
+}
+inline int __syncthreads_count(int v) {
+  t_block->slots[threadIdx.x] = v != 0; __syncthreads();
+  int n = 0;
+  for (unsigned i = 0; i < blockDim.x; ++i) n += t_block->slots[i];
+  __syncthreads();
+  return n;
 }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }

@@ -15,8 +15,9 @@ crosses a real multi-block barrier with few threads.  A kernel launched
 cooperatively must keep its shared memory dynamic: a static ``__shared__``
 array becomes one C++ static for every block.  Atomics are
 ``std::atomic_ref``; warp collectives are emulated with barriers:
-``__reduce_add_sync`` and ``__syncthreads_or`` on the block's, ballots,
-shuffles, ``__reduce_or_sync`` and ``__syncwarp`` on one per warp.  Inside
+``__reduce_add_sync``, ``__syncthreads_or`` and ``__syncthreads_count``
+on the block's, ballots, shuffles, ``__reduce_or_sync`` and ``__syncwarp``
+on one per warp.  Inside
 ``with emulated():`` every kernel wrapper of ``ops/graph_plane_kernels.py``,
 ``ops/table_kernels.py`` and ``ops/pred_kernels.py`` takes its CUDA route on
 CPU tensors and launches the emulated kernels, so a wrapper can be held

@@ -30,6 +30,8 @@ namespace cg = cooperative_groups;
 
 #define EW_BLOCK 256  // elementwise kernels
 
+typedef unsigned long long u64;
+
 #define CHECK_LAUNCH()                         \
   do {                                         \
     cudaError_t e_ = cudaGetLastError();       \
@@ -938,50 +940,82 @@ extern "C" int gp_link_scan(const int32_t* pk, const int32_t* col, const int32_t
 }
 
 // ---------------------------------------------------------------------------
-// 4. residual view
+// 4. residual view: two launches, no fill
 // ---------------------------------------------------------------------------
+// The gather writes the residual rows' columns and, for each valid row r,
+// remap[rpos[r]] = (epoch, r) (residual positions are distinct).  The local
+// map, once the remap has landed, reads the entry at a row's dependency and
+// takes its row only when its epoch is this call's: any other entry (an
+// earlier call's, or the 0 of a zeroed buffer) reads as TERMINAL, as the
+// reference's remap filled with TERMINAL does.  So no fill: the remap is a
+// buffer of 64-bit words, (epoch << 32) | r, that the wrapper allocates
+// zeroed once a device, grows and keeps (ops/graph_plane_kernels.py
+// remap_buffer), and each call passes a new epoch (1, 2, ...; a new zeroed
+// buffer before it would pass 2^31 - 1).  Calls on one buffer follow each
+// other on one stream.  The gather leaves a valid row's dependency in
+// rdep_local, which the local map (one thread a row) replaces in place by
+// its residual-local slot: no scratch column.
+// Bound: bytes (p_r streamed; pos_s, src, seq gathered at res_n rows,
+// dep_s and run_start at the n_residual valid ones; five res_n-row outputs;
+// a remap entry written and read a valid row).  But each launch waits on
+// dependent loads (p_r, then pos_s, then src and seq; the row's dep, then
+// its remap entry), and at phase 2's 32,768 rows a launch of either takes
+// little more than at one row.  (Gathering src and seq in the second
+// launch instead, through rpos, moved the wait and saved nothing on an
+// H100.)
 
 __global__ void k_residual_gather(const int32_t* p_r, const int32_t* pos_s,
                                   const int32_t* dep_s, const int32_t* run_start,
                                   const int32_t* src, const int32_t* seq, int32_t* rpos,
                                   int32_t* rrs, int32_t* rsrc, int32_t* rseq,
-                                  int32_t* rdep, int32_t* remap, int m, int n_residual) {
+                                  int32_t* rdep_local, u64* remap, int m, int n_residual,
+                                  unsigned epoch) {
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= m) return;
   int pr = p_r[r];
   int pos = pos_s[pr];
   bool valid = r < n_residual;
   rpos[r] = pos;
-  rdep[r] = dep_s[pr];
   rrs[r] = valid ? run_start[pr] : INT_MAX;
   rsrc[r] = src[pos];
   rseq[r] = seq[pos];
-  if (valid) remap[pos] = r;  // residual positions are distinct
+  if (valid) {
+    rdep_local[r] = dep_s[pr];  // the local map's input
+    remap[pos] = (u64)epoch << 32 | (unsigned)r;
+  }
 }
 
-__global__ void k_residual_local(const int32_t* rdep, const int32_t* remap,
-                                 int32_t* rdep_local, int m, int batch, int n_residual) {
+__global__ void k_residual_local(int32_t* rdep_local, const u64* remap, int m, int batch,
+                                 int n_residual, unsigned epoch) {
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= m) return;
-  int d = rdep[r];
-  int v = d >= 0 ? remap[d < batch ? d : batch - 1] : d;
-  rdep_local[r] = r < n_residual ? v : TERMINAL;
+  int d = TERMINAL;
+  if (r < n_residual) {
+    d = rdep_local[r];
+    if (d >= 0) {
+      u64 w = remap[d < batch ? d : batch - 1];
+      d = (unsigned)(w >> 32) == epoch ? (int)(unsigned)w : TERMINAL;
+    }
+  }
+  rdep_local[r] = d;
 }
 
-// remap: int32[batch] filled with TERMINAL by the caller; scratch: m ints
+// remap: at least batch 64-bit words, each (epoch << 32) | row or of an
+// earlier epoch; epoch: this call's, above every earlier call's on remap
 extern "C" int gp_residual_view(const int32_t* p_r, const int32_t* pos_s,
                                 const int32_t* dep_s, const int32_t* run_start,
                                 const int32_t* src, const int32_t* seq, int32_t* rpos,
                                 int32_t* rrs, int32_t* rsrc, int32_t* rseq,
-                                int32_t* rdep_local, int32_t* scratch, int32_t* remap,
-                                int m, int batch, int n_residual, cudaStream_t stream) {
+                                int32_t* rdep_local, u64* remap, int m, int batch,
+                                int n_residual, int epoch, cudaStream_t stream) {
   if (m <= 0) return 0;
+  if (epoch <= 0 || batch <= 0) return (int)cudaErrorInvalidValue;
   k_residual_gather<<<grid_for(m, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-      p_r, pos_s, dep_s, run_start, src, seq, rpos, rrs, rsrc, rseq, scratch, remap, m,
-      n_residual);
+      p_r, pos_s, dep_s, run_start, src, seq, rpos, rrs, rsrc, rseq, rdep_local, remap, m,
+      n_residual, (unsigned)epoch);
   CHECK_LAUNCH();
   k_residual_local<<<grid_for(m, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-      scratch, remap, rdep_local, m, batch, n_residual);
+      rdep_local, remap, m, batch, n_residual, (unsigned)epoch);
   CHECK_LAUNCH();
   return (int)cudaGetLastError();
 }
@@ -1127,8 +1161,6 @@ extern "C" int gp_group_scan(const int32_t* rrs, const int32_t* p_r, int32_t* ta
 // gather rate.
 
 #define DBL_BLOCK_MAX 1024  // threads a block at most
-
-typedef unsigned long long u64;
 
 __device__ __forceinline__ bool absorbing(int d) { return d == TERMINAL || d == MISSING; }
 __device__ __forceinline__ u64 dbl_pack(int jump, int value) {
@@ -1404,77 +1436,184 @@ extern "C" int gp_pointer_doubling(const int32_t* dep, uint8_t* resolved, int32_
 }
 
 // ---------------------------------------------------------------------------
-// 7. emit scatter
+// 7. emit scatter: two launches, no fill
 // ---------------------------------------------------------------------------
-// An init launch over the batch (the chain_ok rows), then the residual
-// scatter (the emit targets of one group are a permutation of its
-// positions, so no two threads write one cell).
+// An init launch over the batch, then the scatter over the residual rows
+// (the emit targets of one group are a permutation of its positions, so no
+// two threads write one cell).
 //
-// The epilogue folded (branch "residual" of the keyed plane step): vertex
-// flag_perm[p] takes sorted position p's resolved flag.  The init finishes
-// the chain_ok positions, the scatter the others.  Each position is
-// finished by exactly one of them: the scatter writes p_r[e[r]] for r <
-// n_residual, and when n_residual <= m (this branch's condition; the
-// launcher refuses a fold without it) those are exactly the positions that
-// are not chain_ok: p_r is the stable sort by chain_ok, so its first
+// The init takes index i twice, EMIT_ROWS consecutive indices a thread,
+// read and written as words where the columns are aligned: as sorted
+// position i it writes packed[i] and res_b[i] from chain_ok[i]; with the
+// epilogue folded (branch "residual" of the keyed plane step) it also
+// finishes vertex i as if it were resolved: newly[i] = occ[i] & ~executed[i],
+// executed[i] |= newly[i].  Every access of the window-wide pass is
+// coalesced.  The scatter writes packed and res_b at p_r[e[r]] for r <
+// n_valid, and an unresolved row undoes the init's mark on its vertex v =
+// flag_perm[p_r[e[r]]]: if newly[v] is set it clears newly[v] and
+// executed[v].
+//
+// Why the fold equals the epilogue through flag_perm (vertex flag_perm[p]
+// takes sorted position p's resolved flag).  The launcher folds only when
+// n_residual <= m; then the scatter's positions are exactly the positions
+// that are not chain_ok: p_r is the stable sort by chain_ok, so its first
 // n_residual entries are them, and e, sorted first by rrs, puts the
-// n_residual valid rows (rrs below INT_MAX) before the INT_MAX ones.
+// n_residual valid rows (rrs below INT_MAX) before the INT_MAX ones.  So a
+// vertex whose position is chain_ok or resolved in the residual keeps the
+// init's resolved mark, and a vertex whose position is an unresolved
+// residual row is undone.  The undo is exact: newly[v] set means occ[v] and
+// executed[v] false before the dispatch, so clearing both restores
+// executed[v] and gives newly[v] = false; newly[v] clear means the init
+// left executed[v] as it was.  Each vertex has exactly one writer in each
+// launch: the init's thread of index v, and in the scatter the row of its
+// position (flag_perm is a permutation, the positions p_r[e[r]] distinct).
+//
+// n_unres, written once, with no fill and no atomic: by the same argument
+// the rows e[0 .. n_valid) are the rows 0 .. n_valid - 1, so n_unres is
+// the residual rows beyond the buffer (overflow: unresolved) plus the
+// count of l_resolved[0 .. n_valid) that are false.  Block 0 of the init
+// launch counts them, 16 bytes a load, and writes it; the other blocks
+// take the rows.  (The first version counted in the scatter, each block's
+// count in a slot of the look-back buffer and the block that took the last
+// ticket summing them: on an H100 its fences and ticket made the scatter
+// 0.0031 ms at one residual row, where the scatter it replaced took 0.0018.)
+// Bound: bytes (chain_ok read and packed, res_b written over the batch;
+// folded, occ and executed read, newly written and executed where it
+// changes; the residual rows' e, p_r, l_resolved and target, and flag_perm
+// at the unresolved ones).
 
-__global__ void k_emit_init(const uint8_t* chain_ok, int32_t* packed, uint8_t* res_b,
-                            const uint8_t* occ, uint8_t* executed, uint8_t* newly,
-                            const int32_t* flag_perm, int batch) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= batch) return;
-  bool res = chain_ok[p] != 0;
-  packed[p] = (res ? 0 : EMIT_UNRESOLVED_BIT) | p;
-  res_b[p] = res;
-  if (newly && res) epilogue_row(occ, executed, newly, flag_perm[p], true);
+#define EMIT_ROWS 4  // indices an init thread takes
+
+// 1 in each byte of w that is not 0, 0 in the others
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  return ((((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) >> 7) & 0x01010101u;
+}
+
+#define COUNT_LOADS 8  // 16-byte loads a counting thread has in flight
+
+// block 0: n_unres = overflow + the false flags of l_resolved[0 .. n_valid),
+// COUNT_LOADS loads issued before any is counted (one block's loads wait
+// on latency, not on bandwidth)
+__device__ void emit_count(const uint8_t* l_resolved, int32_t* n_unres, int n_valid,
+                           int overflow, bool words) {
+  __shared__ int sums[EW_BLOCK / 32];
+  int resolved = 0, i = 0;
+  if (words) {
+    const uint4* wide = (const uint4*)l_resolved;
+    const int n16 = n_valid / 16;
+    for (int base = 0; base < n16; base += COUNT_LOADS * blockDim.x) {
+      uint4 w[COUNT_LOADS];
+#pragma unroll
+      for (int u = 0; u < COUNT_LOADS; ++u) {
+        int k = base + u * blockDim.x + threadIdx.x;
+        uint4 v = {0u, 0u, 0u, 0u};
+        if (k < n16) v = wide[k];
+        w[u] = v;
+      }
+#pragma unroll
+      for (int u = 0; u < COUNT_LOADS; ++u)
+        resolved += __popc(nonzero_bytes(w[u].x)) + __popc(nonzero_bytes(w[u].y)) +
+                    __popc(nonzero_bytes(w[u].z)) + __popc(nonzero_bytes(w[u].w));
+    }
+    i = n16 * 16;
+  }
+  for (i += threadIdx.x; i < n_valid; i += blockDim.x) resolved += l_resolved[i] != 0;
+  resolved = __reduce_add_sync(FULL_MASK, resolved);
+  if ((threadIdx.x & 31) == 0) sums[threadIdx.x >> 5] = resolved;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < (int)blockDim.x / 32; ++w) total += sums[w];
+    n_unres[0] = overflow + n_valid - total;
+  }
+}
+
+// words: every byte column 4-byte aligned, packed and l_resolved 16-byte
+// aligned
+__global__ void __launch_bounds__(EW_BLOCK)
+    k_emit_init(const uint8_t* chain_ok, int32_t* packed, uint8_t* res_b,
+                const uint8_t* occ, uint8_t* executed, uint8_t* newly,
+                const uint8_t* l_resolved, int32_t* n_unres, int batch, int n_valid,
+                int overflow, int words) {
+  if (blockIdx.x == 0) {
+    emit_count(l_resolved, n_unres, n_valid, overflow, words);
+    return;
+  }
+  const long i0 = ((long)(blockIdx.x - 1) * blockDim.x + threadIdx.x) * EMIT_ROWS;
+  if (i0 >= batch) return;
+  if (words && i0 + EMIT_ROWS <= batch) {
+    uint32_t ok = nonzero_bytes(*(const uint32_t*)(chain_ok + i0));
+    int4 pk;
+    pk.x = (ok & 0x1u ? 0 : EMIT_UNRESOLVED_BIT) | (int)i0;
+    pk.y = (ok & 0x100u ? 0 : EMIT_UNRESOLVED_BIT) | (int)(i0 + 1);
+    pk.z = (ok & 0x10000u ? 0 : EMIT_UNRESOLVED_BIT) | (int)(i0 + 2);
+    pk.w = (ok & 0x1000000u ? 0 : EMIT_UNRESOLVED_BIT) | (int)(i0 + 3);
+    *(int4*)(packed + i0) = pk;
+    *(uint32_t*)(res_b + i0) = ok;
+    if (newly) {
+      uint32_t ex = *(const uint32_t*)(executed + i0);
+      uint32_t nw = nonzero_bytes(*(const uint32_t*)(occ + i0)) & ~nonzero_bytes(ex);
+      *(uint32_t*)(newly + i0) = nw;
+      if (nw) *(uint32_t*)(executed + i0) = ex | nw;
+    }
+    return;
+  }
+  for (long i = i0; i < i0 + EMIT_ROWS && i < batch; ++i) {
+    bool res = chain_ok[i] != 0;
+    packed[i] = (res ? 0 : EMIT_UNRESOLVED_BIT) | (int)i;
+    res_b[i] = res;
+    if (newly) epilogue_row(occ, executed, newly, i, true);
+  }
 }
 
 __global__ void k_emit_scatter(const int32_t* e, const int32_t* p_r,
                                const uint8_t* l_resolved, const int32_t* target,
-                               int32_t* packed, uint8_t* res_b, int32_t* n_unres,
-                               const uint8_t* occ, uint8_t* executed, uint8_t* newly,
-                               const int32_t* flag_perm, int m, int n_valid,
-                               int n_residual) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  int unres = 0;
-  if (r < n_valid) {
-    int s = e[r];
-    int pr = p_r[s];
-    bool res = l_resolved[s] != 0;
-    packed[pr] = (res ? 0 : EMIT_UNRESOLVED_BIT) | target[r];
-    res_b[pr] = res;
-    unres = res ? 0 : 1;
-    if (newly) epilogue_row(occ, executed, newly, flag_perm[pr], res);
+                               int32_t* packed, uint8_t* res_b, uint8_t* executed,
+                               uint8_t* newly, const int32_t* flag_perm, int n_valid) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_valid) return;
+  int s = e[r];
+  int pr = p_r[s];
+  bool res = l_resolved[s] != 0;
+  packed[pr] = (res ? 0 : EMIT_UNRESOLVED_BIT) | target[r];
+  res_b[pr] = res;
+  if (newly && !res) {
+    int v = flag_perm[pr];
+    if (newly[v]) {  // the init marked it: undo
+      newly[v] = 0;
+      executed[v] = 0;
+    }
   }
-  // residual rows beyond the buffer (overflow) stay unresolved
-  if (r == 0) unres += n_residual - n_valid;
-  unres = __reduce_add_sync(0xffffffffu, unres);
-  if ((threadIdx.x & 31) == 0 && unres) atomicAdd(n_unres, unres);
 }
 
-// n_unres zeroed by the caller; occ, executed, newly, flag_perm: the folded
-// epilogue (all four or none; only with n_residual <= m)
+// occ, executed, newly, flag_perm: the folded epilogue (all four or none;
+// only with n_residual <= m)
 extern "C" int gp_emit_scatter(const int32_t* e, const int32_t* p_r,
                                const uint8_t* l_resolved, const int32_t* target,
                                const uint8_t* chain_ok, int32_t* packed, uint8_t* res_b,
                                int32_t* n_unres, const uint8_t* occ, uint8_t* executed,
                                uint8_t* newly, const int32_t* flag_perm, int m, int batch,
                                int n_residual, cudaStream_t stream) {
-  if (batch <= 0) return 0;
+  if (batch < 0 || m < 0 || n_residual < 0) return (int)cudaErrorInvalidValue;
   if (!epilogue_args_ok(occ, executed, newly) || (newly == nullptr) != (flag_perm == nullptr))
     return (int)cudaErrorInvalidValue;
   if (newly && n_residual > m) return (int)cudaErrorInvalidValue;
   int n_valid = n_residual < m ? n_residual : m;
-  k_emit_init<<<grid_for(batch, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-      chain_ok, packed, res_b, occ, executed, newly, flag_perm, batch);
+  uintptr_t bytes = (uintptr_t)chain_ok | (uintptr_t)res_b | (uintptr_t)occ |
+                    (uintptr_t)executed | (uintptr_t)newly;
+  uintptr_t wide = (uintptr_t)packed | (uintptr_t)l_resolved;
+  int words = (bytes & 3) == 0 && (wide & 15) == 0;
+  // block 0 counts, the others take EMIT_ROWS rows a thread
+  unsigned grid = 1 + grid_for((batch + EMIT_ROWS - 1) / EMIT_ROWS, EW_BLOCK);
+  k_emit_init<<<grid, EW_BLOCK, 0, stream>>>(chain_ok, packed, res_b, occ, executed, newly,
+                                             l_resolved, n_unres, batch, n_valid,
+                                             n_residual - n_valid, words);
   CHECK_LAUNCH();
-  int threads = m > 0 ? m : 1;
-  k_emit_scatter<<<grid_for(threads, EW_BLOCK), EW_BLOCK, 0, stream>>>(
-      e, p_r, l_resolved, target, packed, res_b, n_unres, occ, executed, newly, flag_perm,
-      m, n_valid, n_residual);
-  CHECK_LAUNCH();
+  if (n_valid > 0) {
+    k_emit_scatter<<<grid_for(n_valid, EW_BLOCK), EW_BLOCK, 0, stream>>>(
+        e, p_r, l_resolved, target, packed, res_b, executed, newly, flag_perm, n_valid);
+    CHECK_LAUNCH();
+  }
   return (int)cudaGetLastError();
 }
 

@@ -115,7 +115,7 @@ def num_doubling_steps(batch: int) -> int:
 _SIGNATURES = {
     "gp_lex_sort": ("graph_plane_step", "p" * 11 + "i" * 10),
     "gp_link_scan": ("graph_plane_step", "p" * 8 + "iii"),
-    "gp_residual_view": ("graph_plane_step", "p" * 13 + "iii"),
+    "gp_residual_view": ("graph_plane_step", "p" * 12 + "iiii"),
     "gp_group_scan": ("graph_plane_step", "ppp" + "i"),
     "gp_pointer_doubling": ("graph_plane_step", "p" * 9 + "iii"),
     "gp_emit_scatter": ("graph_plane_step", "p" * 12 + "iii"),
@@ -514,9 +514,32 @@ def link_scan(pk, col, pos_s):
 # ---------------------------------------------------------------------------
 # 4. residual view: gathers of the compacted residual + local dep remap
 # ---------------------------------------------------------------------------
-# Bound: bytes (res_n-row gathers, a C-row remap fill).  Design: one
-# gather launch that also scatters ``remap[rpos] = r`` (residual positions
-# are distinct), then one launch for the local deps once the remap landed.
+# Bound: bytes (res_n-row gathers and outputs, a remap entry written and
+# read a valid row).  Design (``csrc/graph_plane_step.cu`` §4): two launches
+# and no fill.  The gather also writes ``remap[rpos[r]] = (epoch, r)``
+# (residual positions are distinct) into a buffer of 64-bit words kept a
+# device (``remap_buffer``), where an entry of another epoch reads as
+# TERMINAL; the local map, once the remap has landed, replaces in place the
+# dependency the gather left in ``rdep_local``.
+
+# the residual remap: one a device, 64-bit words (epoch << 32) | residual
+# row, allocated zeroed once and kept, replaced by a larger one when a
+# larger window comes; each call takes the next epoch, so no entry of an
+# earlier call reads as current.  Past REMAP_EPOCHS a new zeroed buffer
+# replaces it.
+REMAP_EPOCHS = (1 << 31) - 1
+_remaps: Dict[str, list] = {}
+
+
+def remap_buffer(device, batch: int) -> Tuple[torch.Tensor, int]:
+    """The residual remap on ``device`` for a window of ``batch`` rows, and
+    this call's epoch."""
+    key = str(device)
+    entry = _remaps.get(key)
+    if entry is None or entry[0].numel() < batch or entry[1] + 1 >= REMAP_EPOCHS:
+        entry = _remaps[key] = [torch.zeros(batch, dtype=torch.int64, device=device), 0]
+    entry[1] += 1
+    return entry[0], entry[1]
 
 
 def residual_view_plain(p_r, pos_s, dep_s, run_start, src, seq, n_residual: int):
@@ -549,12 +572,11 @@ def residual_view(p_r, pos_s, dep_s, run_start, src, seq, n_residual: int):
                     ("src", src), ("seq", seq)):
         _check(t, torch.int32, name, batch)
     rpos, rrs, rsrc, rseq, rdep_local = (_i32(res_n, device) for _ in range(5))
-    scratch = _i32(res_n, device)
-    remap = _i32(batch, device, TERMINAL)
+    remap, epoch = remap_buffer(device, batch)
     _launch(
         "gp_residual_view", device, p_r, pos_s, dep_s, run_start, src, seq,
-        rpos, rrs, rsrc, rseq, rdep_local, scratch, remap, res_n, batch,
-        min(n_residual, INT32_MAX),
+        rpos, rrs, rsrc, rseq, rdep_local, remap, res_n, batch,
+        min(n_residual, INT32_MAX), epoch,
     )
     LAUNCHES["residual_view"] += 1
     return rpos, rrs, rsrc, rseq, rdep_local
@@ -704,14 +726,18 @@ def pointer_doubling(dep, occ=None, executed=None):
 # ---------------------------------------------------------------------------
 # 7. emit scatter: residual emit data back over the batch, packed sort key
 # ---------------------------------------------------------------------------
-# Bound: bytes (one C-row stream for the packed key, res_n-row scatter).
-# Design: an init launch over C, then the residual scatter (the emit
-# targets of one group are a permutation of its positions, so no two
-# threads write one cell).  With ``occ``, ``executed`` and ``flag_perm``
-# (the keyed plane step's residual branch) the plane's epilogue (stage 8)
-# is folded into both launches: the init finishes the chain_ok positions,
-# the scatter the others, each position exactly one of them because
-# ``n_residual <= res_n`` (the argument is in the source, §7).
+# Bound: bytes (one C-row stream for the packed key, res_n-row scatter;
+# folded, one C-row pass over the epilogue's byte columns).  Design
+# (``csrc/graph_plane_step.cu`` §7): two launches and no fill, an init over
+# C, then the residual scatter (the emit targets of one group are a
+# permutation of its positions, so no two threads write one cell).  With
+# ``occ``, ``executed`` and ``flag_perm`` (the keyed plane step's residual
+# branch) the plane's epilogue (stage 8) is folded in: the init finishes
+# every vertex as resolved in vertex order (coalesced), and the scatter
+# undoes it on the vertex of each unresolved residual row, the only ones
+# that differ because ``n_residual <= res_n`` (the argument is in the
+# source).  ``n_unres`` is written once, by the init's first block, from
+# ``l_resolved`` over the valid rows: no atomic.
 
 
 def emit_scatter_plain(e, p_r, l_resolved, target_r, chain_ok, n_residual: int,
@@ -753,6 +779,11 @@ def _fold_perm(occ, executed, flag_perm, n_residual: int, res_n: int) -> bool:
 
 def emit_scatter(e, p_r, l_resolved, target_r, chain_ok, n_residual: int,
                  occ=None, executed=None, flag_perm=None):
+    """``emit_scatter_plain`` in two launches.  Precondition (what
+    ``_residual_emit`` gives it): the first ``min(n_residual, res_n)``
+    entries of ``e`` are the rows below that count (the emit sort puts the
+    valid rows, ``rrs`` below INT32_MAX, first), so the kernel counts the
+    unresolved rows on ``l_resolved`` itself."""
     fold = _fold_perm(occ, executed, flag_perm, n_residual, e.shape[0])
     if not _on_card(e):
         return emit_scatter_plain(e, p_r, l_resolved, target_r, chain_ok, n_residual,
@@ -765,7 +796,7 @@ def emit_scatter(e, p_r, l_resolved, target_r, chain_ok, n_residual: int,
     _check(chain_ok, torch.bool, "chain_ok", batch)
     packed = _i32(batch, device)
     res_b = _b(batch, device)
-    n_unres = _i32(1, device, 0)
+    n_unres = _i32(1, device)
     newly = None
     if fold:
         _check_fold(occ, executed, batch)
