@@ -208,7 +208,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    itself needs, and counted in operations on the card, and so is phase
    2's residual dispatch; asserted: at most 2 operations a call of either
    wrapper, none a memset or fill, and folded calls that reach unresolved
-   residual vertices that are pending, executed and free.
+   residual vertices that are pending, executed and free;
+14. the batched graph executor's host-column route (``GraphExecutor(Config(
+   batched_graph_executor=True))``, the plane off, on ``cuda``), partial
+   replication, in a process of its own as phases 9-13.
+   The route's path, with the launch counts set to 0 just before it and
+   read just after it: the north-star commands as ``GraphAddBatch``
+   feeds of 250k, the first 2^18 in arrival order (each flush of more than
+   4,096 the arrival-order fast path) and all 1M shuffled around the feed
+   edges (phase 2's feeds), 2^16 of
+   them shuffled throughout in one feed (a residual past
+   ``_residual_size_for``: the overflow branch), 2^20 commands of
+   ``bench.py``'s general generator through ``resolve_general_resident``,
+   and 4,096
+   cycle-rich ones in feeds of 1,024 (``resolve_general`` and the stuck
+   residues' Python oracle); every command once, each key in its chain
+   order, and every wrapper of the route launched.  Each flush's route
+   (fast path, keyed verified, residual or overflow, general,
+   general_resident), the wrappers it launched, its time
+   and its resolve's on the card (CUDA events) and on the host, and
+   commands/s are printed.
+   Then six feeds at 2^16 and at 4,096 rows (the structure branch), keyed
+   and multi-key, on ``cuda`` and on ``cpu``: equal execution orders and
+   CHAIN_SIZE histograms, every wrapper call on the card held against its
+   plain version (the Checker), and the full-width keyed run again under
+   the Checker; the native route (``host_native_resolver=
+   True``) against the device route at 2^16, per key; Atlas with two
+   shards (n = 3, f = 1) through a message loop in the script on ``cuda``
+   and ``cpu``, every process's order equal.  (FPaxos and Basic run no
+   code on the card: their executors keep nothing there, so the CPU tests
+   hold them.)
 
 Each phase reports its wall time.  The last lines are the
 ``{"kernels": [...]}`` record, the card line and
@@ -251,6 +280,11 @@ copied into an older checkout, whose epilogue is a launch of its own in
 every dispatch and whose ``group_scan`` is eight operations, it times
 that checkout's dispatches, folding wrappers and ``group_scan`` at the
 same shapes.
+
+    python3 chip_smoke.py --host-route
+
+runs phase 14 alone in the same way (``--checks`` adds the launch
+asserts).
 
     python3 chip_smoke.py --residual
 
@@ -4424,6 +4458,443 @@ def phase_residual(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the host-column route and partial replication (phase 14; alone:
+# --host-route)
+# ---------------------------------------------------------------------------
+
+# the arrival-order run: 2^18 of the 1M (the whole smoke went past 900 s
+# with all 1M there; its flushes take the fast path either way)
+IN_ORDER = 1 << 18
+HOST_MID = 1 << 16  # the CPU comparisons' and the native route's batch
+HOST_MID_FEED = 1 << 14
+HOST_SMALL = 4096  # the structure branch: every flush at most the threshold
+HOST_SMALL_FEED = 1024
+# the wrappers the host-column route reaches (the plane's prologue and its
+# standalone epilogue are the plane's own)
+# the resolvers the host-column route calls (executor/graph/batched.py),
+# each timed alone in a flush on the card
+RESOLVERS = ("resolve_keyed_auto", "resolve_general_resident", "resolve_general")
+HOST_ROUTE_KERNELS = ("lex_sort", "link_scan", "residual_view", "group_scan",
+                      "pointer_doubling", "emit_scatter", "mutual_collapse",
+                      "affine_loop", "peel_stage", "peel_compact")
+
+
+def host_config(Config, **knobs):
+    """The JAX package's default batched executor: the plane off."""
+    return Config(5, 2, batched_graph_executor=True, **knobs)
+
+
+def keyed_cmds(Command, Rifl, KVOp, cols):
+    put = (KVOp.put(""),)  # one immutable op tuple shared by every command
+    return [Command.from_keys(Rifl(s, q), 0, {f"k{k}": put})
+            for s, q, k in zip(cols[0].tolist(), cols[1].tolist(), cols[2].tolist())]
+
+
+def general_cmds(Command, Rifl, KVOp, cols, keys):
+    put, rows = (KVOp.put(""),), keys.tolist()
+    return [Command.from_keys(Rifl(s, q), 0, {f"g{k}": put for k in rows[q - 1]})
+            for s, q in zip(cols[0].tolist(), cols[1].tolist())]
+
+
+def host_drive(torch, K, executor, cols, cmds, RunTime, GraphAddBatch, feed, timed=True):
+    """Feed ``executor`` the columns as ``GraphAddBatch`` feeds of ``feed``
+    (one flush a feed); returns the executed sequences, the wall seconds
+    and each flush's route, keyed branch (told by the calls it made: the
+    full doubling of an overflow, the residual's ``group_scan``), wrappers
+    launched and, with ``timed`` (on the card), its host and CUDA-event
+    milliseconds."""
+    from collections import Counter
+
+    from fantoch_tpu_torch.executor.graph import batched
+    from fantoch_tpu_torch.ops import graph_resolve
+
+    src, seq, key, packed = cols
+    graph = executor.graph
+    clock = RunTime()
+    executed, flushes, calls, resolves = [], [], Counter(), []
+    spied = [(graph_resolve, "resolve_functional"), (K, "group_scan")]
+    spied += [(batched, name) for name in RESOLVERS]
+    real = [getattr(module, name) for module, name in spied]
+    for (module, name), fn in zip(spied, real):
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] += 1
+            if _name not in RESOLVERS or not timed:
+                return _fn(*args, **kwargs)
+            # the resolve alone: uploaded columns in, results on the card
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t = time.perf_counter()
+            start.record()
+            out = _fn(*args, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            resolves.append(((time.perf_counter() - t) * 1e3, start.elapsed_time(end)))
+            return out
+
+        setattr(module, name, counted)
+    try:
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(0, len(src), feed):
+            cut = slice(s, s + feed)
+            routes, launches, made = Counter(graph.routes), dict(K.LAUNCHES), Counter(calls)
+            resolves.clear()
+            if timed:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            t = time.perf_counter()
+            executor.handle(GraphAddBatch(src[cut], seq[cut], key[cut], packed[cut],
+                                          cmds[cut]), clock)
+            flush = {"rows": len(src[cut])}
+            if timed:
+                end.record()
+                torch.cuda.synchronize()
+                flush["host_ms"] = (time.perf_counter() - t) * 1e3
+                flush["card_ms"] = start.elapsed_time(end)
+                if resolves:
+                    (flush["resolve_host_ms"], flush["resolve_card_ms"]), = resolves
+            route, = (graph.routes - routes).keys() or ("none",)
+            made = calls - made
+            if route == "keyed":
+                route = ("keyed overflow" if made["resolve_functional"] else
+                         "keyed residual" if made["group_scan"] else "keyed verified")
+            flush["route"] = route
+            flush["launches"] = {k: v - launches[k] for k, v in K.LAUNCHES.items()
+                                 if v != launches[k]}
+            flushes.append(flush)
+            while (r := executor.to_clients()) is not None:
+                executed.append(r.rifl.sequence)
+        if timed:
+            torch.cuda.synchronize()
+    finally:
+        for (module, name), fn in zip(spied, real):
+            setattr(module, name, fn)
+    return executed, time.perf_counter() - t0, flushes
+
+
+def flush_summary(flushes, n, wall_s):
+    """Routes, p50 and range of a flush on the card and on the host,
+    commands/s."""
+    from collections import Counter
+
+    by_route = {}
+    for f in flushes:
+        by_route.setdefault(f["route"], Counter()).update(f["launches"])
+    out = {"commands": n, "wall_s": wall_s, "commands_per_s": n / wall_s,
+           "routes": dict(Counter(f["route"] for f in flushes)),
+           "launches_by_route": {r: dict(c) for r, c in by_route.items()},
+           "flushes": flushes}
+    for side in ("card_ms", "host_ms", "resolve_card_ms", "resolve_host_ms"):
+        values = [f[side] for f in flushes if side in f]
+        if values:
+            out[f"p50_{side}"] = float(np.median(values))
+            out[f"range_{side}"] = [min(values), max(values)]
+    return out
+
+
+def routes_above(summary):
+    """The routes of a run's flushes of more than ``HOST_SMALL`` rows (a
+    feed at most the structure threshold takes the small routes)."""
+    return {f["route"] for f in summary["flushes"] if f["rows"] > HOST_SMALL}
+
+
+def command_order(results, keys):
+    """The command order of a multi-key run's results (one a distinct key
+    of a command, asserted), as sequences."""
+    results = np.asarray(results, dtype=np.int64)
+    distinct = np.array([len(set(row)) for row in keys.tolist()])
+    assert np.array_equal(np.bincount(results - 1, minlength=len(keys)), distinct), (
+        "a command's results are not one per key")
+    return results[np.sort(np.unique(results, return_index=True)[1])].tolist()
+
+
+def per_key(executed, keys):
+    """{key: executed sequences in order} (``keys`` by command index)."""
+    out = {}
+    for q in executed:
+        for k in np.atleast_1d(keys[q - 1]).tolist():
+            out.setdefault(k, []).append(q)
+    return out
+
+
+class Shards:
+    """Atlas with ``shard_count`` 2, n = 3, f = 1, the batched graph
+    executor on ``device``, driven by a message loop in the script
+    (``tests/test_partial.py``'s harness)."""
+
+    def __init__(self, device, **knobs):
+        from collections import deque
+
+        from fantoch_tpu_torch.core import Config, RunTime, process_ids
+        from fantoch_tpu_torch.executor.graph.executor import GraphRequest
+        from fantoch_tpu_torch.protocol.graph_protocol import Atlas
+
+        self.request_type, self.time = GraphRequest, RunTime()
+        config = Config(n=3, f=1, shard_count=2, gc_interval_ms=100,
+                        batched_graph_executor=True, **knobs)
+        self.protocols, self.executors, self.shard_of = {}, {}, {}
+        self.queue = deque()
+        for shard in range(2):
+            ids = list(process_ids(shard, 3))
+            for pid in ids:
+                proto = Atlas(pid, shard, config)
+                other = list(process_ids(1 - shard, 3))[pid - ids[0]]
+                ok, _ = proto.discover([(pid, shard)] + [(p, shard) for p in ids if p != pid]
+                                       + [(other, 1 - shard)])
+                assert ok
+                executor = Atlas.Executor(pid, shard, config, device=device)
+                executor.set_executor_index(0)
+                self.protocols[pid], self.executors[pid] = proto, executor
+                self.shard_of[pid] = shard
+
+    def submit(self, pid, cmd):
+        self.protocols[pid].submit(None, cmd, self.time)
+        self.drain(pid)
+
+    def drain(self, pid):
+        import copy
+
+        from fantoch_tpu_torch.protocol.base import ToForward, ToSend
+
+        for action in self.protocols[pid].to_processes_iter():
+            if isinstance(action, ToSend):
+                targets = sorted(action.target)
+                msgs = [action.msg] + [copy.deepcopy(action.msg) for _ in targets[1:]]
+                self.queue.extend((pid, self.shard_of[pid], t, m)
+                                  for t, m in zip(targets, msgs))
+            elif isinstance(action, ToForward):
+                self.queue.append((pid, self.shard_of[pid], pid, action.msg))
+        for info in self.protocols[pid].to_executors_iter():
+            self.executors[pid].handle(info, self.time)
+            self.drain_executor(pid)
+
+    def drain_executor(self, pid):
+        while (out := self.executors[pid].to_executors()) is not None:
+            to_shard, info = out
+            target = (pid if to_shard == self.shard_of[pid]
+                      else self.protocols[pid].bp.closest_process(to_shard))
+            peer = self.executors[target]
+            if isinstance(info, self.request_type):
+                peer.set_executor_index(1)
+                peer.handle(info, self.time)
+                peer.graph.cleanup(self.time)
+                peer.set_executor_index(0)
+            else:
+                peer.handle(info, self.time)
+            self.drain_executor(target)
+
+    def run(self):
+        steps = 0
+        while self.queue:
+            steps += 1
+            assert steps < 200_000, "message storm"
+            from_pid, from_shard, to_pid, msg = self.queue.popleft()
+            self.protocols[to_pid].handle(from_pid, from_shard, msg, self.time)
+            self.drain(to_pid)
+
+    def executed(self):
+        out = {}
+        for pid, executor in self.executors.items():
+            rifls = out.setdefault(pid, [])
+            while (r := executor.to_clients()) is not None:
+                rifls.append((r.rifl.source, r.rifl.sequence))
+        return out
+
+
+def partial_run(device, commands=48, seed=SEED):
+    """Multi-shard and single-shard commands on a few shared keys, one or
+    two keys a shard, submitted in rounds at every process; returns each
+    process's executed rifls and the graphs' routes."""
+    from collections import Counter
+
+    from fantoch_tpu_torch.core import Command, KVOp, Rifl
+
+    rng = np.random.default_rng(seed)
+    cluster = Shards(device)
+    for i in range(commands):
+        shards = [0, 1] if rng.random() < 0.6 else [int(rng.integers(0, 2))]
+        by_shard = {s: {f"s{s}k{int(k)}": (KVOp.put(f"v{i}"),)
+                        for k in rng.choice(6, int(rng.integers(1, 3)), replace=False)}
+                    for s in shards}
+        pid = int(rng.integers(1, 7))
+        if cluster.shard_of[pid] != min(shards):
+            pid = 1 + 3 * min(shards) + pid % 3
+        cluster.submit(pid, Command(Rifl(1 + i % 4, 1 + i // 4), by_shard))
+        if i % 6 == 5:
+            cluster.run()
+    cluster.run()
+    routes = Counter()
+    for executor in cluster.executors.values():
+        routes.update(executor.graph.routes)
+    return cluster.executed(), dict(routes)
+
+
+def phase_host(torch, K, Config, Command, Rifl, KVOp, RunTime, GraphExecutor,
+               GraphAddBatch, checks=True):
+    """The batched graph executor's host-column route on the card and
+    partial replication (phase 14): see the module docstring.
+    Every check raises; with ``checks``, every wrapper of the route must
+    have launched on its path."""
+    from fantoch_tpu_torch.executor.base import ExecutorMetricsKind
+
+    out = {"runs": {}, "cpu_equal": {}, "walls_s": {}}
+    walls, t_part = out["walls_s"], time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        walls[name] = now - t_part
+        t_part = now
+
+    def run(label, cols, cmds, feed, device=CARD, **knobs):
+        """One executor run; returns (executed, summary, CHAIN_SIZE)."""
+        executor = GraphExecutor(1, 0, host_config(Config, **knobs), device=device)
+        assert executor.graph._plane is None
+        executed, wall_s, flushes = host_drive(
+            torch, K, executor, cols, cmds, RunTime, GraphAddBatch, feed,
+            timed=torch.device(device).type == "cuda")
+        chain = executor.metrics().get_collected(ExecutorMetricsKind.CHAIN_SIZE)
+        summary = flush_summary(flushes, len(set(executed)), wall_s)
+        if label:
+            out["runs"][label] = summary
+            log(f"phase 14: {label}: {summary['commands']} commands, routes {summary['routes']}, "
+                f"p50 flush {summary.get('p50_card_ms', 0):.3f} ms on the card "
+                f"(CUDA events), {summary.get('p50_host_ms', 0):.3f} ms on the host, "
+                f"its resolve {summary.get('p50_resolve_card_ms', 0):.3f} ms on the card, "
+                f"{summary['commands_per_s']:.1f} commands/s ({wall_s:.3f} s); "
+                f"launches by route {summary['launches_by_route']}")
+        return executed, summary, (list(chain.values()) if chain else None)
+
+    # --- the route's path: full width, counts set to 0 just before
+    n = BIG
+    order = arrival(n, EXECUTOR_BATCH, 4096, 64, SEED + 1)
+    shuffled = columns(n, order)
+    key_of = shuffled[4]
+    keyed_all = keyed_cmds(Command, Rifl, KVOp, shuffled)
+    # the first IN_ORDER commands in arrival order (their dependencies all
+    # point behind them), taken from the shuffled feed's columns
+    position = np.empty(n, dtype=np.int64)
+    position[order] = np.arange(n)
+    head = position[:IN_ORDER]
+    in_order = tuple(c[head] for c in shuffled[:4])
+    in_order_cmds = [keyed_all[i] for i in head.tolist()]
+    mid_order = arrival(HOST_MID, HOST_MID, 2 * HOST_MID, 64, SEED + 2)
+    overflow = columns(HOST_MID, mid_order)
+    overflow_cmds = keyed_cmds(Command, Rifl, KVOp, overflow)
+    gkeys, gdeps, gsrc, gseq = general_workload(n)
+    general = general_columns(gdeps, gsrc, gseq, arrival(n, EXECUTOR_BATCH, 4096, 64,
+                                                         SEED + 1))
+    general_all = general_cmds(Command, Rifl, KVOp, general, gkeys)
+    ckeys, cdeps, csrc, cseq = cycle_rich(HOST_SMALL, 64)
+    small = general_columns(cdeps, csrc, cseq, np.arange(HOST_SMALL))
+    small_cmds = general_cmds(Command, Rifl, KVOp, small, ckeys)
+    part("feeds built")
+
+    K.reset_launch_counts()
+    executed, summary, _ = run("keyed, in arrival order", in_order, in_order_cmds,
+                               EXECUTOR_BATCH)
+    check_chain_order(executed, key_of[:IN_ORDER], IN_ORDER)
+    # with nothing pending and every dependency behind it, a flush above the
+    # structure threshold takes the arrival-order fast path: no resolve
+    assert routes_above(summary) == {"fast"}, summary["routes"]
+    executed, summary, _ = run("keyed, shuffled", shuffled[:4], keyed_all, EXECUTOR_BATCH)
+    check_chain_order(executed, key_of, n)
+    keyed_order = executed
+    executed, summary, _ = run(f"keyed, {HOST_MID} shuffled throughout", overflow[:4],
+                               overflow_cmds, HOST_MID)
+    check_chain_order(executed, overflow[4], HOST_MID)
+    overflowed = sum(s["routes"].get("keyed overflow", 0) for s in out["runs"].values())
+    assert overflowed, {k: s["routes"] for k, s in out["runs"].items()}
+    resident, summary, _ = run("multi-key, resident", general, general_all, EXECUTOR_BATCH)
+    check_key_order(command_order(resident, gkeys), gkeys, n)
+    assert routes_above(summary) <= {"general_resident", "fast"}, summary["routes"]
+    executed, summary, _ = run(f"multi-key, {HOST_SMALL} cycle-rich", small, small_cmds,
+                               HOST_SMALL_FEED)
+    # links run either way inside a chunk (cycles): every command once
+    assert sorted(command_order(executed, ckeys)) == list(range(1, HOST_SMALL + 1))
+    out["launches"] = dict(K.LAUNCHES)
+    not_run = [k for k in HOST_ROUTE_KERNELS if not out["launches"][k]]
+    log(f"phase 14: the route's path launched {out['launches']}")
+    if checks:
+        assert not not_run, f"kernels of the route never launched: {not_run}"
+        assert not out["launches"]["graph_prologue"], out["launches"]
+    part("route's path")
+
+    # --- the same feeds on the card and on the CPU; the card's wrappers
+    # held against their plain versions call by call (the Checker)
+    checker = Checker(K)
+    mid_keys, mid_deps, mid_src, mid_seq = general_workload(HOST_MID)
+    mid_general = general_columns(mid_deps, mid_src, mid_seq,
+                                  arrival(HOST_MID, HOST_MID_FEED, 1024, 64, SEED + 3))
+    keyed_edges = columns(HOST_MID, arrival(HOST_MID, HOST_MID_FEED, 1024, 64, SEED + 4))
+    keyed_small = columns(HOST_SMALL, arrival(HOST_SMALL, HOST_SMALL_FEED, 512, 16, SEED + 5))
+    cases = [
+        ("keyed, 2^16 shuffled throughout", overflow[:4], overflow_cmds, HOST_MID),
+        ("keyed, 2^16 in feeds of 2^14", keyed_edges[:4],
+         keyed_cmds(Command, Rifl, KVOp, keyed_edges), HOST_MID_FEED),
+        ("keyed, 4096 in feeds of 1024", keyed_small[:4],
+         keyed_cmds(Command, Rifl, KVOp, keyed_small), HOST_SMALL_FEED),
+        ("multi-key, 2^16 resident", mid_general,
+         general_cmds(Command, Rifl, KVOp, mid_general, mid_keys), HOST_MID_FEED),
+        ("multi-key, 4096 cycle-rich", small, small_cmds, HOST_SMALL_FEED),
+    ]
+    checker.install()
+    try:
+        for label, cols, cmds, feed in cases:
+            got, gsum, gchain = run(None, cols, cmds, feed)
+            want, wsum, wchain = run(None, cols, cmds, feed, device="cpu")
+            assert got == want, f"{label}: the card's and the CPU's orders differ"
+            assert gchain == wchain, f"{label}: CHAIN_SIZE histograms differ"
+            out["cpu_equal"][label] = {"commands": len(got), "routes": gsum["routes"],
+                                       "chain_size_bins": len(gchain or [])}
+        # the keyed chain at the full-width run's padded shapes, held the
+        # same way (the resident route's stages are the halving schedule's
+        # sizes, held by phases 3 and 10)
+        executed, _s, _c = run(None, shuffled[:4], keyed_all, EXECUTOR_BATCH)
+        assert executed == keyed_order
+    finally:
+        checker.uninstall()
+    out["checked_calls"] = {k: v for k, v in checker.count.items() if v}
+    out["max_abs_err"] = max(checker.err.values())
+    log(f"phase 14: card equal to CPU (orders, CHAIN_SIZE) on {len(cases)} feeds; "
+        f"wrapper calls held against their plain versions: {out['checked_calls']}")
+    part("card against CPU")
+
+    # --- the native route against the device route, per key
+    for label, cols, cmds, feed, keys in (
+        ("keyed", keyed_edges[:4], keyed_cmds(Command, Rifl, KVOp, keyed_edges),
+         HOST_MID_FEED, keyed_edges[4]),
+        ("multi-key", mid_general, general_cmds(Command, Rifl, KVOp, mid_general, mid_keys),
+         HOST_MID_FEED, mid_keys),
+    ):
+        native, nsum, _ = run(None, cols, cmds, feed, host_native_resolver=True)
+        device, _dsum, _ = run(None, cols, cmds, feed)
+        if label == "multi-key":
+            native, device = command_order(native, keys), command_order(device, keys)
+        assert set(nsum["routes"]) <= {"native", "fast"}, nsum["routes"]
+        assert sorted(native) == sorted(device) == list(range(1, HOST_MID + 1)), label
+        assert per_key(native, keys) == per_key(device, keys), f"native {label}: per key"
+        out["runs"][f"native, {label} 2^16"] = {k: v for k, v in nsum.items()
+                                                if k != "flushes"}
+    log("phase 14: the native route's per-key orders equal the device route's at 2^16")
+    part("native")
+
+    # --- partial replication: the card against the CPU
+    K.reset_launch_counts()
+    got, routes = partial_run(CARD)
+    out["partial_launches"] = {k: v for k, v in K.LAUNCHES.items() if v}
+    want, _ = partial_run("cpu")
+    assert got == want, "partial replication: the shards' orders differ"
+    assert all(got.values()) and routes, routes
+    out["partial"] = {"executed": {pid: len(r) for pid, r in got.items()}, "routes": routes}
+    log(f"phase 14: partial replication (Atlas, 2 shards, n = 3): every process's "
+        f"order equal on cuda and cpu; routes {routes}, launches {out['partial_launches']}")
+    part("partial")
+    log(json.dumps({"host_route": out}))
+    return out
+
+
 # the kernels redesigned since the first slices, named in phase 0
 REDESIGNED = ("k_radix_", "k_stable_select", "k_affine_", "k_peel_stage", "k_mc_",
               "k_prologue_", "k_vr_", "k_one_cta", "k_grid", "k_link_scan", "k_pc_",
@@ -4488,13 +4959,14 @@ def main():
     doubling_only = "--doubling" in sys.argv[1:]
     epilogue_only = "--epilogue" in sys.argv[1:]
     residual_only = "--residual" in sys.argv[1:]
+    host_only = "--host-route" in sys.argv[1:]
     if chain_only:  # the general chain alone (also on an older checkout)
         sources = ["graph_general", "graph_plane_step"]
     if redesign_only:  # phase 9 alone (also on an older checkout)
         sources = ["graph_plane_step", "pred_plane", "table_plane"]
     if scans_only or doubling_only:  # phase 10 or 11 alone (also on an older checkout)
         sources = ["graph_general", "graph_plane_step", "table_plane"]
-    if epilogue_only or residual_only:  # phase 12 or 13 alone (also on an older checkout)
+    if epilogue_only or residual_only or host_only:  # phase 12, 13 or 14 alone
         sources = ["graph_general", "graph_plane_step"]
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4542,6 +5014,11 @@ def main():
     if residual_only:
         phase_residual(torch, K, gp_module, Config, Command, Rifl, KVOp, RunTime,
                        GraphExecutor, GraphAddBatch, checks="--checks" in sys.argv[1:])
+        log(card)
+        return 0
+    if host_only:
+        phase_host(torch, K, Config, Command, Rifl, KVOp, RunTime, GraphExecutor,
+                   GraphAddBatch, checks="--checks" in sys.argv[1:])
         log(card)
         return 0
 
@@ -4648,6 +5125,15 @@ def main():
                                            residual["max_abs_err"])
     records["emit_scatter"]["unresolved_vertices"] = residual["unresolved_vertices"]
     records["emit_scatter"]["residual_dispatches_on_card"] = residual["dispatches"]
+    host = timed("phase 14", phase_apart, "--host-route", "host_route")
+    # the host-column route's path: its own counts, and every call of the
+    # card-against-CPU feeds held against the plain versions
+    for name, record in records.items():
+        record["launches_by_path"]["host_route"] = host["launches"].get(name, 0)
+    for name in K.LAUNCHES:
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           host["max_abs_err"])
+        records[name]["host_route_checked_calls"] = host["checked_calls"].get(name, 0)
     log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": list(records.values())}))
     log(card)

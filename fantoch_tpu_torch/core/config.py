@@ -1,17 +1,18 @@
-"""System configuration and the EPaxos/Atlas/Newt/Caesar quorum-size formulas.
+"""System configuration and the per-protocol quorum-size formulas.
 
 The port of fantoch_tpu/core/config.py, cut to the fields the ported
-modules read (the graph, table and predecessors executors,
-EPaxos/Atlas/Newt/Caesar, the clients and the simulator); each keeps its
-name, default and check so a reader finds its counterpart.  The other
-knobs (FPaxos, serving, WAL and overload) come with the slices that read
-them.
+modules read (the graph, table, predecessors, slot and basic executors,
+the five protocols, the clients and the simulator); each keeps its name,
+default and check so a reader finds its counterpart.  The other knobs
+(serving, WAL and overload) come with the slices that read them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
+
+from fantoch_tpu_torch.core.ids import ProcessId
 
 
 @dataclass
@@ -42,6 +43,11 @@ class Config:
     # bounded wait before per-dot recovery starts; only named in the
     # stall error here (None = recovery disabled)
     recovery_delay_ms: Optional[int] = None
+    # FPaxos leader failover: followers suspect a silent leader after this
+    # bound (ring successors stagger by distance) and run MultiSynod
+    # prepare/promise with accepted-slot carry-forward; the leader
+    # heartbeats at a quarter of it (None disables failover)
+    fpaxos_leader_timeout_ms: Optional[int] = None
     # record per-key execution order for agreement checks in tests
     executor_monitor_execution_order: bool = False
     # order committed commands with the batched resolver
@@ -92,6 +98,13 @@ class Config:
     # shortcut.  None = the FANTOCH_GRAPH_KERNEL_THRESHOLD env var, else
     # the built-in 4096; an explicit value here beats both
     graph_kernel_threshold: Optional[int] = None
+    # the batched graph executor's host-column route (device_graph_plane
+    # off): True orders each flush with the native C++ SCC resolver
+    # (native/, built with g++ on first use; a library that cannot be
+    # built raises), None and False with the kernels on the graph's
+    # device.  The JAX package's None picks native by backend; the port
+    # picks it only here
+    host_native_resolver: Optional[bool] = None
     # accelerator fault detection (executor/device_plane.py): per-dispatch
     # deadline in wall ms — a dispatch (including its blocking fetch)
     # overrunning it fails the plane with a typed DeviceFailedError,
@@ -116,6 +129,8 @@ class Config:
     # garbage-collection interval; None disables GC (the simulator
     # requires it)
     gc_interval_ms: Optional[int] = None
+    # leader process (leader-based protocols, i.e. FPaxos)
+    leader: Optional[ProcessId] = None
     # Newt (Tempo) knobs
     newt_tiny_quorums: bool = False
     newt_clock_bump_interval_ms: Optional[int] = None
@@ -199,6 +214,12 @@ class Config:
             )
 
     # --- quorum sizes (protocol facts; fantoch/src/config.rs:252-317) ---
+
+    def basic_quorum_size(self) -> int:
+        return self.f + 1
+
+    def fpaxos_quorum_size(self) -> int:
+        return self.f + 1
 
     def atlas_quorum_sizes(self) -> Tuple[int, int]:
         """(fast_quorum_size, write_quorum_size) = (n//2 + f, f + 1)."""

@@ -1,12 +1,14 @@
 """GraphExecutor: the executor wrapper around DependencyGraph.
 
 Reference: fantoch_ps/src/executor/graph/executor.rs; the port of
-fantoch_tpu/executor/graph/executor.py for one shard.  With
-``Config.batched_graph_executor`` (and the device graph plane) commands
-are ordered by ``BatchedDependencyGraph`` on the card; otherwise by the
-host Tarjan oracle ``DependencyGraph``.  The cross-shard request/reply
-infos of partial replication come with a later slice (ROADMAP.md
-Queue A).
+fantoch_tpu/executor/graph/executor.py.  With
+``Config.batched_graph_executor`` commands are ordered by
+``BatchedDependencyGraph`` on the graph's device (its resident plane with
+``Config.device_graph_plane``, else its host-column route); otherwise by
+the host Tarjan oracle ``DependencyGraph``.  Two-executor split: the main
+executor (index 0) orders and executes commands; the secondary (index 1)
+answers remote dependency requests and absorbs Executed broadcasts — so
+cross-shard request serving never blocks ordering.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from fantoch_tpu_torch.core.kvs import KVStore
 from fantoch_tpu_torch.core.metrics import Metrics
 from fantoch_tpu_torch.core.timing import SysTime
 from fantoch_tpu_torch.executor.base import Executor, ExecutorResult
-from fantoch_tpu_torch.executor.graph.deps_graph import DependencyGraph
+from fantoch_tpu_torch.executor.graph.deps_graph import DependencyGraph, RequestReply
 from fantoch_tpu_torch.protocol.common.graph_deps import Dependency
 
 
@@ -63,6 +65,22 @@ class GraphNoop:
     dot: Dot
 
 
+@dataclass
+class GraphRequest:
+    from_shard: ShardId
+    dots: Set[Dot]
+
+
+@dataclass
+class GraphRequestReply:
+    infos: List[RequestReply]
+
+
+@dataclass
+class GraphExecuted:
+    dots: Set[Dot]
+
+
 GraphExecutionInfo = object  # union of the above
 
 _MAIN_EXECUTOR_INDEX = 0
@@ -71,27 +89,24 @@ _SECONDARY_EXECUTOR_INDEX = 1
 
 class GraphExecutor(Executor):
     def __init__(self, process_id: ProcessId, shard_id: ShardId, config: Config,
-                 *, device=None):
-        """``device`` is the graph plane's (default ``cuda``; without CUDA
-        and without an explicit device the batched graph raises)."""
+                 graph_cls: type | None = None, *, device=None):
+        """``device`` is where the batched graph resolves (default ``cuda``;
+        without CUDA and without an explicit device it raises); the host
+        oracle ``DependencyGraph`` takes none."""
         self._process_id = process_id
         self._shard_id = shard_id
         self._config = config
-        if config.shard_count > 1:
-            raise NotImplementedError(
-                "partial replication (shard_count > 1) is not ported yet: "
-                "ROADMAP.md Queue A"
-            )
-        if config.batched_graph_executor:
-            from fantoch_tpu_torch.executor.graph.batched import (
-                BatchedDependencyGraph,
-            )
+        from fantoch_tpu_torch.executor.graph.batched import BatchedDependencyGraph
 
-            self.graph = BatchedDependencyGraph(
-                process_id, shard_id, config, device=device
+        if graph_cls is None:
+            graph_cls = (
+                BatchedDependencyGraph if config.batched_graph_executor
+                else DependencyGraph
             )
+        if issubclass(graph_cls, BatchedDependencyGraph):
+            self.graph = graph_cls(process_id, shard_id, config, device=device)
         else:
-            self.graph = DependencyGraph(process_id, shard_id, config)
+            self.graph = graph_cls(process_id, shard_id, config)
         self._store = KVStore(
             config.executor_monitor_execution_order,
             config.execution_digests,
@@ -104,8 +119,18 @@ class GraphExecutor(Executor):
     def set_executor_index(self, index: int) -> None:
         self.graph.executor_index = index
 
+    def share_state_from(self, primary: "GraphExecutor") -> None:
+        """Share the primary executor's vertex index (the reference's
+        SharedMap, index.rs:19-22): the secondary request-serving executor
+        must see the main executor's *pending* vertices — answering peer
+        shards only for executed dots deadlocks cross-shard dependency
+        cycles (each shard waits for the others to execute first)."""
+        self.graph.share_vertex_index(primary.graph)
+
     def cleanup(self, time: SysTime) -> None:
-        """Periodic cleanup: nothing to do with one shard."""
+        if self._config.shard_count > 1:
+            self.graph.cleanup(time)
+            self._fetch_actions(time)
 
     def monitor_pending(self, time: SysTime):
         """Liveness watchdog; returns the missing dependency dots (if any)
@@ -167,6 +192,14 @@ class GraphExecutor(Executor):
             if not self._config.execute_at_commit:
                 self.graph.handle_noop(info.dot, time)
                 self._fetch_actions(time)
+        elif isinstance(info, GraphRequest):
+            self.graph.handle_request(info.from_shard, info.dots, time)
+            self._fetch_actions(time)
+        elif isinstance(info, GraphRequestReply):
+            self.graph.handle_request_reply(info.infos, time)
+            self._fetch_actions(time)
+        elif isinstance(info, GraphExecuted):
+            self.graph.handle_executed(info.dots, time)
         else:
             raise AssertionError(f"unknown execution info {info}")
 
@@ -238,6 +271,14 @@ class GraphExecutor(Executor):
             if cmd is None:
                 break
             self._execute(cmd)
+        if self._config.shard_count > 1:
+            added = self.graph.to_executors()
+            if added:
+                self._to_executors.append((self._shard_id, GraphExecuted(added)))
+            for to_shard, dots in self.graph.requests().items():
+                self._to_executors.append((to_shard, GraphRequest(self._shard_id, dots)))
+            for to_shard, infos in self.graph.request_replies().items():
+                self._to_executors.append((to_shard, GraphRequestReply(infos)))
 
     def _execute(self, cmd: Command) -> None:
         tracer = self.tracer
@@ -256,6 +297,6 @@ class GraphExecutor(Executor):
 
     @staticmethod
     def executor_index_of(info: GraphExecutionInfo):
-        if isinstance(info, (GraphAdd, GraphAddBatch, GraphNoop)):
+        if isinstance(info, (GraphAdd, GraphAddBatch, GraphNoop, GraphRequestReply)):
             return (0, _MAIN_EXECUTOR_INDEX)
         return (0, _SECONDARY_EXECUTOR_INDEX)

@@ -25,9 +25,10 @@ The general modes run the reference's loops on the device: every round of
 cooperative launch (``K.peel_stage``), each stopping at the round the
 reference's stops at.  ``resolve_general``'s fast-path ``lax.cond`` is one
 host read of the prologue's bad-cell count, and the resident peeler reads
-one live count at its start and one per compaction.
-``resolve_general_staged`` (the host-column route's resolver) is not
-ported: ROADMAP.md Queue A3.
+one live count at its start and one per compaction.  The reference's
+host-staged peeler (``resolve_general_staged``, pinned to the CPU backend
+for a remote-dispatch rig) has no counterpart: the resident peeler runs
+the same peel-and-compact schedule with every stage on the card.
 
 The plane step's epilogue (``newly = resolved & pending; executed |=
 newly``, the reference's graph_resolve.py:1009-1010) is folded into the
@@ -166,30 +167,47 @@ def _group_and_verify(key, dep):
     return pos_s, dep_s, run_start, chain_ok, int(n_res.item())
 
 
-def _residual_emit(pos_s, dep_s, run_start, chain_ok, src, seq, n_residual, res_n,
-                   *fold):
-    """Stages 3-4: compact everything downstream of a run's first
-    unverified link into ``res_n`` rows, finish it exactly by pointer
-    doubling, and re-emit it at its run's tail positions in (resolved,
-    rank, SCC leader, dot) order.  Returns the packed final-sort key, the
-    resolved flags in sorted space and the unresolved count; with ``fold =
-    (occ, executed)`` (only when ``n_residual <= res_n``) the emit also
-    runs the plane's epilogue through ``pos_s`` and ``newly`` follows.  The
-    doubling here runs over residual rows, not the window's: it never
-    folds."""
+def _residual_chain(pos_s, dep_s, run_start, chain_ok, src, seq, n_residual, res_n):
+    """Stage 3 and the emit order: compact everything downstream of a
+    run's first unverified link into ``res_n`` rows, finish it exactly by
+    pointer doubling (over residual rows, not the window's: it never
+    folds), and sort it in (run, resolved, rank, SCC leader, dot) order.
+    Returns ``(p_r, rpos, rrs, target_r, l_resolved, l_rank, l_leader,
+    l_on_cycle, e)``, ``e`` the emit sort's permutation."""
     p_r = K.lex_sort([chain_ok])[:res_n]  # stable by cflag keeps run order
-    _rpos, rrs, rsrc, rseq, rdep_local = K.residual_view(
+    rpos, rrs, rsrc, rseq, rdep_local = K.residual_view(
         p_r, pos_s, dep_s, run_start, src, seq, n_residual
     )
     target_r = K.group_scan(rrs, p_r)
-    l_resolved, l_rank, l_leader, _ = K.pointer_doubling(rdep_local)
+    l_resolved, l_rank, l_leader, l_on_cycle = K.pointer_doubling(rdep_local)
     e = K.lex_sort(
         [rrs, l_resolved, l_rank, l_leader, rsrc, rseq],
         invert=(False, True),  # unresolved after resolved
     )
+    return p_r, rpos, rrs, target_r, l_resolved, l_rank, l_leader, l_on_cycle, e
+
+
+def _residual_emit(pos_s, dep_s, run_start, chain_ok, src, seq, n_residual, res_n,
+                   *fold):
+    """Stages 3-4: ``_residual_chain``, then the residual re-emitted at its
+    run's tail positions.  Returns the packed final-sort key, the resolved
+    flags in sorted space and the unresolved count; with ``fold = (occ,
+    executed)`` (only when ``n_residual <= res_n``) the emit also runs the
+    plane's epilogue through ``pos_s`` and ``newly`` follows."""
+    p_r, _rpos, _rrs, target_r, l_resolved, *_rest, e = _residual_chain(
+        pos_s, dep_s, run_start, chain_ok, src, seq, n_residual, res_n
+    )
     if fold:
         fold = (*fold, pos_s)
     return K.emit_scatter(e, p_r, l_resolved, target_r, chain_ok, n_residual, *fold)
+
+
+def _residual_size_for(batch: int) -> int:
+    """Default residual capacity (the reference's, graph_resolve.py:194):
+    the whole batch when small (never overflows), B/64 when large; overflow
+    falls back to the full doubling."""
+    cap = batch if batch <= 4096 else max(4096, batch // 64)
+    return _pow2_at_least(cap)
 
 
 def resolve_functional_keyed(
@@ -201,23 +219,31 @@ def resolve_functional_keyed(
     residual_size: int,
     return_structure: bool = False,
 ) -> KeyedResolution:
-    """Sort-based exact resolution of an out-degree-<=1 dependency graph
-    (the reference's latency entry, ``return_structure=False``): group by
-    key, verify chains, finish the residual by pointer doubling at
-    residual scale.  On overflow the residual path still runs over the
-    first ``residual_size`` rows, as the reference does; the caller
-    discards the result."""
-    if return_structure:
-        raise NotImplementedError(
-            "resolve_functional_keyed(return_structure=True) is the host-column "
-            "route's structure entry: ROADMAP.md Queue A"
-        )
+    """Sort-based exact resolution of an out-degree-<=1 dependency graph:
+    group by key, verify chains, finish the residual by pointer doubling at
+    residual scale.  With ``return_structure=False`` (the latency entry)
+    ``resolved`` is in sorted space and rank/leader/on_cycle are zeros; with
+    ``return_structure=True`` (the host-column route below the structure
+    threshold) all five per-vertex columns are in batch order.  On overflow
+    the residual path still runs over the first ``residual_size`` rows, as
+    the reference does; the caller discards the result."""
     batch = dep.shape[0]
+    grouped = _group_and_verify(key, dep)
+    return _keyed_finish(
+        grouped, dot_src, dot_seq, min(residual_size, batch), return_structure
+    )
+
+
+def _keyed_finish(grouped, dot_src, dot_seq, res_n: int, structure: bool):
+    """``resolve_functional_keyed`` after stages 1-2 (``grouped`` from
+    ``_group_and_verify``)."""
+    pos_s, dep_s, run_start, chain_ok, n_residual = grouped
+    batch = pos_s.shape[0]
     assert batch < (1 << 30), "the packed emit key needs batch < 2^30"
-    device = dep.device
-    res_n = min(residual_size, batch)
-    pos_s, dep_s, run_start, chain_ok, n_residual = _group_and_verify(key, dep)
-    overflow = n_residual > res_n
+    device = pos_s.device
+    overflow = torch.full((), n_residual > res_n, dtype=torch.bool, device=device)
+    if structure:
+        return _keyed_structure(grouped, dot_src, dot_seq, res_n, overflow)
     if n_residual == 0:
         order = pos_s
         resolved = torch.ones(batch, dtype=torch.bool, device=device)
@@ -236,8 +262,97 @@ def resolve_functional_keyed(
         zeros,
         torch.zeros(batch, dtype=torch.bool, device=device),
         torch.full((), n_resolved, dtype=torch.int32, device=device),
-        torch.full((), overflow, dtype=torch.bool, device=device),
+        overflow,
     )
+
+
+def _keyed_structure(grouped, dot_src, dot_seq, res_n: int, overflow):
+    """The structure half (reference graph_resolve.py:276-401):
+    ``_residual_chain`` and the emit, then, in
+    plain torch as the reference's is plain XLA, each residual row's rank,
+    leader (as an original index) and cycle flag carried through the emit
+    sort's permutation ``e`` and scattered at the emitted positions over
+    ``rank_fast``/``pos_s``/0, and one more ``K.lex_sort`` realigning the
+    columns to batch order.  With no residual the reference's residual path
+    scatters nothing, so its result is the grouped order and ``rank_fast``."""
+    pos_s, dep_s, run_start, chain_ok, n_residual = grouped
+    batch = pos_s.shape[0]
+    device = pos_s.device
+    p_iota = torch.arange(batch, dtype=torch.int32, device=device)
+    rank_b = torch.where(chain_ok, p_iota - run_start, _UNRESOLVED_RANK).to(torch.int32)
+    leader_b = pos_s.clone()
+    cyc_b = torch.zeros(batch, dtype=torch.bool, device=device)
+    if n_residual == 0:
+        order = pos_s
+        res_b = torch.ones(batch, dtype=torch.bool, device=device)
+        n_resolved = batch
+    else:
+        (p_r, rpos, rrs, target_r, l_resolved, l_rank, l_leader, l_on_cycle,
+         e) = _residual_chain(
+            pos_s, dep_s, run_start, chain_ok, dot_src, dot_seq, n_residual, res_n
+        )
+        packed, res_b, n_unres = K.emit_scatter(
+            e, p_r, l_resolved, target_r, chain_ok, n_residual
+        )
+        order = K.lex_sort([packed], through=pos_s)
+        n_resolved = batch - int(n_unres.item())
+        # per-group constants ride elementwise: the emit sort keeps every
+        # group's block at its offsets (rrs is nondecreasing in p_r order)
+        g_head = torch.ones(res_n, dtype=torch.bool, device=device)
+        g_head[1:] = rrs[1:] != rrs[:-1]
+        firstbad = torch.cummax(torch.where(g_head, p_r, 0), 0).values
+        valid = torch.arange(res_n, device=device) < n_residual
+        el = e.long()
+        e_res = l_resolved[el][valid]
+        sc = p_r[el][valid].long()
+        e_rank = l_rank[el][valid]
+        e_leader = rpos[l_leader.clamp(0, res_n - 1).long()][el][valid]
+        rank_b[sc] = torch.where(
+            e_res, (firstbad - rrs)[valid] + e_rank, _UNRESOLVED_RANK
+        ).to(torch.int32)
+        leader_b[sc] = e_leader
+        cyc_b[sc] = l_on_cycle[el][valid]
+    back = K.lex_sort([pos_s])  # pos_s is a permutation: its inverse
+    bl = back.long()
+    return KeyedResolution(
+        order,
+        res_b[bl],
+        rank_b[bl],
+        leader_b[bl],
+        cyc_b[bl],
+        torch.full((), n_resolved, dtype=torch.int32, device=device),
+        overflow,
+    )
+
+
+def resolve_keyed_auto(
+    key: torch.Tensor,
+    dep: torch.Tensor,
+    dot_src: torch.Tensor,
+    dot_seq: torch.Tensor,
+    *,
+    return_structure: bool = True,
+) -> KeyedResolution:
+    """``resolve_functional_keyed`` at the default residual capacity
+    (``_residual_size_for``), falling back to the exact full-batch
+    ``resolve_functional`` when the residual overflows.  The overflow is
+    known from the one host read of ``n_residual``, so the discarded
+    residual pass of the reference is not run."""
+    batch = dep.shape[0]
+    res_n = min(_residual_size_for(batch), batch)
+    grouped = _group_and_verify(key, dep)
+    if grouped[4] > res_n:
+        full = resolve_functional(dep, dot_src, dot_seq)
+        return KeyedResolution(
+            full.order,
+            full.resolved,
+            full.rank,
+            full.leader,
+            full.on_cycle,
+            full.resolved.sum().to(torch.int32),
+            torch.zeros((), dtype=torch.bool, device=dep.device),
+        )
+    return _keyed_finish(grouped, dot_src, dot_seq, res_n, return_structure)
 
 
 def _order_from_ranks(rank, leader, dot_src, dot_seq) -> torch.Tensor:

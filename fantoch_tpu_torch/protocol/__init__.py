@@ -10,12 +10,12 @@ from fantoch_tpu_torch.protocol.base import (
 from fantoch_tpu_torch.protocol.gc import GCTrack
 from fantoch_tpu_torch.protocol.info import CommandsInfo
 
-# the ported protocols (Basic and FPaxos come with a later slice:
-# ROADMAP.md Queue A)
 _LAZY = {
+    "Basic": "fantoch_tpu_torch.protocol.basic",
     "EPaxos": "fantoch_tpu_torch.protocol.graph_protocol",
     "Atlas": "fantoch_tpu_torch.protocol.graph_protocol",
     "Newt": "fantoch_tpu_torch.protocol.newt",
+    "FPaxos": "fantoch_tpu_torch.protocol.fpaxos",
     "Caesar": "fantoch_tpu_torch.protocol.caesar",
 }
 

@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 
 from fantoch_tpu_torch.core.ids import Dot
 
+# worker index used by leader-based protocols
+LEADER_WORKER_INDEX = 0
 # worker index used for garbage collection (same as leader: leader-based
 # protocols run gc in the leader/acceptor worker)
 GC_WORKER_INDEX = 0

@@ -221,8 +221,14 @@ def test_no_silent_cpu_route(monkeypatch):
         PredecessorsExecutor(1, 0, cfg, device="cpu")
     PredecessorsExecutor(1, 0, Config(3, 1))
 
-    # a multi-key command rides the general mode; routes not ported yet
-    # raise instead of guessing
+    # the host-column route (the plane off) and partial replication: no
+    # device given and no CUDA raises too; an explicit CPU is fine
+    for cfg in (Config(3, 1, batched_graph_executor=True),
+                Config(3, 1, batched_graph_executor=True, shard_count=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            GraphExecutor(1, 0, cfg)
+        GraphExecutor(1, 0, cfg, device="cpu")
+    # a multi-key command rides the general mode
     graph = BatchedDependencyGraph(1, 0, PLANE_CFG, device="cpu")
     two_keys = Command.from_keys(Rifl(1, 1), 0, {"a": (KVOp.put(""),), "b": (KVOp.put(""),)})
     ghost = Dot(2, 1)
@@ -232,9 +238,6 @@ def test_no_silent_cpu_route(monkeypatch):
     ghost_cmd = Command.from_keys(Rifl(2, 1), 0, {"a": (KVOp.put(""),)})
     graph.handle_add(ghost, ghost_cmd, [], RunTime())
     assert graph.commands_to_execute() == [ghost_cmd, two_keys]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedDependencyGraph(1, 0, Config(3, 1, batched_graph_executor=True),
-                               device="cpu")
     from fantoch_tpu_torch.client import ConflictRateKeyGen, Workload
     from fantoch_tpu_torch.core import Planet
     from fantoch_tpu_torch.protocol import EPaxos
@@ -284,6 +287,7 @@ def test_no_silent_cpu_route(monkeypatch):
         lambda: graph_resolve.resolve_graph_plane_step(*state, *feed, mode="keyed"),
         lambda: graph_resolve.resolve_graph_plane_step(*state, *feed, mode="general"),
         lambda: graph_resolve.resolve_general_resident(state[0], state[1], state[2]),
+        lambda: graph_resolve.resolve_keyed_auto(state[1], state[2], state[3], state[1]),
         lambda: K.mutual_collapse(state[0]),
         lambda: K.affine_loop(state[0], state[0], state[4], state[1], state[1], 8),
         lambda: K.peel_stage(state[0], state[1], state[4], state[5], state[2], 4,
