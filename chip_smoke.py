@@ -238,6 +238,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and ``cpu``, every process's order equal.  (FPaxos and Basic run no
    code on the card: their executors keep nothing there, so the CPU tests
    hold them.)
+15. the observability plane and the device-fault injector, in a process
+   of its own as phases 9-14: (d) first, ``capture_device_profile`` for
+   200 ms (a ``torch.profiler`` session, CPU and CUDA) over graph-plane
+   dispatches on the card, its Chrome trace naming the graph kernels;
+   (a) EPaxos at phase 4's sim shape through ``Runner(device="cuda")``
+   with the span log at rate 1.0, the flight recorder and the series: the
+   span log, the series, the flight dumps, the critical path and the
+   Perfetto JSON equal to the same seed's ``Runner(device="cpu")`` run
+   (no field excluded: the sim writes no wall-clock value), its graph
+   wrappers' launches counted (``launches_by_path["observed_sim"]``);
+   (b) a hang and a corrupt (``plane_shadow_rate`` 1.0) at dispatch 3 of
+   p1's graph, table and pred plane, each in the shortest EPaxos, Newt and
+   Caesar sim (four commands a client): the typed error at that dispatch
+   (``DeviceCorruptionError`` naming row 0), nothing launched after a hang
+   was detected, one flight dump a process whose reason names the plane,
+   the ``device-<kind>`` and ``device-failover`` nemesis lines; (c) the
+   table and pred planes at 2^10 and 2^16 slots, then the build audit
+   (every ``csrc`` library built at most once and loaded once in the
+   process) and the device counters of the sweep (a graph plane fed
+   chains too: CUDA-event device ms of every plane above 0,
+   ``device_idle_frac`` in [0, 1]); the traced cuda sim's own device
+   counters are printed with it.
 
 Each phase reports its wall time.  The last lines are the
 ``{"kernels": [...]}`` record, the card line and
@@ -284,6 +306,11 @@ same shapes.
     python3 chip_smoke.py --host-route
 
 runs phase 14 alone in the same way (``--checks`` adds the launch
+asserts).
+
+    python3 chip_smoke.py --observe
+
+runs phase 15 alone in the same way (``--checks`` adds its launch
 asserts).
 
     python3 chip_smoke.py --residual
@@ -4895,6 +4922,322 @@ def phase_host(torch, K, Config, Command, Rifl, KVOp, RunTime, GraphExecutor,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the observability plane and the device-fault injector (phase 15; alone:
+# --observe)
+# ---------------------------------------------------------------------------
+
+OBSERVE_FAULT_AT = 3  # the dispatch the injected faults hit (each plane's k)
+OBSERVE_COMMANDS = 4  # commands a client in the fault sims (the shortest runs)
+PROFILE_MS = 200  # the profile capture's length
+# the sweep of (c): a plane at two capacities, fed the same votes and rows
+SWEEP_CAPACITIES = (1 << 10, 1 << 16)
+# the plane each fault sim targets: its protocol, config knobs and seed (the
+# sims of phases 4, 6 and 8)
+FAULT_SIMS = {
+    "graph": ("EPaxos", dict(batched_graph_executor=True, device_graph_plane=True), 0),
+    "table": ("Newt", dict(newt_detached_send_interval_ms=100, batched_table_executor=True,
+                           device_table_plane=True), 0),
+    "pred": ("Caesar", dict(caesar_wait_condition=True, device_pred_plane=True), 2),
+}
+
+
+def observed_sim(device, out_dir, protocol_name="EPaxos", knobs=None, seed=0,
+                 commands=10, fault=None, shadow=0.0, telemetry=True):
+    """A sim at phase 4's shape (n = 5, f = 2, two keys a command, 50%
+    conflict, three clients a process, reordering) with the span log at
+    rate 1.0, the flight recorder and the series under ``out_dir``, and a
+    fault plan carrying ``fault`` (``DeviceFault`` keywords) when given;
+    returns the runner and the typed failure that ended the run (None)."""
+    from fantoch_tpu_torch import protocol
+    from fantoch_tpu_torch.client import ConflictRateKeyGen, Workload
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.errors import FaultToleranceError
+    from fantoch_tpu_torch.sim import Runner
+    from fantoch_tpu_torch.sim.faults import FaultPlan
+
+    knobs = knobs if knobs is not None else FAULT_SIMS["graph"][1]
+    config = Config(
+        5, 2, executor_monitor_execution_order=True, gc_interval_ms=100,
+        executor_executed_notification_interval_ms=100, trace_sample_rate=1.0,
+        telemetry_interval_ms=50, plane_shadow_rate=shadow, **knobs,
+    )
+    planet = Planet.new("gcp")
+    workload = Workload(
+        shard_count=1, key_gen=ConflictRateKeyGen(50), keys_per_command=2,
+        commands_per_client=commands, payload_size=1,
+    )
+    regions = sorted(planet.regions())[:5]
+    plan = FaultPlan(seed=3).with_device_fault(**fault) if fault else None
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    runner = Runner(
+        getattr(protocol, protocol_name), planet, config, workload, 3,
+        process_regions=list(regions), client_regions=list(regions), seed=seed,
+        device=device, trace_path=f"{out_dir}/trace.jsonl",
+        flight_dir=f"{out_dir}/flight",
+        telemetry_path=f"{out_dir}/series.jsonl" if telemetry else None,
+        fault_plan=plan,
+    )
+    runner.reorder_messages()
+    try:
+        runner.run(extra_sim_time_ms=10_000)
+    except FaultToleranceError as exc:
+        return runner, exc
+    runner.dump_flight("end of run")
+    return runner, None
+
+
+def observed_outputs(out_dir):
+    """The files an observed sim wrote, its critical path and its Perfetto
+    JSON (each from its own span log)."""
+    from fantoch_tpu_torch.observability.critpath import critpath_report
+    from fantoch_tpu_torch.observability.perfetto import to_perfetto, validate_perfetto
+    from fantoch_tpu_torch.observability.tracer import read_trace
+
+    files = {str(p.relative_to(out_dir)): p.read_bytes()
+             for p in sorted(Path(out_dir).rglob("*")) if p.is_file()}
+    events = read_trace(f"{out_dir}/trace.jsonl")
+    perfetto = to_perfetto(events)
+    validate_perfetto(perfetto)
+    return files, critpath_report(events), json.dumps(perfetto, sort_keys=True)
+
+
+def all_launches(K, T, P):
+    return sum(K.LAUNCHES.values()) + sum(T.LAUNCHES.values()) + sum(P.LAUNCHES.values())
+
+
+def fault_case(torch, K, T, P, plane, kind, tmp):
+    """The shortest sim of ``plane``'s protocol on the card whose plan
+    faults p1's plane at dispatch ``OBSERVE_FAULT_AT``: the typed error at
+    that dispatch, nothing launched once a hang or raise was detected, one
+    flight dump a process whose reason names the plane, and the nemesis'
+    ``device-*`` lines."""
+    from fantoch_tpu_torch.errors import DeviceCorruptionError, DeviceFailedError
+    from fantoch_tpu_torch.executor.device_plane import DevicePlane
+
+    protocol_name, knobs, seed = FAULT_SIMS[plane]
+    at_failure = {}
+    real_fail = DevicePlane._fail
+
+    def fail(self, exc):
+        torch.cuda.synchronize()
+        at_failure["launches"] = all_launches(K, T, P)
+        return real_fail(self, exc)
+
+    DevicePlane._fail = fail
+    try:
+        K.reset_launch_counts(), T.reset_launch_counts(), P.reset_launch_counts()
+        t0 = time.perf_counter()
+        out_dir = f"{tmp}/{plane}-{kind}"
+        runner, exc = observed_sim(
+            CARD, out_dir, protocol_name, knobs, seed, commands=OBSERVE_COMMANDS,
+            fault=dict(process_id=1, plane=plane, kind=kind,
+                       at_dispatch=OBSERVE_FAULT_AT, down_dispatches=2),
+            shadow=1.0 if kind == "corrupt" else 0.0, telemetry=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        DevicePlane._fail = real_fail
+    label = f"{plane} {kind}"
+    if kind == "corrupt":
+        assert isinstance(exc, DeviceCorruptionError), (label, exc)
+        assert (exc.array_index, exc.row) == (0, 0), (label, str(exc))
+    else:
+        assert isinstance(exc, DeviceFailedError) and exc.kind == kind, (label, exc)
+        # detected before the dispatch's kernels: nothing launched after
+        assert all_launches(K, T, P) == at_failure["launches"], (label, at_failure)
+    assert exc.plane == plane and exc.process_id == 1, (label, str(exc))
+    assert exc.dispatch == OBSERVE_FAULT_AT, (label, str(exc))
+    assert at_failure["launches"] > 0, (label, "no kernel ran before the fault")
+    dumps = sorted(Path(out_dir, "flight").glob("flight_p*.json"))
+    assert [p.name for p in dumps] == [f"flight_p{p}.json" for p in range(1, 6)], dumps
+    reasons = {json.loads(p.read_text())["reason"] for p in dumps}
+    assert len(reasons) == 1 and f"{plane} plane" in reasons.pop(), label
+    lines = [line for line in runner.nemesis.trace_lines() if " device-" in line]
+    assert [line.split()[1] for line in lines] == [f"device-{kind}", "device-failover"], lines
+    log(f"phase 15: {plane} plane, {kind} at dispatch {OBSERVE_FAULT_AT} ({protocol_name} "
+        f"on {CARD}, {wall:.1f} s): {type(exc).__name__}, {at_failure['launches']} "
+        f"launches before it, {len(dumps)} flight dumps; {lines}")
+    return {"error": str(exc), "launches_before": at_failure["launches"],
+            "wall_s": wall, "nemesis": lines}
+
+
+def chain_graph(Config):
+    """A graph on its plane on the card, for ``feed_chain``."""
+    from fantoch_tpu_torch.executor.graph.batched import BatchedDependencyGraph
+
+    return BatchedDependencyGraph(
+        1, 0, Config(3, 1, batched_graph_executor=True, device_graph_plane=True),
+        device=CARD)
+
+
+def feed_chain(graph, Command, Rifl, KVOp, RunTime, seq):
+    """One feed of 64 single-key commands on 8 keys, each after the one 8
+    before it, in reverse arrival order (one keyed plane dispatch); all 64
+    execute.  Returns the last sequence number fed."""
+    from fantoch_tpu_torch.core import Dot
+    from fantoch_tpu_torch.protocol.common.graph_deps import Dependency
+
+    adds = []
+    for _ in range(64):
+        seq += 1
+        cmd = Command.from_keys(Rifl(1, seq), 0, {f"k{seq % 8}": (KVOp.put(""),)})
+        deps = [Dependency(Dot(1, seq - 8), frozenset({0}))] if seq > 8 else []
+        adds.append((Dot(1, seq), cmd, deps))
+    graph.handle_add_batch(list(reversed(adds)), RunTime())
+    assert len(graph.commands_to_execute()) == 64
+    return seq
+
+
+def capacity_sweep(torch, T, P, Config, Command, Rifl, KVOp, RunTime):
+    """(c): the table plane and the pred plane at each of
+    ``SWEEP_CAPACITIES``, fed the same votes and feeds on the card, and a
+    graph plane fed chains."""
+    from fantoch_tpu_torch.executor.table_plane import DeviceTablePlane
+
+    rng = np.random.default_rng(SEED)
+    graph, seq = chain_graph(Config), 0
+    for _ in range(8):
+        seq = feed_chain(graph, Command, Rifl, KVOp, RunTime, seq)
+    for cap in SWEEP_CAPACITIES:
+        plane = DeviceTablePlane(3, stability_threshold=2, key_buckets=cap, device=CARD)
+        for k in range(64):
+            plane.bucket(f"k{k}")
+        for _ in range(4):
+            keys = rng.integers(0, 64, 256).astype(np.int64)
+            start = rng.integers(1, 40, 256).astype(np.int64)
+            plane.commit_votes(keys, rng.integers(1, 4, 256).astype(np.int64), start,
+                               start + rng.integers(0, 6, 256).astype(np.int64))
+        assert plane._device.type == torch.device(CARD).type and plane._cap == cap
+        pred_plane_run(P, CARD, 256, 32, 4, cap)
+
+
+def profile_capture(torch, K, Config, Command, Rifl, KVOp, RunTime, tmp):
+    """(d): ``capture_device_profile`` for ``PROFILE_MS`` over graph-plane
+    dispatches (a graph on the card fed single-key chains until the
+    capture ends); returns the capture's result and the graph kernels its
+    trace names."""
+    import asyncio
+
+    from fantoch_tpu_torch.observability.exposition import capture_device_profile
+
+    graph = chain_graph(Config)
+    feeds = {"dispatches": 0}
+
+    async def dispatches(done):
+        seq = 0
+        while not done.is_set():
+            seq = feed_chain(graph, Command, Rifl, KVOp, RunTime, seq)
+            feeds["dispatches"] = graph._plane.dispatches
+            await asyncio.sleep(0)
+
+    async def scenario():
+        done = asyncio.Event()
+        work = asyncio.ensure_future(dispatches(done))
+        await asyncio.sleep(0)
+        result = await capture_device_profile(tmp, PROFILE_MS)
+        done.set()
+        await work
+        return result
+
+    result = asyncio.run(scenario())
+    assert "path" in result and result["activities"] == ["CPU", "CUDA"], result
+    trace = json.loads(Path(result["path"]).read_text())
+    names = set()
+    for source in (SOURCE, GENERAL_SOURCE):
+        text = (ROOT / source).read_text()
+        names |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                                text))
+    seen = sorted({name for ev in trace.get("traceEvents", [])
+                   if ev.get("cat") == "kernel"
+                   for name in names if name in ev.get("name", "")})
+    assert seen, f"the capture's trace names no graph kernel ({len(names)} looked for)"
+    assert feeds["dispatches"] > 0
+    return {"ms": result["ms"], "activities": result["activities"],
+            "graph_kernels": seen, "plane_dispatches": feeds["dispatches"],
+            "trace_events": len(trace.get("traceEvents", []))}
+
+
+def phase_observe(torch, K, T, P, Config, Command, Rifl, KVOp, RunTime, checks=True):
+    """Phase 15: the observability plane and the device-fault injector on
+    the card (module docstring, item 15); prints the ``{"observe": ...}``
+    record."""
+    import tempfile
+
+    from fantoch_tpu_torch.core import compile_cache
+    from fantoch_tpu_torch.observability import device as obs_device
+    from fantoch_tpu_torch.ops import _build  # noqa: F401  (registers every source)
+
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_observe_") as tmp:
+        # (d) first: a profiler session in a fresh process
+        t0 = time.perf_counter()
+        out["profile"] = profile_capture(torch, K, Config, Command, Rifl, KVOp, RunTime, tmp)
+        log(f"phase 15: capture_device_profile({PROFILE_MS} ms) over "
+            f"{out['profile']['plane_dispatches']} graph-plane dispatches: a Chrome "
+            f"trace of {out['profile']['trace_events']} events naming "
+            f"{out['profile']['graph_kernels']} ({time.perf_counter() - t0:.1f} s)")
+        # (a) a traced sim on the card against the same seed on the cpu
+        K.reset_launch_counts(), T.reset_launch_counts(), P.reset_launch_counts()
+        obs_device.reset_dispatch_counters()
+        t0 = time.perf_counter()
+        runner, exc = observed_sim(CARD, f"{tmp}/sim-cuda")
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        sim_counters = obs_device.dispatch_counters()
+        assert exc is None, exc
+        t0 = time.perf_counter()
+        _cpu_runner, cpu_exc = observed_sim("cpu", f"{tmp}/sim-cpu")
+        cpu_s = time.perf_counter() - t0
+        assert cpu_exc is None, cpu_exc
+        got, got_report, got_trace = observed_outputs(f"{tmp}/sim-cuda")
+        want, want_report, want_trace = observed_outputs(f"{tmp}/sim-cpu")
+        assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+        assert {"trace.jsonl", "series.jsonl", "flight/flight_p1.json"} <= set(got)
+        # no field is excluded: the sim writes no wall-clock value
+        for name in want:
+            assert got[name] == want[name], f"{name} differs between cuda and cpu"
+        assert got_report == want_report, "critical paths differ"
+        assert got_trace == want_trace, "Perfetto JSON differs"
+        assert got_report["stitch_rate"] == 1.0 and got_report["telescoping_violations"] == 0
+        if checks:
+            ran = [name for name, count in launches.items() if count]
+            assert ran and launches["graph_prologue"] > 0, launches
+        out["sim"] = {"cuda_s": cuda_s, "cpu_s": cpu_s, "launches": launches,
+                      "device_counters": sim_counters,
+                      "files": {name: len(data) for name, data in got.items()},
+                      "spans": got_report["spans"]}
+        log(f"phase 15: EPaxos traced through Runner(device='cuda') ({cuda_s:.1f} s; "
+            f"cpu {cpu_s:.1f} s): span log, series, flight dumps, critical path "
+            f"({got_report['spans']} spans) and Perfetto JSON equal to the cpu run's; "
+            f"launches {launches}; device counters {sim_counters}")
+        # (b) device faults on the card, one sim each
+        out["faults"] = {f"{plane} {kind}": fault_case(torch, K, T, P, plane, kind, tmp)
+                         for plane in FAULT_SIMS for kind in ("hang", "corrupt")}
+        # (c) the build audit and the device counters after a capacity sweep
+        t0 = time.perf_counter()
+        obs_device.reset_dispatch_counters()
+        capacity_sweep(torch, T, P, Config, Command, Rifl, KVOp, RunTime)
+        counts = compile_cache.library_counts()
+        csrc = sorted(p.stem for p in (ROOT / "fantoch_tpu_torch" / "csrc").glob("*.cu"))
+        for name in csrc:
+            assert counts[name]["builds"] <= 1 and counts[name]["loads"] == 1, (name, counts)
+        counters = obs_device.device_counters()
+        for plane in ("graph", "table", "pred"):
+            assert counters[f"{plane}_plane_device_ms"] > 0, counters
+        assert 0.0 <= counters["device_idle_frac"] <= 1.0, counters
+        out["build_audit"] = {name: counts[name] for name in csrc}
+        out["device_counters"] = counters
+        log(f"phase 15: capacities {SWEEP_CAPACITIES} swept ({time.perf_counter() - t0:.1f} "
+            f"s): libraries {out['build_audit']}; device counters {counters}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 15: {out['wall_s']:.1f} s in its process")
+    log(json.dumps({"observe": out}))
+    return out
+
+
 # the kernels redesigned since the first slices, named in phase 0
 REDESIGNED = ("k_radix_", "k_stable_select", "k_affine_", "k_peel_stage", "k_mc_",
               "k_prologue_", "k_vr_", "k_one_cta", "k_grid", "k_link_scan", "k_pc_",
@@ -4960,6 +5303,7 @@ def main():
     epilogue_only = "--epilogue" in sys.argv[1:]
     residual_only = "--residual" in sys.argv[1:]
     host_only = "--host-route" in sys.argv[1:]
+    observe_only = "--observe" in sys.argv[1:]
     if chain_only:  # the general chain alone (also on an older checkout)
         sources = ["graph_general", "graph_plane_step"]
     if redesign_only:  # phase 9 alone (also on an older checkout)
@@ -4968,6 +5312,8 @@ def main():
         sources = ["graph_general", "graph_plane_step", "table_plane"]
     if epilogue_only or residual_only or host_only:  # phase 12, 13 or 14 alone
         sources = ["graph_general", "graph_plane_step"]
+    if observe_only:  # phase 15 alone: every source (its fault sims run all planes)
+        sources = ["graph_general", "graph_plane_step", "pred_plane", "table_plane"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
@@ -5019,6 +5365,11 @@ def main():
     if host_only:
         phase_host(torch, K, Config, Command, Rifl, KVOp, RunTime, GraphExecutor,
                    GraphAddBatch, checks="--checks" in sys.argv[1:])
+        log(card)
+        return 0
+    if observe_only:
+        phase_observe(torch, K, T, P, Config, Command, Rifl, KVOp, RunTime,
+                      checks="--checks" in sys.argv[1:])
         log(card)
         return 0
 
@@ -5134,6 +5485,10 @@ def main():
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
                                            host["max_abs_err"])
         records[name]["host_route_checked_calls"] = host["checked_calls"].get(name, 0)
+    observe = timed("phase 15", phase_apart, "--observe", "observe")
+    # the traced sim's path: the graph wrappers' counts, read just after it
+    for name, record in records.items():
+        record["launches_by_path"]["observed_sim"] = observe["sim"]["launches"].get(name, 0)
     log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": list(records.values())}))
     log(card)

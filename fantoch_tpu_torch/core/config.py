@@ -105,6 +105,11 @@ class Config:
     # device.  The JAX package's None picks native by backend; the port
     # picks it only here
     host_native_resolver: Optional[bool] = None
+    # the build directory of the port's libraries (core/compile_cache.py):
+    # an explicit path here beats the FANTOCH_COMPILE_CACHE_DIR env var,
+    # which beats the obs-dir / package defaults.  None = resolve
+    # through env/defaults
+    compile_cache_dir: Optional[str] = None
     # accelerator fault detection (executor/device_plane.py): per-dispatch
     # deadline in wall ms — a dispatch (including its blocking fetch)
     # overrunning it fails the plane with a typed DeviceFailedError,

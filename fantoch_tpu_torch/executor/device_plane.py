@@ -18,7 +18,9 @@ every plane shares:
   residual columns, buffered host-side and prepended to the next feed, or
   stays resident until a later feed unblocks it.
 * **per-dispatch counters** — dispatches / occupancy / residual work /
-  kernel wall-ms, surfaced through ``Executor.device_counters()``.
+  kernel wall-ms, surfaced through ``Executor.device_counters()``; and
+  each dispatch's device time (CUDA events on a card, the host clock on
+  the CPU), folded into ``observability/device.py``'s counters.
 * **kernel-threshold switches** — config > env > built-in default
   (:func:`resolve_threshold`).
 
@@ -40,12 +42,21 @@ have produced:
   ``DeviceCorruptionError`` naming the first diverging row — before any
   host bookkeeping consumes the outputs.
 
-Either error marks the plane failed and goes to the caller: the round is
-never served from the twin, and a failed plane refuses every later
-dispatch (and a snapshot), so a slow or wrong kernel cannot hide behind
-its plain version.  Recovery is the caller's: restore an executor from a
-snapshot taken while healthy.  Unarmed (the default), none of this costs
-anything.
+**Fault injection**: an attached
+:class:`~fantoch_tpu_torch.sim.device_faults.DeviceFaultInjector` is
+consulted before each fused dispatch (and arms the plane).  A ``hang``
+or ``raise`` fault raises ``DeviceFailedError`` before that dispatch's
+kernels launch (short-circuiting a hung dispatch *is* its deadline); a
+``corrupt`` fault flips one bit of resident state array 0 on the card
+after the kernels ran, which the shadow check then names.
+
+Either error marks the plane failed, calls the attached failure listener
+(the sim runner records it and dumps the flight ring) and goes to the
+caller: the round is never served from the twin, and a failed plane
+refuses every later dispatch (and a snapshot), so a slow or wrong kernel
+cannot hide behind its plain version.  Recovery is the caller's: restore
+an executor from a snapshot taken while healthy.  Unarmed (the default),
+none of this costs anything.
 
 **Device.**  A plane runs on ``device`` (default ``cuda``); without CUDA
 and without an explicit device it raises rather than run on the CPU.
@@ -63,6 +74,7 @@ import torch
 
 from fantoch_tpu_torch.core.kvs import Key
 from fantoch_tpu_torch.errors import DeviceCorruptionError, DeviceFailedError
+from fantoch_tpu_torch.observability.device import DispatchTimer, record_dispatch
 
 # plane health gauge (numeric so a pool can max-fold it: worst state
 # wins; the values are the reference package's gauge values)
@@ -145,6 +157,7 @@ class DevicePlane:
         "grows",
         "resident_uploads",
         "stats",
+        "_timers",
         # --- accelerator fault detection ---
         "health",
         "plane_failures",
@@ -156,6 +169,8 @@ class DevicePlane:
         "_fault_armed",
         "_twin_state",
         "_twin_log",
+        "_injector",
+        "_failure_listener",
     )
 
     # subclasses name themselves in errors
@@ -182,6 +197,8 @@ class DevicePlane:
         self.resident_uploads = 0
         # per-dispatch observability tallies (observability/device.py)
         self.stats: Dict[str, float] = dict(stats)
+        # the device-time brackets of the dispatch being counted
+        self._timers: List[DispatchTimer] = []
         self._reset_faults()
 
     # --- state hooks (subclass responsibility) ---
@@ -284,13 +301,26 @@ class DevicePlane:
 
     # --- per-dispatch counters ---
 
+    def _timer(self) -> DispatchTimer:
+        """Start a device-time bracket for the kernels about to launch;
+        the caller stops it once they are enqueued, and the dispatch's
+        brackets fold into the device counters when it is counted."""
+        timer = DispatchTimer(self._device).start()
+        self._timers.append(timer)
+        return timer
+
     def _count_dispatch(self, t0: float, **adds: float) -> None:
         """Tally one dispatch: wall time since ``t0`` into
-        ``stats["kernel_ms"]`` plus any per-plane increments."""
+        ``stats["kernel_ms"]`` plus any per-plane increments, and its
+        device time (its blocking fetch has drained it) into the device
+        counters."""
         self.dispatches += 1
         self.stats["kernel_ms"] += (time.perf_counter() - t0) * 1000.0
         for name, value in adds.items():
             self.stats[name] += value
+        if self._timers:
+            record_dispatch(self.plane_name, self._timers)
+            self._timers = []
 
     # --- accelerator fault detection ---
 
@@ -306,6 +336,9 @@ class DevicePlane:
         # host-twin detector: folded host state + the unfolded dispatch log
         self._twin_state: Optional[Tuple[np.ndarray, ...]] = None
         self._twin_log: List = []
+        # runtime wiring (the sim runner attaches both; never pickled)
+        self._injector = None
+        self._failure_listener = None
 
     def configure_faults(
         self, config, seed: int = 0, process_id: Optional[int] = None
@@ -318,8 +351,25 @@ class DevicePlane:
         self._fault_seed = seed
         if process_id is not None:
             self._fault_pid = process_id
+        self._refresh_armed()
+
+    def attach_injector(self, injector) -> None:
+        """Attach a DeviceFaultInjector (sim/device_faults.py); arms the
+        plane, so a corrupt fault has a twin to be caught against."""
+        self._injector = injector
+        self._refresh_armed()
+
+    def attach_failure_listener(self, listener) -> None:
+        """``listener(plane, exc)`` fires on every failure the plane
+        detects, before the typed error goes to the caller — the sim
+        runner wires it to the nemesis trace + flight-recorder dump."""
+        self._failure_listener = listener
+
+    def _refresh_armed(self) -> None:
         self._fault_armed = (
-            self._shadow_rate > 0.0 or self._timeout_ms is not None
+            self._injector is not None
+            or self._shadow_rate > 0.0
+            or self._timeout_ms is not None
         )
 
     def health_name(self) -> str:
@@ -335,11 +385,53 @@ class DevicePlane:
             )
 
     def _fail(self, exc: BaseException):
-        """Mark the plane failed and raise ``exc`` to the caller."""
+        """Mark the plane failed, tell the failure listener, and raise
+        ``exc`` to the caller."""
         self.health = HEALTH_FAILED
         self.plane_failures += 1
         self.last_failure = exc
+        listener = self._failure_listener
+        if listener is not None:
+            listener(self, exc)
         raise exc
+
+    # --- fault injection (an attached injector only) ---
+
+    def _fault_check_pre(self):
+        """Consult the injector before a fused dispatch's kernels launch.
+        hang/raise faults fail the plane here, so that dispatch launches
+        nothing (a hung dispatch never completes — short-circuiting it
+        *is* its deadline, kept deterministic instead of sleeping the
+        wall budget); a corrupt fault is returned for the caller to apply
+        with :meth:`_poison_resident` once the kernels ran."""
+        inj = self._injector
+        if inj is None:
+            return None
+        fault = inj.on_dispatch(self.plane_name, self.dispatches)
+        if fault is None:
+            return None
+        if fault.kind == "hang":
+            self._fail(DeviceFailedError(
+                self.plane_name, self._fault_pid, "hang",
+                self.dispatches, self._timeout_ms,
+            ))
+        if fault.kind == "raise":
+            self._fail(DeviceFailedError(
+                self.plane_name, self._fault_pid, "raise", self.dispatches,
+                cause=RuntimeError("injected device runtime error"),
+            ))
+        return fault
+
+    def _poison_resident(self, fault) -> None:
+        """Apply an injected corrupt fault: flip ``fault.bit`` of flat
+        element 0 of resident state array 0, in place on the card.
+        Callers apply it AFTER the dispatch's resident update (a
+        post-compute memory flip), so the kernels cannot overwrite the
+        flipped cell in the same round and a rate-1.0 shadow check
+        catches it on the faulted dispatch; the host twin never sees the
+        flip, which is exactly why the compare names it."""
+        state = self._resident[0]
+        state.view(-1)[:1].bitwise_xor_(1 << fault.bit)
 
     # --- host twin (armed only; a detector, never a server) ---
 
@@ -468,7 +560,10 @@ class DevicePlane:
         state = {
             slot: getattr(self, slot)
             for slot in self._all_slots()
-            if slot not in ("_resident", "_host_mirror", "last_failure")
+            if slot not in (
+                "_resident", "_host_mirror", "last_failure", "_timers",
+                "_injector", "_failure_listener",
+            )
         }
         mirror = self._host_mirror
         if self._resident is not None:
@@ -478,6 +573,7 @@ class DevicePlane:
 
     def __setstate__(self, state) -> None:
         self._reset_faults()
+        self._timers = []
         for slot, value in state.items():
             setattr(self, slot, value)
         # device state never survives a pickle: the next dispatch

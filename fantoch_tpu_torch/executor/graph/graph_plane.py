@@ -475,14 +475,17 @@ class DeviceGraphPlane(DevicePlane):
         # its mode, so the twin replays the identical step sequence and
         # tracks the resident state bit for bit (armed-only no-op)
         self._twin_note((mode,) + cols)
+        # an injected hang/raise fails the plane here, before any launch
+        fault = self._fault_check_pre()
         self._materialize()
         dev = self._device
-        out = resolve_graph_plane_step(
-            *self._resident,
-            *(torch.tensor(c, device=dev) for c in cols),
-            mode=mode,
-        )
+        feed = [torch.tensor(c, device=dev) for c in cols]
+        timer = self._timer()
+        out = resolve_graph_plane_step(*self._resident, *feed, mode=mode)
+        timer.stop()
         self._resident = tuple(out[:6])
+        if fault is not None:
+            self._poison_resident(fault)
         return out, mode, ucap
 
     # --- host twin (the fault detector; DevicePlane base) ---

@@ -515,12 +515,17 @@ class DevicePredPlane(DevicePlane):
         entry = (u_row, u_deps, u_clock, u_src, p_row, p_col, p_val)
         self._twin_note(entry)
         t0 = _time.perf_counter()
+        # an injected hang/raise fails the plane here, before any launch
+        fault = self._fault_check_pre()
         self._materialize()
         dev = self._device
-        out = resolve_pred_plane_step(
-            *self._resident, *(torch.tensor(c, device=dev) for c in entry)
-        )
+        feed = [torch.tensor(c, device=dev) for c in entry]
+        timer = self._timer()
+        out = resolve_pred_plane_step(*self._resident, *feed)
+        timer.stop()
         self._resident = tuple(out[:5])
+        if fault is not None:
+            self._poison_resident(fault)
         # one blocking transfer for the dispatch's result
         newly = out.newly.to("cpu", copy=True).numpy()
         self._check_deadline(t0)

@@ -164,13 +164,16 @@ class DeviceTablePlane(DevicePlane):
         # (armed-only no-op)
         self._twin_note(cols)
         t0 = time.perf_counter()
+        # an injected hang/raise fails the plane here, before any launch
+        fault = self._fault_check_pre()
         self._materialize()
         dev = self._device
-        out = fused_votes_commit(
-            *self._resident,
-            *(torch.tensor(c, device=dev) for c in cols),
-            threshold=self.threshold,
-        )
+        feed = [torch.tensor(c, device=dev) for c in cols]
+        timer = self._timer()
+        out = fused_votes_commit(*self._resident, *feed, threshold=self.threshold)
+        timer.stop()
+        if fault is not None:
+            self._poison_resident(fault)
         fetched = tuple(t.to("cpu", copy=True).numpy() for t in out[1:])
         self._check_deadline(t0)
         if self._shadow_sampled():

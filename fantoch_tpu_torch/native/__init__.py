@@ -24,16 +24,23 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+
+from fantoch_tpu_torch.core import compile_cache
 
 SOURCE = Path(__file__).resolve().parent / "tarjan.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+# the library's entry in the build audit (core/compile_cache.py)
+LIBRARY = "tarjan"
+compile_cache.register_library(LIBRARY)
 
 
 class NativeBuildError(RuntimeError):
@@ -52,10 +59,13 @@ def _build(output: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = output.with_name(f"{output.stem}.{os.getpid()}.tmp.so")
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", str(tmp), str(SOURCE)]
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired) as exc:
         raise NativeBuildError(f"cannot run {' '.join(cmd)}: {exc!r}") from exc
+    finally:
+        compile_cache.note_build(LIBRARY, t0)
     if proc.returncode != 0:
         raise NativeBuildError(
             f"g++ failed for tarjan.cpp (rc {proc.returncode}):\n"
@@ -79,6 +89,7 @@ def load() -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(output))
             except OSError as exc:
                 raise NativeBuildError(f"cannot load {output}: {exc}") from exc
+            compile_cache.note_load(LIBRARY)
             fn = lib.fantoch_resolve_sccs
             fn.restype = ctypes.c_int32
             fn.argtypes = [

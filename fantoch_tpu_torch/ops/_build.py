@@ -8,6 +8,8 @@ compiled, so a build takes seconds.
 The library lands in ``fantoch_tpu_torch/build/`` (listed in
 ``.gitignore``), named after the source's content hash so an edited source
 never loads a stale library.  A failed build raises with nvcc's output.
+Each build and each load is counted per source in the build audit
+(core/compile_cache.py), which can also point ``BUILD_DIR`` elsewhere.
 """
 
 from __future__ import annotations
@@ -17,8 +19,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, List
+
+from fantoch_tpu_torch.core import compile_cache
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -33,6 +38,9 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # nvcc's output (with ``-Xptxas -v``: registers, shared memory, spills)
 # per source, for the chip smoke to print
 build_logs: Dict[str, str] = {}
+
+for _source in sorted(CSRC_DIR.glob("*.cu")):
+    compile_cache.register_library(_source.stem)
 
 
 def _nvcc() -> str:
@@ -60,7 +68,9 @@ def build(name: str) -> Path:
     cmd = build_command(CSRC_DIR / f"{name}.cu", tmp)
     if not os.path.exists(cmd[0]):
         raise RuntimeError(f"nvcc not found ({cmd[0]}): cannot build {name}.cu")
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    compile_cache.note_build(name, t0)
     build_logs[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(
@@ -76,5 +86,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
+        compile_cache.note_load(name)
         _loaded[name] = lib
     return lib

@@ -10,10 +10,10 @@ Optional adversity: symmetric distances, and random message reordering
 The port of fantoch_tpu/sim/runner.py.  ``Runner(..., device=...)`` names
 the card each process's executor orders its commits on (default
 ``"cuda"``; the tests pass ``"cpu"``, where every kernel runs its plain
-version).  Not ported yet (ROADMAP.md Queue A): the flight recorder and
-the telemetry series (A10) and the device-fault injector (A4's
-``sim/device_faults.py`` hook); asking for one raises
-``NotImplementedError``.
+version).  A device fault from the fault plan fails its plane with a
+typed error that ends the run (after the nemesis records it and the
+flight ring is dumped): the port's planes never fail over to their host
+twin as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -204,10 +204,13 @@ class Runner:
         self._flight = None
         self._flight_dir = flight_dir
         if flight_dir is not None or config.flight_recorder:
-            raise NotImplementedError(
-                "the flight recorder (observability/recorder.py) is not "
-                "ported yet: ROADMAP.md Queue A10"
+            from fantoch_tpu_torch.observability.recorder import FlightRecorder
+
+            self._flight_dir = flight_dir if flight_dir is not None else "."
+            self._flight = FlightRecorder(
+                self._simulation.time, inner=self._tracer, clock="virtual"
             )
+            self._tracer = self._flight
         # per-sender message-edge sequences (cross-process stitching)
         self._edge_seqs: Dict[ProcessId, int] = {}
         # black boxes written by this runner (filled on typed failures,
@@ -219,9 +222,18 @@ class Runner:
         self._telemetry = None
         self._telemetry_interval_ms = 0
         if telemetry_path is not None:
-            raise NotImplementedError(
-                "the telemetry series (observability/timeseries.py) is not "
-                "ported yet: ROADMAP.md Queue A10"
+            from fantoch_tpu_torch.observability.timeseries import (
+                DEFAULT_WINDOW_MS,
+                SeriesWriter,
+            )
+
+            self._telemetry_interval_ms = (
+                config.telemetry_interval_ms or DEFAULT_WINDOW_MS
+            )
+            self._telemetry = SeriesWriter(
+                telemetry_path,
+                self._simulation.time,
+                window_ms=self._telemetry_interval_ms,
             )
         # telemetry tallies: client submissions/replies (cluster level)
         # and per-process submit deliveries; the latency histogram is
@@ -340,21 +352,53 @@ class Runner:
                     )
 
     def _arm_device_faults(self, executor, process_id: ProcessId) -> None:
-        """Seed the fault detector of this executor's device planes from
-        the sim seed (no-op when it drives none), so same-seed runs shadow
-        -check the same dispatches as the reference's.  The FaultPlan's
-        device faults (sim/device_faults.py) would be injected here too;
-        the port's planes have no injector hook yet, so a plan that
-        carries device faults raises."""
-        for plane in executor.device_planes():
+        """Wire the accelerator fault plane into this executor's device
+        planes (no-op when it drives none): re-seed the shadow sampler
+        from the sim seed, attach the FaultPlan's DeviceFault injector
+        (per-process — every replica counts its own dispatches), and a
+        failure listener that records each failure in the nemesis trace
+        (under the JAX package's ``device-failover`` name) and dumps the
+        flight ring (the black box for device failures).  The typed
+        error then ends the run."""
+        planes = executor.device_planes()
+        if not planes:
+            return
+        for plane in planes:
             plane.configure_faults(
                 self._config, seed=self._seed, process_id=process_id
             )
-        if self._nemesis is not None and self._nemesis.plan.device_faults:
-            raise NotImplementedError(
-                "device-fault injection (sim/device_faults.py into the "
-                "device planes) is not ported yet: ROADMAP.md Queue A4"
+        device_faults = (
+            self._nemesis.plan.device_faults
+            if self._nemesis is not None
+            else ()
+        )
+        if device_faults:
+            from fantoch_tpu_torch.sim.device_faults import DeviceFaultInjector
+
+            def record(plane_name, kind, dispatch, detail, _pid=process_id):
+                self._nemesis.record(
+                    self._simulation.time.millis(),
+                    f"device-{kind}",
+                    f"p{_pid}:{plane_name}@{dispatch} {detail}",
+                )
+
+            injector = DeviceFaultInjector(
+                device_faults, process_id=process_id, record=record
             )
+            for plane in planes:
+                plane.attach_injector(injector)
+
+        def on_failure(plane, exc, _pid=process_id):
+            if self._nemesis is not None:
+                self._nemesis.record(
+                    self._simulation.time.millis(),
+                    "device-failover",
+                    f"p{_pid}:{plane.plane_name} {type(exc).__name__}",
+                )
+            self.dump_flight(f"device-failover-p{_pid}-{plane.plane_name}")
+
+        for plane in planes:
+            plane.attach_failure_listener(on_failure)
 
     # --- adversity knobs (runner.rs:192-198) ---
 
@@ -696,6 +740,10 @@ class Runner:
                 ("protocol", process.metrics()),
                 ("executor", executor.metrics()),
             ):
+                if metrics is None:
+                    # an executor that keeps no metrics (Newt's table
+                    # executor) adds nothing to its window
+                    continue
                 for kind, value in metrics.aggregated.items():
                     name = getattr(kind, "value", str(kind))
                     counters[f"{prefix}_{name}"] = value

@@ -2,7 +2,8 @@
 
 * ``fantoch_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   anything of ``fantoch_tpu`` (an AST scan plus a fresh interpreter that
-  imports every port module, the simulator, EPaxos/Atlas and the clients
+  imports every port module, the simulator, EPaxos/Atlas, the clients,
+  the observability plane, the build audit and the device-fault injector
   among them).
 * No silent CPU route: without CUDA, building a graph or pred plane or its
   executor without ``device=`` raises, and a wrapper handed CUDA tensors
@@ -72,7 +73,14 @@ def test_port_imports_no_jax_and_no_reference_package():
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py")
     )
-    for entry in ("sim.runner", "protocol.graph_protocol", "protocol.caesar", "client"):
+    for entry in (
+        "sim.runner", "protocol.graph_protocol", "protocol.caesar", "client",
+        "observability", "observability.report", "observability.recorder",
+        "observability.timeseries", "observability.critpath",
+        "observability.perfetto", "observability.device",
+        "observability.exposition", "utils.prof", "core.compile_cache",
+        "sim.device_faults",
+    ):
         assert f"fantoch_tpu_torch.{entry}" in modules, entry
     script = (
         "import importlib, sys\n"
@@ -203,7 +211,7 @@ def _armed_pred_plane_fails_to_the_caller(monkeypatch):
     assert len(steps) == 4, steps
 
 
-def test_no_silent_cpu_route(monkeypatch):
+def test_no_silent_cpu_route(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     # no device given and no CUDA: the plane, the graph and the executor raise
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -247,10 +255,11 @@ def test_no_silent_cpu_route(monkeypatch):
     regions = sorted(planet.regions())[:3]
     workload = Workload(1, ConflictRateKeyGen(50), 2, 1, 1)
     sim_cfg = PLANE_CFG.with_(gc_interval_ms=100)
-    for kwargs in ({"telemetry_path": "t.jsonl"}, {"flight_dir": "."}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Runner(EPaxos, planet, sim_cfg, workload, 1, regions, regions,
-                   device="cpu", **kwargs)
+    # the series and the flight recorder are there on the CPU too
+    for kwargs in ({"telemetry_path": str(tmp_path / "t.jsonl")},
+                   {"flight_dir": str(tmp_path)}):
+        Runner(EPaxos, planet, sim_cfg, workload, 1, regions, regions,
+               device="cpu", **kwargs)
     # the simulator's default device is the card
     with pytest.raises((RuntimeError, AssertionError)):
         Runner(EPaxos, planet, sim_cfg, workload, 1, regions, regions).run()
